@@ -1,0 +1,576 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card (an H100).
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own line; any failure exits non-zero before
+the result line:
+
+1. the card: ``torch.cuda.get_device_name(0)`` and nvidia-smi's name and
+   power limit;
+2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
+3. hold each kernel on the card bit for bit against its plain PyTorch
+   version on the card, at the training step's shapes (batch 5), at the
+   predict shape (batch 500) and at ragged shapes, over the Δ kinds
+   (lut / bitshift / exact), the formats (lns16 / lns12) and the epilogues;
+4. hold ``encode`` (all 256 pixel values) and ``lns_value_to_code`` (every
+   lns16 / lns12 code) on the card against the CPU lane, and count how
+   many exact-Δ codes the card and the CPU round differently;
+5. the main path: ``run_experiment`` trains the full-width 784–100–10
+   MLP for 20 fused steps of batch 5 on synthetic ``mnist`` with
+   ``lns16-train-pallas`` on the card, then evaluates; the same run on the
+   CPU lane must give equal weight codes and accuracies, and the launch
+   counters must show 2 fused-forward, 1 dX, 2 dW-update and 2 update
+   launches per step (plus 2 forward launches per predict batch);
+6. times: ms per train step, and each kernel and its plain version by
+   CUDA events at the step's shapes.
+
+The line before the last is a JSON object describing each kernel; the last
+is ``{"ok": true, "device": {...}}``.  Runs in well under the 1200 s limit
+on one card; needs no network.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks: 3.35 TB/s of HBM (NVIDIA data sheet).  int32 ALU ops:
+# 64 INT32 lanes per SM (Hopper white paper) x 132 SMs x 1.98 GHz, the
+# boost clock behind the data sheet's 67 TFLOP/s float32.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations per ⊞-MAC step, counted from csrc/lns_mac.cu: the
+# product (10) and the ⊞ with a LUT Δ (36).  Per output at flush: the
+# forward epilogue (bias ⊞ 36, llReLU 5, requantize 8) and the ⊞-SGD
+# (scalar ⊡ 6 + ⊞ 36, once for lr, again for momentum and weight decay).
+OPS_PER_MAC = 46
+OPS_FWD_EPILOGUE = 49
+OPS_SGD_TERM = 42
+
+SEED = 0
+BATCH = 5
+STEPS = 20
+PREDICT_BATCH = 500
+
+
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ data --
+
+def operands(torch, rk, shape, *, scale, zero_frac, fmt, device):
+    """LNS operand of ``shape`` from a seeded normal, a share of it exact
+    zeros (the ⊞ identity paths)."""
+    from repro_torch.core import encode
+    v = torch.randn(shape, generator=rk) * scale
+    v[torch.rand(shape, generator=rk) < zero_frac] = 0.0
+    return encode(v, fmt).to(device)
+
+
+def fwd_case(torch, rk, m, k, n, fmt, device):
+    x = operands(torch, rk, (m, k), scale=1.0, zero_frac=0.5, fmt=fmt,
+                 device=device)
+    w = operands(torch, rk, (k, n), scale=0.05, zero_frac=0.02, fmt=fmt,
+                 device=device)
+    b = operands(torch, rk, (n,), scale=0.1, zero_frac=0.2, fmt=fmt,
+                 device=device)
+    return x, w, b
+
+
+# ------------------------------------------------------------- phase 3 --
+
+def compare_kernels(torch, device):
+    """Every kernel against its plain version on the card; returns
+    {kernel: max |code difference|} and the number of cases."""
+    from repro_torch.core import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT,
+                                  LNS12, LNS16, LogSGDConfig, UpdateEpilogue,
+                                  beta_code)
+    from repro_torch.kernels import lns_matmul as K
+
+    worst = {name: 0 for name in K.KERNEL_WRAPPERS}
+    cases = 0
+
+    def check(name, got, want, label):
+        nonlocal cases
+        cases += 1
+        if len(got) != len(want):
+            raise AssertionError(f"{name} {label}: {len(got)} planes vs "
+                                 f"{len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{name} {label} plane {i}: "
+                                     f"{g.dtype}{tuple(g.shape)} vs "
+                                     f"{w.dtype}{tuple(w.shape)}")
+            err = int((g.long() - w.long()).abs().max())
+            worst[name] = max(worst[name], err)
+            if err:
+                raise AssertionError(f"{name} {label} plane {i}: max |diff| "
+                                     f"{err}")
+
+    rk = torch.Generator().manual_seed(SEED)
+    sgd_cases = {
+        "plain": LogSGDConfig(lr=0.01),
+        "mom+wd": LogSGDConfig(lr=0.01, weight_decay=0.01, momentum=0.9),
+    }
+    shapes = {"step": (BATCH, 784, 100), "step-out": (BATCH, 100, 10),
+              "ragged": (37, 53, 45)}
+    for spec in (DELTA_DEFAULT, DELTA_BITSHIFT, DELTA_EXACT):
+        for fmt, other in ((LNS16, LNS12), (LNS12, LNS16)):
+            beta = beta_code(0.01, fmt)
+            fwd_eps = {
+                "none": K.FwdEpilogue(),
+                "bias": K.FwdEpilogue(bias=True),
+                "hidden": K.FwdEpilogue(bias=True, llrelu_beta=beta,
+                                        emit_z_sign=True),
+                "hidden+dst": K.FwdEpilogue(bias=True, llrelu_beta=beta,
+                                            dst_fmt=other, emit_z_sign=True),
+            }
+            for sname, (m, k, n) in shapes.items():
+                x, w, b = fwd_case(torch, rk, m, k, n, fmt, device)
+                for ename, ep in fwd_eps.items():
+                    label = f"{spec.kind}/{fmt.name}/{sname}/{ename}"
+                    bc = b.code if ep.bias else None
+                    bs = b.sign if ep.bias else None
+                    got = K.lns_matmul_fused(x.code, x.sign, w.code, w.sign,
+                                             fmt=fmt, spec=spec, epilogue=ep,
+                                             bias_code=bc, bias_sign=bs)
+                    want = K.mac_plain(x.code, x.sign, w.code, w.sign,
+                                       a_contract_axis=1, b_contract_axis=0,
+                                       fmt=fmt, spec=spec, fwd_epilogue=ep,
+                                       bias_code=bc, bias_sign=bs)
+                    check("lns_matmul_fused", got, want, label)
+                # dX: dY (m, n) against W (k, n).
+                dy = operands(torch, rk, (m, n), scale=0.1, zero_frac=0.1,
+                              fmt=fmt, device=device)
+                wk = operands(torch, rk, (k, n), scale=0.05, zero_frac=0.02,
+                              fmt=fmt, device=device)
+                got = K.lns_matmul_dx(dy.code, dy.sign, wk.code, wk.sign,
+                                      fmt=fmt, spec=spec)
+                want = K.mac_plain(dy.code, dy.sign, wk.code, wk.sign,
+                                   a_contract_axis=1, b_contract_axis=1,
+                                   fmt=fmt, spec=spec)
+                check("lns_matmul_dx", got, want,
+                      f"{spec.kind}/{fmt.name}/{sname}")
+                for gname, cfg in sgd_cases.items():
+                    ep = UpdateEpilogue.from_sgd(cfg, fmt)
+                    mom = (operands(torch, rk, (k, n), scale=0.01,
+                                    zero_frac=0.3, fmt=fmt, device=device)
+                           if ep.has_momentum else None)
+                    mkw = dict(m_code=None if mom is None else mom.code,
+                               m_sign=None if mom is None else mom.sign)
+                    got = K.lns_matmul_dw_update(
+                        x.code, x.sign, dy.code, dy.sign, w_code=wk.code,
+                        w_sign=wk.sign, epilogue=ep, fmt=fmt, spec=spec,
+                        **mkw)
+                    want = K.mac_plain(
+                        x.code, x.sign, dy.code, dy.sign, a_contract_axis=0,
+                        b_contract_axis=0, fmt=fmt, spec=spec,
+                        update_epilogue=ep, w_code=wk.code, w_sign=wk.sign,
+                        **mkw)
+                    label = f"{spec.kind}/{fmt.name}/{sname}/{gname}"
+                    check("lns_matmul_dw_update", got, want, label)
+                    g = operands(torch, rk, (n,), scale=0.1, zero_frac=0.1,
+                                 fmt=fmt, device=device)
+                    wb = b
+                    mb = (operands(torch, rk, (n,), scale=0.01,
+                                   zero_frac=0.3, fmt=fmt, device=device)
+                          if ep.has_momentum else None)
+                    ukw = dict(epilogue=ep, fmt=fmt, spec=spec,
+                               m_code=None if mb is None else mb.code,
+                               m_sign=None if mb is None else mb.sign)
+                    got = K.lns_fused_update(wb.code, wb.sign, g.code,
+                                             g.sign, **ukw)
+                    want = K.update_plain(wb.code, wb.sign, g.code, g.sign,
+                                          **ukw)
+                    check("lns_fused_update", got, want, label)
+    # The predict shape and the step's dW shapes at batch 500, lut.
+    for fmt in (LNS16, LNS12):
+        beta = beta_code(0.01, fmt)
+        ep = K.FwdEpilogue(bias=True, llrelu_beta=beta, emit_z_sign=True)
+        x, w, b = fwd_case(torch, rk, PREDICT_BATCH, 784, 100, fmt, device)
+        kw = dict(fmt=fmt, spec=DELTA_DEFAULT, bias_code=b.code,
+                  bias_sign=b.sign)
+        got = K.lns_matmul_fused(x.code, x.sign, w.code, w.sign, epilogue=ep,
+                                 **kw)
+        want = K.mac_plain(x.code, x.sign, w.code, w.sign, a_contract_axis=1,
+                           b_contract_axis=0, fwd_epilogue=ep, **kw)
+        check("lns_matmul_fused", got, want, f"lut/{fmt.name}/predict")
+        dy = operands(torch, rk, (PREDICT_BATCH, 100), scale=0.1,
+                      zero_frac=0.1, fmt=fmt, device=device)
+        up = UpdateEpilogue.from_sgd(sgd_cases["mom+wd"], fmt)
+        mom = operands(torch, rk, (784, 100), scale=0.01, zero_frac=0.3,
+                       fmt=fmt, device=device)
+        args = dict(fmt=fmt, spec=DELTA_DEFAULT, update_epilogue=up,
+                    w_code=w.code, w_sign=w.sign, m_code=mom.code,
+                    m_sign=mom.sign)
+        got = K.mac_cuda(x.code, x.sign, dy.code, dy.sign, a_contract_axis=0,
+                         b_contract_axis=0, **args)
+        want = K.mac_plain(x.code, x.sign, dy.code, dy.sign,
+                           a_contract_axis=0, b_contract_axis=0, **args)
+        check("lns_matmul_dw_update", got, want, f"lut/{fmt.name}/batch500")
+        got = K.lns_matmul_dx(dy.code, dy.sign, w.code, w.sign, fmt=fmt,
+                              spec=DELTA_DEFAULT)
+        want = K.mac_plain(dy.code, dy.sign, w.code, w.sign,
+                           a_contract_axis=1, b_contract_axis=1, fmt=fmt,
+                           spec=DELTA_DEFAULT)
+        check("lns_matmul_dx", got, want, f"lut/{fmt.name}/batch500")
+    torch.cuda.synchronize()
+    return worst, cases
+
+
+# ------------------------------------------------------------- phase 4 --
+
+def compare_float_ops(torch, device):
+    """Card vs CPU for the float32 ops; returns mismatch counts."""
+    from repro_torch.core import (DELTA_EXACT, LNS12, LNS16, DeltaEngine,
+                                  LNSArray, encode, lns_value_to_code)
+    out = {}
+    pix = torch.arange(256, dtype=torch.float32) / 255.0
+    for fmt in (LNS16, LNS12):
+        a, b = encode(pix, fmt), encode(pix.to(device), fmt)
+        out[f"encode/{fmt.name}"] = int(
+            ((a.code != b.code.cpu()) | (a.sign != b.sign.cpu())).sum())
+        codes = torch.arange(fmt.zero_code, fmt.code_max + 1,
+                             dtype=torch.int32)
+        for s in (0, 1):
+            x = LNSArray(codes, torch.full_like(codes, s, dtype=torch.int8))
+            got = lns_value_to_code(x.to(device), fmt).cpu()
+            out[f"lns_value_to_code/{fmt.name}/sign{s}"] = int(
+                (got != lns_value_to_code(x, fmt)).sum())
+        eng = DeltaEngine(DELTA_EXACT, fmt)
+        d = torch.arange(0, 2 * fmt.code_max + 2, dtype=torch.int32)
+        for op in ("plus", "minus"):
+            cpu = getattr(eng, op)(d)
+            card = getattr(eng, op)(d.to(device)).cpu()
+            out[f"exact_delta_{op}/{fmt.name}"] = int((cpu != card).sum())
+    return out
+
+
+# ------------------------------------------------------------- phase 5 --
+
+def main_path(torch):
+    from repro_torch.kernels.lns_matmul import (launch_counts,
+                                                reset_launch_counts)
+    from repro_torch.paper import datasets, run_experiment
+    kw = dict(epochs=1, max_steps_per_epoch=STEPS, batch_size=BATCH,
+              numerics="lns16-train-pallas", seed=SEED)
+    reset_launch_counts()
+    t0 = time.time()
+    card = run_experiment("lns", "mnist", device="cuda", **kw)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    counts = launch_counts()
+    cpu = run_experiment("lns", "mnist", device="cpu", **kw)
+    x, y, xt, _, _ = datasets.load("mnist", "data", SEED)
+    n_val = len(x) // 6
+    pbatches = math.ceil(n_val / PREDICT_BATCH) + math.ceil(
+        len(xt) / PREDICT_BATCH)
+    want = {"lns_matmul_fused": 2 * STEPS + 2 * pbatches,
+            "lns_matmul_dx": STEPS, "lns_matmul_dw_update": 2 * STEPS,
+            "lns_fused_update": 2 * STEPS}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    for k, (c, s) in card.params.items():
+        cc, cs = cpu.params[k]
+        if not ((c == cc).all() and (s == cs).all()):
+            raise AssertionError(f"{k}: card weights differ from the CPU "
+                                 f"lane after {STEPS} steps")
+    if card.val_curve != cpu.val_curve or card.test_acc != cpu.test_acc:
+        raise AssertionError(f"accuracy card {card.val_curve}/"
+                             f"{card.test_acc} vs cpu {cpu.val_curve}/"
+                             f"{cpu.test_acc}")
+    return card, card_s, counts, pbatches
+
+
+# ------------------------------------------------------------- phase 6 --
+
+def time_host(torch, fn, reps):
+    """ms per call of back-to-back calls, by CUDA events: the time the
+    caller waits, host work of the wrapper included."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_device(torch, fn, reps, host_ms):
+    """ms per launch on the card alone: a spin kernel holds the stream
+    while the host enqueues ``reps`` launches behind it, so the events
+    see the launches back to back with no host gap.  Fails if the spin
+    ended before the host finished enqueueing."""
+    cycles = int(3 * reps * host_ms * 1e-3 * 2.0e9)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spun = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t_spin = torch.cuda.Event(enable_timing=True)
+    t_spin.record()
+    torch.cuda._sleep(cycles)
+    spun.record()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if t_spin.elapsed_time(spun) < enqueue_ms:
+        raise AssertionError(f"spin of {t_spin.elapsed_time(spun):.2f} ms "
+                             f"ended before {enqueue_ms:.2f} ms of enqueue")
+    return start.elapsed_time(end) / reps
+
+
+def step_launches(torch, device):
+    """The kernel launches of one fused train step at their real shapes,
+    as (kernel, label, kernel call, plain call, bytes, int32 ops)."""
+    from repro_torch.core import (DELTA_DEFAULT, LNS16, LogSGDConfig,
+                                  UpdateEpilogue, beta_code)
+    from repro_torch.kernels import lns_matmul as K
+    fmt, spec = LNS16, DELTA_DEFAULT
+    rk = torch.Generator().manual_seed(SEED + 1)
+    up = UpdateEpilogue.from_sgd(LogSGDConfig(lr=0.01, weight_decay=0.01),
+                                 fmt)
+    beta = beta_code(0.01, fmt)
+    out = []
+
+    def mac(name, label, a, b, axes, extra, out_planes, epi_ops, **kw):
+        r = a.shape[1 - axes[0]]
+        ct = a.shape[axes[0]]
+        c = b.shape[1 - axes[1]]
+        args = dict(a_contract_axis=axes[0], b_contract_axis=axes[1],
+                    fmt=fmt, spec=spec, **kw)
+        nbytes = 5 * (a.code.numel() + b.code.numel()) + extra \
+            + out_planes * r * c
+        ops = r * c * ct * OPS_PER_MAC + r * c * epi_ops
+        out.append((name, label,
+                    lambda: K.mac_cuda(a.code, a.sign, b.code, b.sign,
+                                       **args),
+                    lambda: K.mac_plain(a.code, a.sign, b.code, b.sign,
+                                        **args), nbytes, ops))
+
+    for (m, k, n), label, ep in (
+            ((BATCH, 784, 100), "hidden (5,784)x(784,100)",
+             K.FwdEpilogue(bias=True, llrelu_beta=beta, emit_z_sign=True)),
+            ((BATCH, 100, 10), "out (5,100)x(100,10)",
+             K.FwdEpilogue(bias=True))):
+        x, w, b = fwd_case(torch, rk, m, k, n, fmt, device)
+        mac("lns_matmul_fused", label, x, w, (1, 0), 5 * n,
+            (6 if ep.emit_z_sign else 5), OPS_FWD_EPILOGUE,
+            fwd_epilogue=ep, bias_code=b.code, bias_sign=b.sign)
+    dy = operands(torch, rk, (BATCH, 10), scale=0.1, zero_frac=0.1, fmt=fmt,
+                  device=device)
+    w2 = operands(torch, rk, (100, 10), scale=0.05, zero_frac=0.02, fmt=fmt,
+                  device=device)
+    mac("lns_matmul_dx", "dX (5,10)x(100,10)^T", dy, w2, (1, 1), 0, 5, 0)
+    for (m, k, n), label in (((BATCH, 784, 100), "w1 (784,100)"),
+                             ((BATCH, 100, 10), "w2 (100,10)")):
+        x = operands(torch, rk, (m, k), scale=1.0, zero_frac=0.5, fmt=fmt,
+                     device=device)
+        d = operands(torch, rk, (m, n), scale=0.1, zero_frac=0.1, fmt=fmt,
+                     device=device)
+        w = operands(torch, rk, (k, n), scale=0.05, zero_frac=0.02, fmt=fmt,
+                     device=device)
+        mac("lns_matmul_dw_update", label, x, d, (0, 0), 5 * k * n, 5,
+            2 * OPS_SGD_TERM, update_epilogue=up, w_code=w.code,
+            w_sign=w.sign)
+    for n, label in ((100, "b1 (100,)"), (10, "b2 (10,)")):
+        w = operands(torch, rk, (n,), scale=0.1, zero_frac=0.2, fmt=fmt,
+                     device=device)
+        g = operands(torch, rk, (n,), scale=0.1, zero_frac=0.1, fmt=fmt,
+                     device=device)
+        kw = dict(epilogue=up, fmt=fmt, spec=spec)
+        out.append(("lns_fused_update", label,
+                    lambda w=w, g=g: K.update_cuda(w.code, w.sign, g.code,
+                                                   g.sign, **kw),
+                    lambda w=w, g=g: K.update_plain(w.code, w.sign, g.code,
+                                                    g.sign, **kw),
+                    15 * n, n * 2 * OPS_SGD_TERM))
+    return out
+
+
+def time_step(torch):
+    """ms per train step on the card (host clock around 100 steps ending
+    in a synchronize), and a torch.profiler view of 10 steps: device time
+    per kernel and the device's busy share of the profiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.paper import datasets
+    from repro_torch.paper.mlp import MLPConfig, make_mlp
+    model = make_mlp("lns", MLPConfig(spec="lns16-train-pallas",
+                                      weight_decay=0.01), "cuda")
+    params = model.init(torch.Generator().manual_seed(SEED))
+    x, y, _, _, _ = datasets.load("mnist", "data", SEED)
+
+    def steps(params, lo, n):
+        for i in range(lo, lo + n):
+            sl = slice(i * BATCH, (i + 1) * BATCH)
+            params, loss = model.train_step(params, x[sl], y[sl])
+        torch.cuda.synchronize()
+        return params, loss
+
+    params, _ = steps(params, 0, 5)
+    n = 100
+    t0 = time.perf_counter()
+    params, loss = steps(params, 5, n)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"loss {float(loss)} is not finite")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(params, 105, 10)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        # Kernel rows only: an operator's row repeats its kernels' time.
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0:
+            rows.append((dev, e.count, e.key))
+    rows.sort(reverse=True)
+    return ms, wall_us, rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is available", file=sys.stderr)
+        return 1
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable ({e}); run from the "
+              f"root of the repository", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lns_matmul import KERNEL_WRAPPERS
+    device = torch.device("cuda")
+
+    name = torch.cuda.get_device_name(0)
+    card = nvidia_smi_line()
+    log("1 device", f"{name}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; device count {torch.cuda.device_count()}")
+    print(card, flush=True)
+
+    t0 = time.time()
+    build.load_library()
+    log("2 build", f"built and loaded in {time.time() - t0:.2f} s")
+    for line in build.build_report().splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("2 build", line.strip())
+
+    t0 = time.time()
+    worst, cases = compare_kernels(torch, device)
+    log("3 kernels", f"{cases} cases bit-exact against the plain versions "
+        f"on the card in {time.time() - t0:.1f} s; max |diff| {worst}")
+
+    mism = compare_float_ops(torch, device)
+    log("4 float ops", f"card vs CPU mismatches: {json.dumps(mism)}")
+    main_keys = [k for k in mism if not k.startswith("exact_delta")]
+    if any(mism[k] for k in main_keys):
+        raise AssertionError("encode / lns_value_to_code differ between "
+                             "the card and the CPU lane")
+
+    card_run, card_s, counts, pbatches = main_path(torch)
+    log("5 main path", f"{STEPS} steps of batch {BATCH} + evaluate in "
+        f"{card_s:.2f} s on the card; weights equal to the CPU lane; "
+        f"val acc {card_run.val_curve}, test acc {card_run.test_acc}; "
+        f"launches {counts} ({pbatches} predict batches)")
+
+    step_ms, wall_us, prof_rows = time_step(torch)
+    log("6 times", f"{step_ms:.3f} ms per train step on {card}")
+    dev_us = sum(r[0] for r in prof_rows)
+    if prof_rows:
+        log("6 profile", f"10 steps: {dev_us / 10:.1f} us of device time "
+            f"in {sum(r[1] for r in prof_rows) / 10:.0f} kernel launches "
+            f"per step; busy share {dev_us / 10 / (step_ms * 1e3):.4f} of "
+            f"the unprofiled step ({dev_us / wall_us:.4f} of the "
+            f"{wall_us / 10:.1f} us profiled step)")
+        for dev, count, key in prof_rows[:12]:
+            log("6 profile", f"{dev / 10:10.2f} us/step  {count / 10:6.1f} "
+                f"launches/step  {key[:90]}")
+    else:
+        log("6 profile", "torch.profiler saw no device time: busy share "
+            "not measured")
+    rows = {}
+    for kname, label, kern, plain, nbytes, ops in step_launches(torch,
+                                                               device):
+        host_ms = time_host(torch, kern, 200)
+        ms = time_device(torch, kern, 200, host_ms)
+        plain_ms = time_host(torch, plain, 5)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S > ops / INT32_OPS_PER_S \
+            else "operations"
+        log("6 times", f"{kname} {label}: {ms:.5f} ms on the card "
+            f"({host_ms:.5f} ms per call with the wrapper; plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms by {by}) on {card}")
+        r = rows.setdefault(kname, dict(ms=0.0, plain_ms=0.0, bytes=0,
+                                        ops=0))
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bytes"] += nbytes
+        r["ops"] += ops
+    replaces = {
+        "lns_matmul_fused": "src/repro/kernels/lns_matmul/lns_matmul.py:599",
+        "lns_matmul_dx": "src/repro/kernels/lns_matmul/lns_matmul.py:539",
+        "lns_matmul_dw_update":
+            "src/repro/kernels/lns_matmul/lns_matmul.py:622",
+        "lns_fused_update": "src/repro/kernels/lns_matmul/update.py:65",
+    }
+    kernels = []
+    for kname in KERNEL_WRAPPERS:
+        r = rows[kname]
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S
+        t_ops = r["ops"] / INT32_OPS_PER_S
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="src/repro_torch/kernels/csrc/lns_mac.cu",
+            replaces=replaces[kname], launches=counts[kname],
+            max_abs_err=worst[kname], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes > t_ops else "operations",
+            library_ms=None))
+    log("6 times", "JSON ms / plain_ms / bound_ms are per train step (the "
+        "sum over the step's launches of each kernel); ms is card time "
+        "alone, plain_ms the plain version's time per call")
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:
+        traceback.print_exc()
+        sys.exit(1)

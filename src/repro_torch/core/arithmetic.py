@@ -1,0 +1,128 @@
+"""Signed LNS arithmetic: ⊡ (mul), ⊞ (add), ⊟ (sub), reductions.
+
+Paper eqs. (2)-(5).  All ops are elementwise over broadcast-compatible
+:class:`LNSArray` operands, carried on int32 codes with explicit saturation
+to the format width.  Sign convention: 1 = negative.
+"""
+from __future__ import annotations
+
+import torch
+
+from .delta import DeltaEngine
+from .formats import LNSFormat
+from .lns import LNSArray
+
+
+def _sat(code, fmt: LNSFormat):
+    """Saturate into the non-zero range, flushing underflow to zero."""
+    over = torch.clamp(code, max=fmt.code_max)
+    return torch.where(over < fmt.min_nonzero_code, fmt.zero_code, over)
+
+
+def boxdot(a: LNSArray, b: LNSArray, fmt: LNSFormat) -> LNSArray:
+    """⊡: linear-domain multiply = log-domain add (eq. 2)."""
+    zero = (a.code == fmt.zero_code) | (b.code == fmt.zero_code)
+    code = torch.where(zero, fmt.zero_code, _sat(a.code + b.code, fmt))
+    sign = torch.where(zero, 0, a.sign ^ b.sign).to(torch.int8)
+    return LNSArray(code, sign)
+
+
+def boxneg(a: LNSArray) -> LNSArray:
+    return LNSArray(a.code, a.sign ^ 1)
+
+
+def boxplus(a: LNSArray, b: LNSArray, eng: DeltaEngine) -> LNSArray:
+    """⊞: linear-domain add = max + Δ±(|X-Y|) (eq. 3)."""
+    fmt = eng.fmt
+    za = a.code == fmt.zero_code
+    zb = b.code == fmt.zero_code
+    d = torch.abs(a.code - b.code)
+    same = a.sign == b.sign
+    delta = torch.where(same, eng.plus(d), eng.minus(d))
+    code = _sat(torch.maximum(a.code, b.code) + delta, fmt)
+    # Opposite signs with equal magnitudes cancel exactly.
+    code = torch.where(~same & (d == 0), fmt.zero_code, code)
+    # Sign of the larger-magnitude operand (eq. 3c).
+    sign = torch.where(same | (a.code > b.code), a.sign, b.sign)
+    # x ⊞ 0 = x.
+    code = torch.where(za, b.code, torch.where(zb, a.code, code))
+    sign = torch.where(za, b.sign, torch.where(zb, a.sign, sign))
+    return LNSArray(code, torch.where(code == fmt.zero_code, 0, sign
+                                      ).to(torch.int8))
+
+
+def boxminus(a: LNSArray, b: LNSArray, eng: DeltaEngine) -> LNSArray:
+    """⊟: a - b = a ⊞ (-b) (eq. 5)."""
+    return boxplus(a, boxneg(b), eng)
+
+
+def boxabs_max(a: LNSArray, axis: int, keepdims: bool = False) -> LNSArray:
+    """Signed max over ``axis`` (value order, not magnitude order)."""
+    key = torch.where(a.sign == 0, a.code + (1 << 30), -a.code - (1 << 30))
+    idx = torch.argmax(key, dim=axis, keepdim=True)
+    code = torch.take_along_dim(a.code, idx, dim=axis)
+    sign = torch.take_along_dim(a.sign, idx, dim=axis)
+    if not keepdims:
+        code, sign = code.squeeze(axis), sign.squeeze(axis)
+    return LNSArray(code, sign)
+
+
+def boxsum(a: LNSArray, axis: int, eng: DeltaEngine,
+           order: str = "pairwise") -> LNSArray:
+    """⊞-reduction along ``axis``.
+
+    ``pairwise``   — balanced tree over the axis zero-padded to a power of
+                     two; what the train step uses for bias gradients and
+                     the softmax denominator.
+    ``sequential`` — left fold, matching a scalar MAC pipeline.
+    ⊞ is only approximately associative, so the order is part of the
+    result.
+    """
+    fmt = eng.fmt
+    code = torch.movedim(a.code, axis, 0)
+    sign = torch.movedim(a.sign, axis, 0)
+    k = code.shape[0]
+    if order == "sequential":
+        acc = LNSArray(torch.full_like(code[0], fmt.zero_code),
+                       torch.zeros_like(sign[0]))
+        for i in range(k):
+            acc = boxplus(acc, LNSArray(code[i], sign[i]), eng)
+        return acc
+    if order != "pairwise":
+        raise ValueError(f"unknown ⊞ order {order!r}; expected 'pairwise' "
+                         "or 'sequential'")
+    n = 1
+    while n < k:
+        n *= 2
+    if n != k:
+        pad = (n - k,) + code.shape[1:]
+        code = torch.cat([code, code.new_full(pad, fmt.zero_code)])
+        sign = torch.cat([sign, sign.new_zeros(pad)])
+    cur = LNSArray(code, sign)
+    while cur.code.shape[0] > 1:
+        h = cur.code.shape[0] // 2
+        cur = boxplus(cur[:h], cur[h:], eng)
+    return cur[0]
+
+
+def lns_matmul(x: LNSArray, w: LNSArray, eng: DeltaEngine) -> LNSArray:
+    """Z[m,n] = ⊞_k (X[m,k] ⊡ W[k,n]) (eq. 10), folded over k ascending.
+
+    ``x``: (M, K), ``w``: (K, N).  One (M, N) accumulator takes the K
+    products in turn: the sequential MAC order that the kernels keep.
+    """
+    fmt = eng.fmt
+    acc = LNSArray(
+        torch.full((x.shape[0], w.shape[1]), fmt.zero_code,
+                   dtype=torch.int32, device=x.device),
+        torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int8,
+                    device=x.device))
+    for k in range(x.shape[1]):
+        acc = boxplus(acc, boxdot(x[:, k:k + 1], w[k:k + 1, :], fmt), eng)
+    return acc
+
+
+def bias_add(z: LNSArray, b: LNSArray, eng: DeltaEngine) -> LNSArray:
+    """z ⊞ b with the bias broadcast over z's leading axes."""
+    return boxplus(z, LNSArray(b.code.expand(z.shape), b.sign.expand(z.shape)),
+                   eng)

@@ -1,0 +1,187 @@
+"""LNS tensor type, float <-> LNS codecs, and the ⊞-MAC dispatcher.
+
+An :class:`LNSArray` carries two tensors of identical shape:
+
+* ``code``: int32, fixed-point encoding of ``X = log2|v|`` (``qf`` fraction
+  bits), with ``fmt.zero_code`` as the reserved exact-zero sentinel;
+* ``sign``: int8, **1 = negative**, 0 = positive.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import f32
+from .formats import LNSFormat
+
+
+@dataclasses.dataclass
+class LNSArray:
+    code: torch.Tensor  # int32
+    sign: torch.Tensor  # int8, 1 = negative
+
+    @property
+    def shape(self):
+        return self.code.shape
+
+    @property
+    def ndim(self):
+        return self.code.ndim
+
+    @property
+    def device(self) -> torch.device:
+        return self.code.device
+
+    def __getitem__(self, idx):
+        return LNSArray(self.code[idx], self.sign[idx])
+
+    @property
+    def T(self):
+        return LNSArray(self.code.T, self.sign.T)
+
+    def to(self, device) -> "LNSArray":
+        return LNSArray(self.code.to(device), self.sign.to(device))
+
+
+def encode(v: torch.Tensor, fmt: LNSFormat) -> LNSArray:
+    """Quantize a float tensor into LNS fixed point (paper eq. 1).
+
+    Zeros (and magnitudes underflowing the format) map to ``zero_code``;
+    magnitudes overflowing saturate to ``code_max``.
+    """
+    v = torch.as_tensor(v).to(torch.float32)
+    mag = torch.abs(v)
+    nonzero = mag > 0
+    x = f32.log2(torch.where(nonzero, mag, 1.0))
+    raw = torch.round(x * fmt.scale)
+    code = torch.clamp(raw.to(torch.int32), fmt.min_nonzero_code,
+                       fmt.code_max)
+    # Zeros and true underflow (rounded below the representable range).
+    zero = ~nonzero | (raw < fmt.min_nonzero_code)
+    code = torch.where(zero, fmt.zero_code, code)
+    return LNSArray(code, (v < 0).to(torch.int8))
+
+
+def decode(a: LNSArray, fmt: LNSFormat) -> torch.Tensor:
+    """Map LNS codes back to float32: v = ±2^(code / 2^qf)."""
+    mag = f32.exp2(a.code.to(torch.float32) / fmt.scale)
+    mag = torch.where(a.code == fmt.zero_code, 0.0, mag)
+    return torch.where(a.sign == 1, -mag, mag)
+
+
+def zeros(shape, fmt: LNSFormat, device="cpu") -> LNSArray:
+    return LNSArray(
+        torch.full(shape, fmt.zero_code, dtype=torch.int32, device=device),
+        torch.zeros(shape, dtype=torch.int8, device=device))
+
+
+def scalar(v: float, fmt: LNSFormat, device="cpu") -> LNSArray:
+    """Host-side scalar constant in LNS (e.g. learning rate, log2(e))."""
+    if v == 0:
+        code, sign = fmt.zero_code, 0
+    else:
+        code = fmt.to_code(float(np.log2(abs(v))))
+        sign = 1 if v < 0 else 0
+    return LNSArray(torch.tensor(code, dtype=torch.int32, device=device),
+                    torch.tensor(sign, dtype=torch.int8, device=device))
+
+
+def convert_format(a: LNSArray, src: LNSFormat, dst: LNSFormat) -> LNSArray:
+    """Re-encode LNS codes between formats by integer shifts.
+
+    A left shift when widening (exact), an add-half + arithmetic right
+    shift (round-half-up) when narrowing.  Zero sentinels are preserved,
+    out-of-range magnitudes saturate, and magnitudes below the
+    destination's resolution flush to zero.
+    """
+    if src == dst:
+        return a
+    shift = dst.qf - src.qf
+    if shift >= 0:
+        code = a.code << shift
+    else:
+        code = (a.code + (1 << (-shift - 1))) >> (-shift)
+    zero = (a.code == src.zero_code) | (code < dst.min_nonzero_code)
+    code = torch.clamp(code, dst.min_nonzero_code, dst.code_max)
+    return LNSArray(torch.where(zero, dst.zero_code, code),
+                    torch.where(zero, 0, a.sign).to(torch.int8))
+
+
+# ------------------------------------------------------------------------
+# ⊞-MAC dispatcher
+# ------------------------------------------------------------------------
+
+_NOT_PORTED = ("LNSMatmulBackend.{} is not ported yet (ROADMAP queue 2 "
+               "items 5-7: the plain forward, plain dW and segmented dW "
+               "kernels)")
+
+
+@dataclasses.dataclass(frozen=True)
+class LNSMatmulBackend:
+    """The ⊞-MAC products of the fused training step, lane by device.
+
+    The lane is chosen by where the operands lie, never by configuration:
+    CUDA tensors go to the hand-written kernels (``kernels/lns_matmul``),
+    which launch or raise; CPU tensors run the kernels' plain PyTorch
+    versions.  The two lanes are bit-exact to each other.
+
+    * ``matmul_fused(x, w)``        Z  = X ⊞-MAC W with the flush epilogue
+    * ``matmul_dx(dy, w)``          dX = dY ⊞-MAC Wᵀ
+    * ``matmul_dw_update(x, dy, ...)``  ⊞-SGD of W by Xᵀ ⊞-MAC dY
+    * ``fused_update(w, g, ...)``   elementwise ⊞-SGD
+    """
+
+    fmt: LNSFormat
+    spec: Any  # DeltaSpec
+
+    def matmul(self, x, w):
+        raise NotImplementedError(_NOT_PORTED.format("matmul"))
+
+    def matmul_dw(self, x, dy):
+        raise NotImplementedError(_NOT_PORTED.format("matmul_dw"))
+
+    def matmul_dw_partials(self, x, dy, num_segments):
+        raise NotImplementedError(_NOT_PORTED.format("matmul_dw_partials"))
+
+    def matmul_fused(self, x: LNSArray, w: LNSArray, *,
+                     bias: "LNSArray | None" = None,
+                     llrelu_beta: "int | None" = None,
+                     out_fmt: "LNSFormat | None" = None,
+                     emit_z_sign: bool = False):
+        """Forward ⊞-MAC with the flush-time epilogue, one pass.
+
+        Applied in order at accumulator flush: bias ⊞, log-leaky-ReLU
+        (``llrelu_beta``) and a requantize onto ``out_fmt``'s grid.
+        Returns the epilogued product, or ``(z, z_sign)`` with the
+        post-bias pre-activation sign plane when ``emit_z_sign``.
+        """
+        from ..kernels.lns_matmul import FwdEpilogue, lns_matmul_fused_kernel
+        if out_fmt is not None and out_fmt == self.fmt:
+            out_fmt = None
+        ep = FwdEpilogue(bias=bias is not None, llrelu_beta=llrelu_beta,
+                         dst_fmt=out_fmt, emit_z_sign=emit_z_sign)
+        return lns_matmul_fused_kernel(x, w, epilogue=ep, bias=bias,
+                                       fmt=self.fmt, spec=self.spec)
+
+    def matmul_dx(self, dy: LNSArray, w: LNSArray) -> LNSArray:
+        """Backward dX = dY (M, N) ⊞-MAC Wᵀ (N, K), sequential over N."""
+        from ..kernels.lns_matmul import lns_matmul_dx_kernel
+        return lns_matmul_dx_kernel(dy, w, fmt=self.fmt, spec=self.spec)
+
+    def matmul_dw_update(self, x: LNSArray, dy: LNSArray, w: LNSArray,
+                         m: "LNSArray | None", epilogue):
+        """Backward-weight ⊞-MAC with the ⊞-SGD update fused at flush.
+        Returns ``(w_new, m_new)`` (``m_new is None`` without momentum)."""
+        from ..kernels.lns_matmul import lns_matmul_dw_update_kernel
+        return lns_matmul_dw_update_kernel(x, dy, w=w, m=m, epilogue=epilogue,
+                                           fmt=self.fmt, spec=self.spec)
+
+    def fused_update(self, w: LNSArray, g: LNSArray, m: "LNSArray | None",
+                     epilogue):
+        """One-pass elementwise ⊞-SGD update: ``(w, m, g) → (w', m')``."""
+        from ..kernels.lns_matmul import lns_fused_update_kernel
+        return lns_fused_update_kernel(w, g, m=m, epilogue=epilogue,
+                                       fmt=self.fmt, spec=self.spec)

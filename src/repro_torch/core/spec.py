@@ -1,0 +1,212 @@
+"""``NumericsSpec``: the serializable descriptor of the LNS arithmetic.
+
+The subset of the JAX package's spec that the paper MLP needs: format, Δ
+approximation, which tensors are quantized, compute dtype and backend.
+``parse`` accepts a registry alias (``"lns16-train-pallas"``), a
+``key=value`` list, or an alias plus overrides
+(``"lns16-train-pallas,delta=bitshift"``); ``str`` gives the same
+canonical text as the JAX package does for those strings.
+
+``backend`` is parsed and printed so that reference spec strings load
+unchanged, but it selects nothing here: the device of the operands
+chooses the lane (see :class:`~repro_torch.core.lns.LNSMatmulBackend`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+from .delta import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT, DELTA_SOFTMAX,
+                    DeltaSpec)
+from .formats import FORMATS, LNS16, LNSFormat
+
+MATMUL_BACKENDS = ("emulate", "pallas")
+QUANTIZE_AXES = ("params", "acts", "grads")
+COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
+#: Spec keys of the JAX package that the port does not parse yet.
+UNPORTED_KEYS = ("interpret", "blocks", "metrics", "reduce.mode",
+                 "reduce.grad_segments", "reduce.schedule")
+
+#: Named Δ specs; other LUTs round-trip as ``lut:<d_max>:<r>``.
+DELTA_NAMES = {
+    "lut20": DELTA_DEFAULT,        # paper default: d_max=10, r=1/2
+    "lut640": DELTA_SOFTMAX,       # softmax-grade: d_max=10, r=1/64
+    "bitshift": DELTA_BITSHIFT,
+    "exact": DELTA_EXACT,
+}
+_DELTA_REVERSE = {v: k for k, v in DELTA_NAMES.items()}
+
+
+def _bad_value(key, got, valid):
+    return ValueError(
+        f"invalid {key}={got!r}; valid values: {', '.join(map(str, valid))}")
+
+
+@dataclasses.dataclass(frozen=True)
+class NumericsSpec:
+    """One frozen descriptor of the approximate arithmetic.
+
+    ======================  ==========  ===================================
+    field                   key         values
+    ======================  ==========  ===================================
+    ``fmt``                 fmt         none | lns16 | lns12 | lns21
+    ``delta_spec``          delta       none | lut20 | lut640 | bitshift |
+                                        exact | ``lut:<d_max>:<r>``
+    ``quantize``            quantize    none or ``+``-joined subset of
+                                        params/acts/grads
+    ``compute_dtype``       compute_dtype  float32 | bfloat16 | float16
+    ``backend``             backend     emulate | pallas (printed only)
+    ======================  ==========  ===================================
+    """
+
+    fmt: Optional[LNSFormat] = None
+    delta_spec: Optional[DeltaSpec] = None
+    quantize: str = ""
+    compute_dtype: str = "bfloat16"
+    backend: str = "emulate"
+
+    def __post_init__(self):
+        if self.backend not in MATMUL_BACKENDS:
+            raise _bad_value("backend", self.backend, MATMUL_BACKENDS)
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise _bad_value("compute_dtype", self.compute_dtype,
+                             COMPUTE_DTYPES)
+        toks = [t for t in self.quantize.split("+") if t]
+        for t in toks:
+            if t not in QUANTIZE_AXES:
+                raise _bad_value("quantize", self.quantize,
+                                 ("none",) + QUANTIZE_AXES)
+        object.__setattr__(self, "quantize",
+                           "+".join(a for a in QUANTIZE_AXES if a in toks))
+        if self.quantize and self.fmt is None:
+            raise ValueError(f"quantize={self.quantize!r} requires an LNS "
+                             f"fmt; valid fmt values: {', '.join(FORMATS)}")
+        if "grads" in toks and self.delta_spec is None:
+            raise ValueError("quantize='...+grads' requires a delta spec")
+        if self.delta_spec is not None and self.fmt is None:
+            raise ValueError("a delta spec requires an LNS fmt")
+
+    def with_(self, **kw) -> "NumericsSpec":
+        """Validated copy with field overrides."""
+        return dataclasses.replace(self, **kw)
+
+    def _flat(self) -> dict:
+        """Serialized ``key → value-string`` view (parse's inverse)."""
+        return {
+            "fmt": self.fmt.name if self.fmt is not None else "none",
+            "delta": _delta_to_str(self.delta_spec),
+            "quantize": self.quantize or "none",
+            "compute_dtype": self.compute_dtype,
+            "backend": self.backend,
+        }
+
+    def __str__(self) -> str:
+        # The registry alias that differs in the fewest keys, then the
+        # differing keys sorted (ties go to registry order).
+        mine = self._flat()
+        best_name, best_diff = None, None
+        for name, spec in ALIASES.items():
+            theirs = spec._flat()
+            diff = {k: v for k, v in mine.items() if theirs[k] != v}
+            if best_diff is None or len(diff) < len(best_diff):
+                best_name, best_diff = name, diff
+        return best_name + "".join(
+            f",{k}={best_diff[k]}" for k in sorted(best_diff))
+
+    @staticmethod
+    def parse(text: "str | NumericsSpec") -> "NumericsSpec":
+        """Parse an alias, a ``key=value`` list, or alias + overrides."""
+        if isinstance(text, NumericsSpec):
+            return text
+        return _parse_cached(str(text))
+
+
+def _delta_to_str(d: Optional[DeltaSpec]) -> str:
+    if d is None:
+        return "none"
+    named = _DELTA_REVERSE.get(d)
+    if named is not None:
+        return named
+    return f"lut:{d.d_max!r}:{d.r!r}"
+
+
+def _delta_from_str(s: str) -> Optional[DeltaSpec]:
+    if s == "none":
+        return None
+    if s in DELTA_NAMES:
+        return DELTA_NAMES[s]
+    if s.startswith("lut:"):
+        try:
+            _, d_max, r = s.split(":")
+            return DeltaSpec(kind="lut", d_max=float(d_max), r=float(r))
+        except ValueError:
+            pass
+    raise _bad_value("delta", s, ("none",) + tuple(sorted(DELTA_NAMES))
+                     + ("lut:<d_max>:<r>",))
+
+
+_PARSE_KEYS = ("fmt", "delta", "quantize", "compute_dtype", "backend")
+
+
+def override_from_kv(key: str, value: str):
+    """Map one serialized ``key``/``value`` pair to a ``with_`` override.
+    Shared by the spec parser and the plan's rule parser."""
+    if key in UNPORTED_KEYS:
+        raise NotImplementedError(
+            f"spec key {key!r} is not ported yet (ROADMAP queue 1, the "
+            f"spec/plan items); ported keys: {', '.join(_PARSE_KEYS)}")
+    if key not in _PARSE_KEYS:
+        raise _bad_value("spec key", key, _PARSE_KEYS)
+    if key == "fmt":
+        if value == "none":
+            return "fmt", None
+        if value not in FORMATS:
+            raise _bad_value("fmt", value, ("none",) + tuple(FORMATS))
+        return "fmt", FORMATS[value]
+    if key == "delta":
+        return "delta_spec", _delta_from_str(value)
+    if key == "quantize":
+        return "quantize", "" if value == "none" else value
+    return key, value
+
+
+def apply_kv_overrides(spec: NumericsSpec, items) -> NumericsSpec:
+    """Apply serialized ``(key, value)`` string pairs onto ``spec``."""
+    overrides = dict(override_from_kv(k, v) for k, v in items)
+    return spec.with_(**overrides) if overrides else spec
+
+
+@functools.lru_cache(maxsize=None)
+def _parse_cached(text: str) -> NumericsSpec:
+    tokens = [t.strip() for t in text.split(",") if t.strip()]
+    if not tokens:
+        raise ValueError(f"empty numerics spec; pass an alias "
+                         f"({', '.join(ALIASES)}) or key=value pairs")
+    if "=" in tokens[0]:
+        spec = NumericsSpec()
+    else:
+        alias = tokens.pop(0)
+        if alias not in ALIASES:
+            raise ValueError(f"unknown numerics alias {alias!r}; the port "
+                             f"has {sorted(ALIASES)}")
+        spec = ALIASES[alias]
+    kv = []
+    for tok in tokens:
+        if "=" not in tok:
+            raise ValueError(f"expected key=value after the alias, got "
+                             f"{tok!r}; valid keys: {', '.join(_PARSE_KEYS)}")
+        kv.append(tuple(p.strip() for p in tok.split("=", 1)))
+    return apply_kv_overrides(spec, kv)
+
+
+#: The training aliases of the JAX package's registry.  Both run the same
+#: arithmetic here; the name keeps reference strings loading unchanged.
+ALIASES = {
+    "lns16-train-emulate": NumericsSpec(
+        fmt=LNS16, quantize="params+acts+grads", delta_spec=DELTA_DEFAULT,
+        compute_dtype="float32", backend="emulate"),
+    "lns16-train-pallas": NumericsSpec(
+        fmt=LNS16, quantize="params+acts+grads", delta_spec=DELTA_DEFAULT,
+        compute_dtype="float32", backend="pallas"),
+}

@@ -1,0 +1,78 @@
+"""``LNSArray``-level entry points of the ⊞-MAC and ⊞-SGD kernels.
+
+Each takes and returns :class:`~repro_torch.core.lns.LNSArray`\\ s and
+routes by device like the wrappers it calls: the CUDA kernel for tensors
+on the card, the plain PyTorch version for tensors on the CPU.
+"""
+from __future__ import annotations
+
+from ...core.delta import DeltaSpec
+from ...core.formats import LNSFormat
+from ...core.lns import LNSArray
+from ...core.sgd import UpdateEpilogue
+from .lns_matmul import (FwdEpilogue, lns_matmul_dw_update, lns_matmul_dx,
+                         lns_matmul_fused)
+from .update import lns_fused_update
+
+
+def _check_momentum(epilogue: UpdateEpilogue, m) -> None:
+    if epilogue.has_momentum != (m is not None):
+        raise ValueError(
+            f"epilogue momentum={epilogue.momentum_code} but momentum "
+            f"state {'was' if m is not None else 'was not'} passed")
+
+
+def lns_matmul_fused_kernel(x: LNSArray, w: LNSArray, *,
+                            epilogue: FwdEpilogue,
+                            bias: "LNSArray | None" = None,
+                            fmt: LNSFormat, spec: DeltaSpec):
+    """Forward ⊞-MAC with the flush-time epilogue, one launch.  Returns
+    the epilogued product, or ``(z, z_sign)`` when
+    ``epilogue.emit_z_sign``."""
+    if epilogue.bias != (bias is not None):
+        raise ValueError(
+            f"epilogue.bias={epilogue.bias} but bias "
+            f"{'was' if bias is not None else 'was not'} passed")
+    outs = lns_matmul_fused(
+        x.code, x.sign, w.code, w.sign, fmt=fmt, spec=spec,
+        epilogue=epilogue, bias_code=None if bias is None else bias.code,
+        bias_sign=None if bias is None else bias.sign)
+    z = LNSArray(outs[0], outs[1])
+    return (z, outs[2]) if epilogue.emit_z_sign else z
+
+
+def lns_matmul_dx_kernel(dy: LNSArray, w: LNSArray, *, fmt: LNSFormat,
+                         spec: DeltaSpec) -> LNSArray:
+    """Backward-activation ⊞-MAC: dY (M, N) ⊞-MAC Wᵀ → dX (M, K)."""
+    return LNSArray(*lns_matmul_dx(dy.code, dy.sign, w.code, w.sign,
+                                   fmt=fmt, spec=spec))
+
+
+def lns_matmul_dw_update_kernel(x: LNSArray, dy: LNSArray, *, w: LNSArray,
+                                epilogue: UpdateEpilogue, fmt: LNSFormat,
+                                spec: DeltaSpec,
+                                m: "LNSArray | None" = None):
+    """Backward-weight ⊞-MAC with the ⊞-SGD update at flush; the weight
+    gradient is never stored.  Returns ``(w_new, m_new)`` (``m_new is
+    None`` without momentum)."""
+    _check_momentum(epilogue, m)
+    outs = lns_matmul_dw_update(
+        x.code, x.sign, dy.code, dy.sign, w_code=w.code, w_sign=w.sign,
+        epilogue=epilogue, fmt=fmt, spec=spec,
+        m_code=None if m is None else m.code,
+        m_sign=None if m is None else m.sign)
+    m_new = LNSArray(outs[2], outs[3]) if epilogue.has_momentum else None
+    return LNSArray(outs[0], outs[1]), m_new
+
+
+def lns_fused_update_kernel(w: LNSArray, g: LNSArray, *,
+                            epilogue: UpdateEpilogue, fmt: LNSFormat,
+                            spec: DeltaSpec, m: "LNSArray | None" = None):
+    """One-pass elementwise ⊞-SGD.  Returns ``(w_new, m_new)``."""
+    _check_momentum(epilogue, m)
+    outs = lns_fused_update(
+        w.code, w.sign, g.code, g.sign, epilogue=epilogue, fmt=fmt,
+        spec=spec, m_code=None if m is None else m.code,
+        m_sign=None if m is None else m.sign)
+    m_new = LNSArray(outs[2], outs[3]) if epilogue.has_momentum else None
+    return LNSArray(outs[0], outs[1]), m_new

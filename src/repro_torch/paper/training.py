@@ -1,0 +1,83 @@
+"""Training harness of the paper-reproduction experiments (Sec. 5)."""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from . import datasets
+from .mlp import MLPConfig, make_mlp, params_to_numpy
+
+# Paper Sec. 5: weight decay tuned per dataset; the 12-bit runs needed
+# larger regularization.
+WEIGHT_DECAY = {16: 0.01, 12: 0.3}
+
+
+@dataclasses.dataclass
+class RunResult:
+    backend: str
+    dataset: str
+    bits: int
+    approx: str
+    val_curve: list
+    test_acc: float
+    seconds: float
+    params: dict  # final weights as params_to_numpy gives them
+
+
+def evaluate(model, params, x, y, batch: int = 500) -> float:
+    correct = 0
+    for i in range(0, len(x), batch):
+        pred = model.predict(params, x[i:i + batch]).cpu().numpy()
+        correct += int((pred == y[i:i + batch]).sum())
+    return correct / len(x)
+
+
+def run_experiment(backend: str, dataset: str, *, bits: int = 16,
+                   approx: str = "lut", epochs: int = 5,
+                   batch_size: int = 5, lr: float = 0.01,
+                   weight_decay: float | None = None,
+                   momentum: float = 0.0, seed: int = 0,
+                   data_dir: str = "data", numerics=None,
+                   max_steps_per_epoch: int | None = None,
+                   device="cuda") -> RunResult:
+    """Train the paper MLP on ``device``; returns the learning curve, the
+    test accuracy and the final weights.
+
+    Paper hyperparameters: SGD, minibatch 5, lr 0.01, 20 epochs, 1:5
+    validation holdout.  ``numerics`` is a spec or per-layer plan string
+    (``"lns16-train-pallas"``, ``"lns16-train-pallas;hidden=fmt:lns12"``).
+    The weights are drawn from a CPU ``torch.Generator`` seeded with
+    ``seed``, so every device starts from the same weights.
+    """
+    x, yl, x_te, y_te, spec = datasets.load(dataset, data_dir, seed)
+    x_tr, y_tr, x_val, y_val = datasets.train_val_split(x, yl, 5, seed)
+    wd = WEIGHT_DECAY[bits] if weight_decay is None else weight_decay
+    cfg = MLPConfig(n_out=spec.n_classes, lr=lr, weight_decay=wd,
+                    momentum=momentum, bits=bits, approx=approx,
+                    spec=numerics)
+    model = make_mlp(backend, cfg, device)
+    params = model.init(torch.Generator().manual_seed(seed))
+    mom = model.init_momentum(params)
+
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    curve = []
+    for _ in range(epochs):
+        order = rng.permutation(len(x_tr))
+        steps = len(order) // batch_size
+        if max_steps_per_epoch is not None:
+            steps = min(steps, max_steps_per_epoch)
+        for s in range(steps):
+            sl = order[s * batch_size:(s + 1) * batch_size]
+            if mom is not None:
+                params, mom, _ = model.train_step(params, x_tr[sl], y_tr[sl],
+                                                  mom)
+            else:
+                params, _ = model.train_step(params, x_tr[sl], y_tr[sl])
+        curve.append(evaluate(model, params, x_val, y_val))
+    test = evaluate(model, params, x_te, y_te)
+    return RunResult(backend, dataset, bits, approx, curve, test,
+                     time.time() - t0, params_to_numpy(params))

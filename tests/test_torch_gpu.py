@@ -1,0 +1,135 @@
+"""The port's CUDA kernels on the card.  Marked ``gpu``: they skip on a
+host without a CUDA card and run on the H100 with
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Imports no JAX: the card's machine has none.  Each kernel is held bit for
+bit against its plain PyTorch version on the card, and the fused train
+step on the card against the CPU lane.
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as T
+import repro_torch.kernels.lns_matmul as TK
+from repro_torch.paper import MLPConfig, make_mlp, params_to_numpy
+from repro_torch.paper import datasets
+
+pytestmark = pytest.mark.gpu
+
+DELTA = {"lut": T.DELTA_DEFAULT, "bitshift": T.DELTA_BITSHIFT,
+         "exact": T.DELTA_EXACT}
+OTHER = {"lns16": T.LNS12, "lns12": T.LNS16}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _operand(gen, shape, fmt, device, *, scale=1.0, zero_frac=0.2):
+    v = torch.randn(shape, generator=gen) * scale
+    v[torch.rand(shape, generator=gen) < zero_frac] = 0.0
+    return T.encode(v, fmt).to(device)
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
+def test_kernels_equal_plain_on_card(cuda, kind, fmt_name):
+    fmt, spec = T.FORMATS[fmt_name], DELTA[kind]
+    gen = torch.Generator().manual_seed(0)
+    m, k, n = 13, 71, 37
+    x = _operand(gen, (m, k), fmt, cuda, zero_frac=0.5)
+    w = _operand(gen, (k, n), fmt, cuda, scale=0.05)
+    b = _operand(gen, (n,), fmt, cuda, scale=0.1)
+    dy = _operand(gen, (m, n), fmt, cuda, scale=0.1)
+    mom = _operand(gen, (k, n), fmt, cuda, scale=0.01, zero_frac=0.3)
+    ep = TK.FwdEpilogue(bias=True, llrelu_beta=T.beta_code(0.01, fmt),
+                        dst_fmt=OTHER[fmt_name], emit_z_sign=True)
+    kw = dict(fmt=fmt, spec=spec)
+    _same(TK.lns_matmul_fused(x.code, x.sign, w.code, w.sign, epilogue=ep,
+                              bias_code=b.code, bias_sign=b.sign, **kw),
+          TK.mac_plain(x.code, x.sign, w.code, w.sign, a_contract_axis=1,
+                       b_contract_axis=0, fwd_epilogue=ep, bias_code=b.code,
+                       bias_sign=b.sign, **kw))
+    _same(TK.lns_matmul_dx(dy.code, dy.sign, w.code, w.sign, **kw),
+          TK.mac_plain(dy.code, dy.sign, w.code, w.sign, a_contract_axis=1,
+                       b_contract_axis=1, **kw))
+    up = T.UpdateEpilogue.from_sgd(
+        T.LogSGDConfig(lr=0.01, weight_decay=0.01, momentum=0.9), fmt)
+    uk = dict(w_code=w.code, w_sign=w.sign, m_code=mom.code,
+              m_sign=mom.sign, **kw)
+    _same(TK.lns_matmul_dw_update(x.code, x.sign, dy.code, dy.sign,
+                                  epilogue=up, **uk),
+          TK.mac_plain(x.code, x.sign, dy.code, dy.sign, a_contract_axis=0,
+                       b_contract_axis=0, update_epilogue=up, **uk))
+    g = _operand(gen, (k, n), fmt, cuda, scale=0.1)
+    fk = dict(epilogue=up, m_code=mom.code, m_sign=mom.sign, **kw)
+    _same(TK.lns_fused_update(w.code, w.sign, g.code, g.sign, **fk),
+          TK.update_plain(w.code, w.sign, g.code, g.sign, **fk))
+    torch.cuda.synchronize()
+
+
+def test_encode_and_conversion_card_equals_cpu(cuda):
+    pix = torch.arange(256, dtype=torch.float32) / 255.0
+    for fmt in (T.LNS16, T.LNS12):
+        a, b = T.encode(pix, fmt), T.encode(pix.to(cuda), fmt)
+        assert torch.equal(a.code, b.code.cpu())
+        codes = torch.arange(fmt.zero_code, fmt.code_max + 1,
+                             dtype=torch.int32)
+        x = T.LNSArray(codes, torch.ones_like(codes, dtype=torch.int8))
+        assert torch.equal(T.lns_value_to_code(x, fmt),
+                           T.lns_value_to_code(x.to(cuda), fmt).cpu())
+
+
+CASES = {
+    "lut-lns16": ("lns16-train-pallas", {}),
+    "bitshift-lns16": ("lns16-train-pallas,delta=bitshift", {}),
+    "lut-lns12": ("lns16-train-pallas,fmt=lns12", {"weight_decay": 0.3}),
+    "hidden-lns12": ("lns16-train-pallas;hidden=fmt:lns12", {}),
+    "momentum+decay": ("lns16-train-pallas",
+                       {"momentum": 0.9, "weight_decay": 0.01}),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_steps_card_equal_cpu(cuda, case):
+    """20 fused steps of batch 5 at full width on the card equal the CPU
+    lane after every step, with 7 kernel launches per step."""
+    spec, kw = CASES[case]
+    x, y, _, _, _ = datasets.load("mnist", "data", 0)
+    models = {d: make_mlp("lns", MLPConfig(spec=spec, **kw), device=d)
+              for d in ("cuda", "cpu")}
+    params = {d: m.init(torch.Generator().manual_seed(1))
+              for d, m in models.items()}
+    moms = {d: m.init_momentum(params[d]) for d, m in models.items()}
+    TK.reset_launch_counts()
+    for step in range(20):
+        sl = slice(step * 5, (step + 1) * 5)
+        for d, m in models.items():
+            if moms[d] is None:
+                params[d], _ = m.train_step(params[d], x[sl], y[sl])
+            else:
+                params[d], moms[d], _ = m.train_step(params[d], x[sl], y[sl],
+                                                     moms[d])
+        got, want = params_to_numpy(params["cuda"]), params_to_numpy(
+            params["cpu"])
+        for k in want:
+            for g, w in zip(got[k], want[k]):
+                np.testing.assert_array_equal(g, w, err_msg=f"{k} @{step}")
+    assert TK.launch_counts() == {
+        "lns_matmul_fused": 40, "lns_matmul_dx": 20,
+        "lns_matmul_dw_update": 40, "lns_fused_update": 40}
+    np.testing.assert_array_equal(
+        models["cuda"].predict(params["cuda"], x[:500]).cpu().numpy(),
+        models["cpu"].predict(params["cpu"], x[:500]).numpy())

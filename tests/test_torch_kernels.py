@@ -1,0 +1,379 @@
+"""The port's ⊞-MAC and ⊞-SGD kernels (``repro_torch.kernels.lns_matmul``)
+against the JAX package, on the CPU lane.
+
+The CUDA kernels cannot run here; what runs is each wrapper's plain
+PyTorch version, the arithmetic the kernels are held to on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``).  It is held bit for bit
+against the JAX oracles (``repro.kernels.lns_matmul.ref``) over the Δ
+kinds, the formats and every epilogue flag, and once per kernel against
+the Pallas kernel itself in interpret mode.
+"""
+import shutil
+from functools import partial
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.core as J
+import repro.kernels.lns_matmul as JK
+import repro_torch.core as T
+import repro_torch.kernels.lns_matmul as TK
+from repro.kernels.lns_matmul.lns_matmul import (lns_matmul_dw_update_pallas,
+                                                 lns_matmul_dx_pallas,
+                                                 lns_matmul_fused_pallas)
+from repro.kernels.lns_matmul.update import lns_fused_update_pallas
+
+DELTA = {"lut": (J.DELTA_DEFAULT, T.DELTA_DEFAULT),
+         "bitshift": (J.DELTA_BITSHIFT, T.DELTA_BITSHIFT),
+         "exact": (J.DELTA_EXACT, T.DELTA_EXACT)}
+OTHER = {"lns16": "lns12", "lns12": "lns16"}
+SGD = {"plain": dict(lr=0.01), "decay": dict(lr=0.01, weight_decay=0.01),
+       "momentum": dict(lr=0.01, momentum=0.9),
+       "momentum+decay": dict(lr=0.01, weight_decay=0.01, momentum=0.9)}
+
+
+def _operand(rng, shape, fmt, *, scale=1.0, zero_frac=0.2):
+    """(numpy code, numpy sign) of a random LNS operand."""
+    v = (rng.normal(size=shape) * scale).astype(np.float32)
+    v[rng.random(size=shape) < zero_frac] = 0.0
+    a = J.encode(v, J.FORMATS[fmt])
+    return np.asarray(a.code), np.asarray(a.sign)
+
+
+def _t(pair):
+    return tuple(torch.as_tensor(np.array(x)) for x in pair)
+
+
+def _eq(got, want, msg=""):
+    """Port planes (torch) equal to reference planes (jax / numpy)."""
+    assert len(got) == len(want), msg
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)
+        assert g.dtype in (torch.int32, torch.int8), g.dtype
+        np.testing.assert_array_equal(g.numpy().astype(np.int32),
+                                      w.astype(np.int32),
+                                      err_msg=f"{msg} plane {i}")
+
+
+def _fwd_eps(name, fmt):
+    """(jax FwdEpilogue, port FwdEpilogue) for an epilogue case."""
+    beta = J.beta_code(0.01, J.FORMATS[fmt])
+    kw = {"none": {}, "bias": dict(bias=True),
+          "llrelu": dict(llrelu_beta=beta),
+          "zsign": dict(bias=True, emit_z_sign=True),
+          "hidden": dict(bias=True, llrelu_beta=beta, emit_z_sign=True),
+          "dst": dict(dst_fmt=OTHER[fmt]),
+          "all": dict(bias=True, llrelu_beta=beta, dst_fmt=OTHER[fmt],
+                      emit_z_sign=True)}[name]
+    jkw = {k: (J.FORMATS[v] if k == "dst_fmt" else v) for k, v in kw.items()}
+    tkw = {k: (T.FORMATS[v] if k == "dst_fmt" else v) for k, v in kw.items()}
+    return JK.FwdEpilogue(**jkw), TK.FwdEpilogue(**tkw)
+
+
+@partial(jax.jit, static_argnames=("fmt", "spec", "epilogue"))
+def _jax_fused_ref(xc, xs, wc, ws, bc, bs, *, fmt, spec, epilogue):
+    return JK.lns_matmul_fused_ref(xc, xs, wc, ws, fmt=fmt, spec=spec,
+                                   epilogue=epilogue, bias_code=bc,
+                                   bias_sign=bs)
+
+
+@partial(jax.jit, static_argnames=("fmt", "spec"))
+def _jax_dx_ref(dc, ds, wc, ws, *, fmt, spec):
+    return JK.lns_matmul_dx_ref(dc, ds, wc, ws, fmt=fmt, spec=spec)
+
+
+@partial(jax.jit, static_argnames=("fmt", "spec", "epilogue"))
+def _jax_dw_update_ref(xc, xs, dc, ds, w, m, *, fmt, spec, epilogue):
+    return JK.lns_matmul_dw_update_ref(xc, xs, dc, ds, w=w, m=m,
+                                       epilogue=epilogue, fmt=fmt, spec=spec)
+
+
+# ------------------------------------------------------- fused forward --
+
+FWD_CASES = [(k, f, "all") for k in DELTA for f in ("lns16", "lns12")]
+FWD_CASES += [("lut", "lns16", e) for e in
+              ("none", "bias", "llrelu", "zsign", "hidden", "dst")]
+
+
+def _fwd_operands(seed, m, k, n, fmt):
+    rng = np.random.default_rng(seed)
+    x = _operand(rng, (m, k), fmt, zero_frac=0.5)
+    w = _operand(rng, (k, n), fmt, scale=0.05, zero_frac=0.02)
+    b = _operand(rng, (n,), fmt, scale=0.1)
+    return x, w, b
+
+
+def _check_fused(kind, fmt, ep_name, m, k, n, seed):
+    js, ts = DELTA[kind]
+    jep, tep = _fwd_eps(ep_name, fmt)
+    x, w, b = _fwd_operands(seed, m, k, n, fmt)
+    jb = b if jep.bias else (None, None)
+    rc, rs, rzs = _jax_fused_ref(*x, *w, *jb, fmt=J.FORMATS[fmt], spec=js,
+                                 epilogue=jep)
+    want = [rc, rs] + ([rzs] if jep.emit_z_sign else [])
+    tb = _t(b) if tep.bias else (None, None)
+    got = TK.lns_matmul_fused(*_t(x), *_t(w), fmt=T.FORMATS[fmt], spec=ts,
+                              epilogue=tep, bias_code=tb[0], bias_sign=tb[1])
+    _eq(got, want, f"plain {kind}/{fmt}/{ep_name}")
+    # The port's own oracle (unfused composition of core ops).
+    z, zs = TK.lns_matmul_fused_ref(
+        T.LNSArray(*_t(x)), T.LNSArray(*_t(w)), fmt=T.FORMATS[fmt], spec=ts,
+        epilogue=tep, bias=T.LNSArray(*tb) if tep.bias else None)
+    _eq([z.code, z.sign] + ([zs] if tep.emit_z_sign else []), want,
+        f"ref {kind}/{fmt}/{ep_name}")
+
+
+@pytest.mark.parametrize("kind,fmt,ep", FWD_CASES)
+def test_fused_fwd_plain_vs_reference(kind, fmt, ep):
+    _check_fused(kind, fmt, ep, 5, 96, 24, seed=11)
+
+
+@pytest.mark.parametrize("fmt", ["lns16", "lns12"])
+def test_fused_fwd_full_width(fmt):
+    """The train step's hidden-layer shape, (5,784)·(784,100)."""
+    _check_fused("lut", fmt, "all", 5, 784, 100, seed=12)
+
+
+# ------------------------------------------------------------------ dX --
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt", ["lns16", "lns12"])
+@pytest.mark.parametrize("shape", [(5, 24, 40), (5, 10, 100)],
+                         ids=["ragged", "full-width"])
+def test_dx_plain_vs_reference(kind, fmt, shape):
+    m, n, k = shape
+    js, ts = DELTA[kind]
+    rng = np.random.default_rng(13)
+    dy = _operand(rng, (m, n), fmt, scale=0.1)
+    w = _operand(rng, (k, n), fmt, scale=0.05, zero_frac=0.02)
+    want = _jax_dx_ref(*dy, *w, fmt=J.FORMATS[fmt], spec=js)
+    _eq(TK.lns_matmul_dx(*_t(dy), *_t(w), fmt=T.FORMATS[fmt], spec=ts),
+        want, "plain")
+    r = TK.lns_matmul_dx_ref(T.LNSArray(*_t(dy)), T.LNSArray(*_t(w)),
+                             fmt=T.FORMATS[fmt], spec=ts)
+    _eq([r.code, r.sign], want, "ref")
+
+
+# ------------------------------------------------------- dW + ⊞-SGD --
+
+DW_CASES = [(k, f, "momentum+decay") for k in DELTA
+            for f in ("lns16", "lns12")]
+DW_CASES += [("lut", "lns16", s) for s in ("plain", "decay", "momentum")]
+
+
+def _check_dw_update(kind, fmt, sgd, m, k, n, seed):
+    js, ts = DELTA[kind]
+    jf, tf = J.FORMATS[fmt], T.FORMATS[fmt]
+    jep = J.UpdateEpilogue.from_sgd(J.LogSGDConfig(**SGD[sgd]), jf)
+    tep = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(**SGD[sgd]), tf)
+    rng = np.random.default_rng(seed)
+    x = _operand(rng, (m, k), fmt, zero_frac=0.5)
+    dy = _operand(rng, (m, n), fmt, scale=0.1)
+    w = _operand(rng, (k, n), fmt, scale=0.05, zero_frac=0.02)
+    mom = _operand(rng, (k, n), fmt, scale=0.01, zero_frac=0.3)
+    jm = J.LNSArray(*mom) if jep.has_momentum else None
+    jw2, jm2 = _jax_dw_update_ref(*x, *dy, J.LNSArray(*w), jm, fmt=jf,
+                                  spec=js, epilogue=jep)
+    want = [jw2.code, jw2.sign] + ([jm2.code, jm2.sign]
+                                   if jep.has_momentum else [])
+    tm = _t(mom) if tep.has_momentum else (None, None)
+    got = TK.lns_matmul_dw_update(*_t(x), *_t(dy), w_code=_t(w)[0],
+                                  w_sign=_t(w)[1], epilogue=tep, fmt=tf,
+                                  spec=ts, m_code=tm[0], m_sign=tm[1])
+    _eq(got, want, f"plain {kind}/{fmt}/{sgd}")
+    w2, m2 = TK.lns_matmul_dw_update_ref(
+        T.LNSArray(*_t(x)), T.LNSArray(*_t(dy)), w=T.LNSArray(*_t(w)),
+        m=T.LNSArray(*tm) if tep.has_momentum else None, epilogue=tep,
+        fmt=tf, spec=ts)
+    _eq([w2.code, w2.sign] + ([m2.code, m2.sign] if m2 is not None else []),
+        want, "ref")
+
+
+@pytest.mark.parametrize("kind,fmt,sgd", DW_CASES)
+def test_dw_update_plain_vs_reference(kind, fmt, sgd):
+    _check_dw_update(kind, fmt, sgd, 5, 40, 24, seed=14)
+
+
+def test_dw_update_full_width():
+    """The train step's w1 shape: (5,784)ᵀ·(5,100) → (784,100)."""
+    _check_dw_update("lut", "lns16", "momentum+decay", 5, 784, 100, seed=15)
+
+
+# ------------------------------------------------ elementwise ⊞-SGD --
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt", ["lns16", "lns12"])
+@pytest.mark.parametrize("sgd", list(SGD))
+def test_fused_update_plain_vs_reference(kind, fmt, sgd):
+    js, ts = DELTA[kind]
+    jf, tf = J.FORMATS[fmt], T.FORMATS[fmt]
+    jep = J.UpdateEpilogue.from_sgd(J.LogSGDConfig(**SGD[sgd]), jf)
+    tep = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(**SGD[sgd]), tf)
+    rng = np.random.default_rng(16)
+    w, g = (_operand(rng, (100,), fmt, scale=0.1) for _ in range(2))
+    mom = _operand(rng, (100,), fmt, scale=0.01, zero_frac=0.3)
+    jm = J.LNSArray(*mom) if jep.has_momentum else None
+    jw2, jm2 = J.apply_update_codes(J.LNSArray(*w), J.LNSArray(*g), jm, jep,
+                                    J.DeltaEngine(js, jf))
+    want = [jw2.code, jw2.sign] + ([jm2.code, jm2.sign]
+                                   if jep.has_momentum else [])
+    tm = _t(mom) if tep.has_momentum else (None, None)
+    got = TK.lns_fused_update(*_t(w), *_t(g), epilogue=tep, fmt=tf, spec=ts,
+                              m_code=tm[0], m_sign=tm[1])
+    _eq(got, want, "plain")
+
+
+# ------------------------------------- against the Pallas kernels (interp) --
+
+def test_fused_fwd_vs_pallas_interpret():
+    jep, tep = _fwd_eps("all", "lns16")
+    x, w, b = _fwd_operands(17, 8, 24, 16, "lns16")
+    want = lns_matmul_fused_pallas(
+        x[0], x[1].astype(np.int32), w[0], w[1].astype(np.int32),
+        fmt=J.LNS16, spec=J.DELTA_DEFAULT, epilogue=jep, bias_code=b[0],
+        bias_sign=b[1].astype(np.int32), block_m=8, block_n=8, block_k=8,
+        interpret=True)
+    got = TK.lns_matmul_fused(*_t(x), *_t(w), fmt=T.LNS16,
+                              spec=T.DELTA_DEFAULT, epilogue=tep,
+                              bias_code=_t(b)[0], bias_sign=_t(b)[1])
+    _eq(got, want)
+
+
+def test_dx_vs_pallas_interpret():
+    rng = np.random.default_rng(18)
+    dy = _operand(rng, (8, 16), "lns16", scale=0.1)
+    w = _operand(rng, (24, 16), "lns16", scale=0.05)
+    want = lns_matmul_dx_pallas(
+        dy[0], dy[1].astype(np.int32), w[0], w[1].astype(np.int32),
+        fmt=J.LNS16, spec=J.DELTA_BITSHIFT, block_m=8, block_k=8, block_n=8,
+        interpret=True)
+    _eq(TK.lns_matmul_dx(*_t(dy), *_t(w), fmt=T.LNS16,
+                         spec=T.DELTA_BITSHIFT), want)
+
+
+def test_dw_update_vs_pallas_interpret():
+    rng = np.random.default_rng(19)
+    x = _operand(rng, (8, 24), "lns12", zero_frac=0.5)
+    dy = _operand(rng, (8, 16), "lns12", scale=0.1)
+    w = _operand(rng, (24, 16), "lns12", scale=0.05)
+    mom = _operand(rng, (24, 16), "lns12", scale=0.01, zero_frac=0.3)
+    cfg = SGD["momentum+decay"]
+    jep = J.UpdateEpilogue.from_sgd(J.LogSGDConfig(**cfg), J.LNS12)
+    tep = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(**cfg), T.LNS12)
+    i32 = lambda a: a.astype(np.int32)  # noqa: E731
+    want = lns_matmul_dw_update_pallas(
+        x[0], i32(x[1]), dy[0], i32(dy[1]), w_code=w[0], w_sign=i32(w[1]),
+        m_code=mom[0], m_sign=i32(mom[1]), epilogue=jep, fmt=J.LNS12,
+        spec=J.DELTA_DEFAULT, block_k=8, block_n=8, block_m=8,
+        interpret=True)
+    got = TK.lns_matmul_dw_update(*_t(x), *_t(dy), w_code=_t(w)[0],
+                                  w_sign=_t(w)[1], m_code=_t(mom)[0],
+                                  m_sign=_t(mom)[1], epilogue=tep,
+                                  fmt=T.LNS12, spec=T.DELTA_DEFAULT)
+    _eq(got, want)
+
+
+def test_fused_update_vs_pallas_interpret():
+    rng = np.random.default_rng(20)
+    w, g, mom = (_operand(rng, (100,), "lns16", scale=0.1) for _ in range(3))
+    cfg = SGD["momentum+decay"]
+    jep = J.UpdateEpilogue.from_sgd(J.LogSGDConfig(**cfg), J.LNS16)
+    tep = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(**cfg), T.LNS16)
+    i32 = lambda a: a.astype(np.int32)  # noqa: E731
+    want = lns_fused_update_pallas(
+        w[0], i32(w[1]), g[0], i32(g[1]), m_code=mom[0], m_sign=i32(mom[1]),
+        epilogue=jep, fmt=J.LNS16, spec=J.DELTA_EXACT, block=32,
+        interpret=True)
+    got = TK.lns_fused_update(*_t(w), *_t(g), m_code=_t(mom)[0],
+                              m_sign=_t(mom)[1], epilogue=tep, fmt=T.LNS16,
+                              spec=T.DELTA_EXACT)
+    _eq(got, want)
+
+
+# ------------------------------------------------ dispatcher and lanes --
+
+def test_dispatcher_matches_oracles_on_cpu():
+    """``LNSMatmulBackend`` (the CPU lane of each product) equals the
+    port's unfused oracles."""
+    rng = np.random.default_rng(21)
+    x, w, b = (T.LNSArray(*_t(p)) for p in _fwd_operands(21, 5, 30, 12,
+                                                        "lns16"))
+    dy = T.LNSArray(*_t(_operand(rng, (5, 12), "lns16", scale=0.1)))
+    mom = T.LNSArray(*_t(_operand(rng, (30, 12), "lns16", scale=0.01)))
+    be = T.LNSMatmulBackend(fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    beta = T.beta_code(0.01, T.LNS16)
+    a, zs = be.matmul_fused(x, w, bias=b, llrelu_beta=beta, out_fmt=T.LNS12,
+                            emit_z_sign=True)
+    ra, rzs = TK.lns_matmul_fused_ref(
+        x, w, fmt=T.LNS16, spec=T.DELTA_DEFAULT, bias=b,
+        epilogue=TK.FwdEpilogue(bias=True, llrelu_beta=beta,
+                                dst_fmt=T.LNS12, emit_z_sign=True))
+    assert torch.equal(a.code, ra.code) and torch.equal(a.sign, ra.sign)
+    assert torch.equal(zs, rzs)
+    # out_fmt equal to the layer format is no conversion.
+    z = be.matmul_fused(x, w, out_fmt=T.LNS16)
+    rz, _ = TK.lns_matmul_fused_ref(x, w, fmt=T.LNS16, spec=T.DELTA_DEFAULT,
+                                    epilogue=TK.FwdEpilogue())
+    assert torch.equal(z.code, rz.code) and torch.equal(z.sign, rz.sign)
+    dx = be.matmul_dx(dy, w)
+    rdx = TK.lns_matmul_dx_ref(dy, w, fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    assert torch.equal(dx.code, rdx.code) and torch.equal(dx.sign, rdx.sign)
+    ep = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(**SGD["momentum+decay"]),
+                                   T.LNS16)
+    w2, m2 = be.matmul_dw_update(x, dy, w, mom, ep)
+    rw2, rm2 = TK.lns_matmul_dw_update_ref(x, dy, w=w, m=mom, epilogue=ep,
+                                           fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    for p, q in ((w2, rw2), (m2, rm2)):
+        assert torch.equal(p.code, q.code) and torch.equal(p.sign, q.sign)
+    b2, mb2 = be.fused_update(b, b, None, T.UpdateEpilogue.from_sgd(
+        T.LogSGDConfig(), T.LNS16))
+    rb2, _ = T.apply_update_codes(
+        b, b, None, T.UpdateEpilogue.from_sgd(T.LogSGDConfig(), T.LNS16),
+        T.cached_engine(T.DELTA_DEFAULT, T.LNS16))
+    assert mb2 is None
+    assert torch.equal(b2.code, rb2.code) and torch.equal(b2.sign, rb2.sign)
+
+
+def test_cpu_lane_launches_nothing():
+    TK.reset_launch_counts()
+    x, w, b = (T.LNSArray(*_t(p)) for p in _fwd_operands(22, 3, 8, 4,
+                                                        "lns16"))
+    T.LNSMatmulBackend(fmt=T.LNS16, spec=T.DELTA_DEFAULT).matmul_fused(x, w)
+    assert TK.launch_counts() == dict.fromkeys(TK.KERNEL_WRAPPERS, 0)
+
+
+def test_unported_products_and_bad_inputs_raise():
+    be = T.LNSMatmulBackend(fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    x = T.zeros((2, 3), T.LNS16)
+    for call in (lambda: be.matmul(x, x.T), lambda: be.matmul_dw(x, x),
+                 lambda: be.matmul_dw_partials(x, x, 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    ep = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(momentum=0.9), T.LNS16)
+    with pytest.raises(ValueError, match="momentum"):
+        be.fused_update(x, x, None, ep)
+    with pytest.raises(ValueError, match="bias"):
+        TK.lns_matmul_fused_kernel(x, x.T, epilogue=TK.FwdEpilogue(bias=True),
+                                   fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    meta = T.LNSArray(torch.empty((2, 3), dtype=torch.int32, device="meta"),
+                      torch.empty((2, 3), dtype=torch.int8, device="meta"))
+    with pytest.raises(ValueError, match="no ⊞-MAC lane"):
+        be.matmul_dx(meta, meta)
+
+
+def test_kernel_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
+    """No fallback hides a missing toolkit: the build raises."""
+    from repro_torch.kernels import build
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is installed here; the failing build is not "
+                    "reachable")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    build.load_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.load_library()
+    finally:
+        build.load_library.cache_clear()

@@ -1,0 +1,86 @@
+"""Spec and plan strings in the port (``repro_torch.core.spec`` /
+``.plan``) against the JAX package: the strings the paper MLP takes parse
+to the same arithmetic and print the same canonical text."""
+import pytest
+
+import repro.core.plan as JP
+import repro.core.spec as JS
+import repro_torch.core as T
+from repro.paper.mlp import LAYER_PATHS, MLPConfig as JConfig
+from repro_torch.paper import MLPConfig
+
+STRINGS = [
+    "lns16-train-pallas",
+    "lns16-train-emulate",
+    "lns16-train-emulate,backend=pallas",
+    "lns16-train-pallas,delta=bitshift",
+    "lns16-train-pallas,delta=exact",
+    "lns16-train-pallas,fmt=lns12",
+    "lns16-train-pallas,fmt=lns12,delta=bitshift",
+    "lns16-train-pallas, delta = lut:10.0:0.25",
+    "fmt=lns16,delta=lut20,quantize=grads+params+acts,compute_dtype=float32",
+    "lns16-train-pallas;hidden=fmt:lns12",
+    "lns16-train-emulate;hidden=fmt:lns12,delta:bitshift;out=delta:exact",
+    "lns16-train-pallas;*=delta:bitshift;out=fmt:lns12",
+    "lns16-train-pallas,fmt=lns12;hidden=fmt:lns16",
+]
+
+
+def _arith(spec):
+    """The arithmetic a spec selects: (format fields, Δ spec fields)."""
+    f, d = spec.fmt, spec.delta_spec
+    return ((f.qi, f.qf, f.name) if f else None,
+            (d.kind, d.d_max, d.r) if d else None, spec.quantize,
+            spec.compute_dtype, spec.backend)
+
+
+@pytest.mark.parametrize("text", STRINGS)
+def test_plan_strings_round_trip_like_reference(text):
+    jp, tp = JP.NumericsPlan.parse(text), T.NumericsPlan.parse(text)
+    assert str(tp) == str(jp)
+    assert str(T.NumericsPlan.parse(str(tp))) == str(tp)
+    for path in LAYER_PATHS:
+        assert _arith(tp.resolve(path)) == _arith(jp.resolve(path)), path
+
+
+@pytest.mark.parametrize("text", STRINGS)
+def test_mlp_config_resolves_like_reference(text):
+    jc, tc = JConfig(spec=text), MLPConfig(spec=text)
+    assert str(tc.spec) == str(jc.spec)
+    for path in LAYER_PATHS:
+        assert _arith(tc.plan().resolve(path)) == _arith(
+            jc.plan().resolve(path))
+
+
+@pytest.mark.parametrize("bits,approx", [(16, "lut"), (12, "bitshift"),
+                                         (16, "exact")])
+def test_default_spec_from_bits(bits, approx):
+    jc = JConfig(bits=bits, approx=approx)
+    tc = MLPConfig(bits=bits, approx=approx)
+    assert str(tc.spec) == str(jc.spec)
+    assert _arith(tc.plan().default) == _arith(jc.plan().default)
+
+
+def test_spec_aliases_match_reference():
+    for name, spec in T.ALIASES.items():
+        assert _arith(spec) == _arith(JS.ALIASES[name])
+        assert str(spec) == name
+
+
+@pytest.mark.parametrize("text,err", [
+    ("lns16-train-pallas,interpret=on", NotImplementedError),
+    ("lns16-train-pallas,reduce.mode=float-psum", NotImplementedError),
+    ("lns16-train-pallas;hidden=metrics:full", NotImplementedError),
+    ("lns16-train-pallas,backend=cuda", ValueError),
+    ("lns16-train-pallas,fmt=lns9", ValueError),
+    ("lns16-train-pallas,delta=lut:x:y", ValueError),
+    ("lns16-train-pallas,colour=red", ValueError),
+    ("lns16-qat", ValueError),
+    ("lns16-train-pallas;hidden", ValueError),
+    ("lns16-train-pallas;hid:den=fmt:lns12", ValueError),
+    ("lns16-train-pallas;hidden=fmt:lns12,fmt:lns16", ValueError),
+    ("", ValueError),
+])
+def test_bad_strings_raise(text, err):
+    with pytest.raises(err):
+        T.NumericsPlan.parse(text)
