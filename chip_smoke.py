@@ -10,20 +10,28 @@ the result line:
    power limit;
 2. build the hand-written kernels from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel on the card bit for bit against its plain PyTorch
-   version on the card, at the training step's shapes (batch 5), at the
+   version on the card, at the training steps' shapes (batch 5), at the
    predict shape (batch 500) and at ragged shapes, over the Δ kinds
-   (lut / bitshift / exact), the formats (lns16 / lns12) and the epilogues;
+   (lut / bitshift / exact), the formats (lns16 / lns12), the epilogues,
+   the segment counts S ∈ {1, 2, 4, 5, 8} of the segment-partial dW and
+   the reduce lengths K ∈ {1, 5, 37, 128} of the ⊞-reduce;
 4. hold ``encode`` (all 256 pixel values) and ``lns_value_to_code`` (every
    lns16 / lns12 code) on the card against the CPU lane, and count how
    many exact-Δ codes the card and the CPU round differently;
-5. the main path: ``run_experiment`` trains the full-width 784–100–10
-   MLP for 20 fused steps of batch 5 on synthetic ``mnist`` with
-   ``lns16-train-pallas`` on the card, then evaluates; the same run on the
-   CPU lane must give equal weight codes and accuracies, and the launch
-   counters must show 2 fused-forward, 1 dX, 2 dW-update and 2 update
-   launches per step (plus 2 forward launches per predict batch);
-6. times: ms per train step, and each kernel and its plain version by
-   CUDA events at the step's shapes.
+5. the main paths: ``run_experiment`` trains the full-width 784–100–10
+   MLP for 20 steps of batch 5 on synthetic ``mnist`` with
+   ``lns16-train-pallas`` on the card, then evaluates, for three steps:
+   the fused step; the unfused step (``fused=False``); and the segmented
+   data-parallel step (``reduce.grad_segments=5``), once with no process
+   group and once inside a one-rank NCCL group.  Each run on the card
+   must give the weight codes and accuracies of the same run on the CPU
+   lane, and its launch counters (set to 0 just before it, read just
+   after) the launches its step makes.  Then
+   ``run_device_count_invariance_check((1,))`` trains the small MLP with
+   momentum in one NCCL rank of its own process and holds its codes to
+   ``reference_train_step`` on the card;
+6. times: ms per train step of each path, and each kernel and its plain
+   version by CUDA events at the launches of the path that runs it.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Runs in well under the 1200 s limit
@@ -35,6 +43,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -54,6 +63,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_MAC = 46
 OPS_FWD_EPILOGUE = 49
 OPS_SGD_TERM = 42
+OPS_BOXPLUS = 36
 
 SEED = 0
 BATCH = 5
@@ -102,9 +112,10 @@ def compare_kernels(torch, device):
     from repro_torch.core import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT,
                                   LNS12, LNS16, LogSGDConfig, UpdateEpilogue,
                                   beta_code)
+    from repro_torch.kernels import KERNEL_WRAPPERS
     from repro_torch.kernels import lns_matmul as K
 
-    worst = {name: 0 for name in K.KERNEL_WRAPPERS}
+    worst = {name: 0 for name in KERNEL_WRAPPERS}
     cases = 0
 
     def check(name, got, want, label):
@@ -231,8 +242,67 @@ def compare_kernels(torch, device):
                            a_contract_axis=1, b_contract_axis=1, fmt=fmt,
                            spec=DELTA_DEFAULT)
         check("lns_matmul_dx", got, want, f"lut/{fmt.name}/batch500")
+    compare_unfused_and_segmented(torch, device, rk, check)
     torch.cuda.synchronize()
     return worst, cases
+
+
+def compare_unfused_and_segmented(torch, device, rk, check):
+    """The plain forward, plain dW, segment-partial dW and ⊞-reduce
+    kernels against their plain versions on the card."""
+    from repro_torch.core import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT,
+                                  LNS12, LNS16)
+    from repro_torch.kernels import lns_matmul as K
+    from repro_torch.kernels.lns_boxsum import boxsum_plain, lns_boxsum
+    shapes = {"step": (BATCH, 784, 100), "step-out": (BATCH, 100, 10),
+              "ragged": (40, 53, 45), "batch500": (PREDICT_BATCH, 784, 100)}
+    for spec in (DELTA_DEFAULT, DELTA_BITSHIFT, DELTA_EXACT):
+        for fmt in (LNS16, LNS12):
+            kw = dict(fmt=fmt, spec=spec)
+            for sname, (m, k, n) in shapes.items():
+                label = f"{spec.kind}/{fmt.name}/{sname}"
+                x, w, _ = fwd_case(torch, rk, m, k, n, fmt, device)
+                check("lns_matmul",
+                      K.lns_matmul(x.code, x.sign, w.code, w.sign, **kw),
+                      K.mac_plain(x.code, x.sign, w.code, w.sign,
+                                  a_contract_axis=1, b_contract_axis=0, **kw),
+                      label)
+                dy = operands(torch, rk, (m, n), scale=0.1, zero_frac=0.1,
+                              fmt=fmt, device=device)
+                planes = (x.code, x.sign, dy.code, dy.sign)
+                dw = dict(a_contract_axis=0, b_contract_axis=0, **kw)
+                check("lns_matmul_dw", K.lns_matmul_dw(*planes, **kw),
+                      K.mac_plain(*planes, **dw), label)
+                for seg in (1, 2, 4, 5, 8):
+                    if m % seg == 0:
+                        check("lns_matmul_dw_partials",
+                              K.lns_matmul_dw_partials(
+                                  *planes, num_segments=seg, **kw),
+                              K.mac_plain(*planes, segments=seg, **dw),
+                              f"{label}/S{seg}")
+            # The ⊞-reduce over K steps of ragged rows, read in place as the
+            # combine reads (S, E) partials and dense; step 1 cancels step 0
+            # exactly on every other row.
+            for k in (1, 5, 37, 128):
+                a = operands(torch, rk, (k, 7845), scale=1.0, zero_frac=0.2,
+                             fmt=fmt, device=device)
+                if k > 1:
+                    a.code[1, ::2] = a.code[0, ::2]
+                    a.sign[1, ::2] = a.sign[0, ::2] ^ 1
+                for lay, (c, sg) in (
+                        ("view", (a.code.T, a.sign.T)),
+                        ("dense", (a.code.T.contiguous(),
+                                   a.sign.T.contiguous()))):
+                    check("lns_boxsum", lns_boxsum(c, sg, **kw),
+                          boxsum_plain(c, sg, **kw),
+                          f"{spec.kind}/{fmt.name}/K{k}/{lay}")
+            # The combine's shapes: S = 5 slots of w1, b1, w2, b2.
+            for e in (78400, 100, 1000, 10):
+                a = operands(torch, rk, (BATCH, e), scale=0.1, zero_frac=0.1,
+                             fmt=fmt, device=device)
+                check("lns_boxsum", lns_boxsum(a.code.T, a.sign.T, **kw),
+                      boxsum_plain(a.code.T, a.sign.T, **kw),
+                      f"{spec.kind}/{fmt.name}/combine{e}")
 
 
 # ------------------------------------------------------------- phase 4 --
@@ -265,38 +335,99 @@ def compare_float_ops(torch, device):
 
 # ------------------------------------------------------------- phase 5 --
 
+SEGMENTED = "lns16-train-pallas,reduce.grad_segments=5"
+
+
+def path_launches(pbatches):
+    """path → (run_experiment keywords, kernel launches of one run): 20
+    steps, then ``pbatches`` predict batches of 2 forward launches."""
+    fwd = 2 * STEPS + 2 * pbatches
+    return {
+        "fused": (dict(numerics="lns16-train-pallas"),
+                  dict(lns_matmul_fused=fwd, lns_matmul_dx=STEPS,
+                       lns_matmul_dw_update=2 * STEPS,
+                       lns_fused_update=2 * STEPS)),
+        "unfused": (dict(numerics="lns16-train-pallas", fused=False),
+                    dict(lns_matmul=fwd, lns_matmul_dx=STEPS,
+                         lns_matmul_dw=2 * STEPS)),
+        "segmented": (dict(numerics=SEGMENTED),
+                      dict(lns_matmul_fused=fwd, lns_matmul_dx=STEPS,
+                           lns_matmul_dw_partials=2 * STEPS,
+                           lns_boxsum=4 * STEPS,
+                           lns_fused_update=4 * STEPS)),
+    }
+
+
+def nccl_group():
+    """A one-rank NCCL process group on card 0 (file store in a temporary
+    directory); returns a function that ends it."""
+    import torch
+    import torch.distributed as dist
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/store",
+                            world_size=1, rank=0)
+
+    def end():
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return end
+
+
 def main_path(torch):
-    from repro_torch.kernels.lns_matmul import (launch_counts,
-                                                reset_launch_counts)
+    """Each path on the card and on the CPU lane; returns {run: (card
+    result, card s, launch counts)} and the predict batches per run."""
+    import torch.distributed as dist
+    from repro_torch.kernels import (KERNEL_WRAPPERS, launch_counts,
+                                     reset_launch_counts)
     from repro_torch.paper import datasets, run_experiment
-    kw = dict(epochs=1, max_steps_per_epoch=STEPS, batch_size=BATCH,
-              numerics="lns16-train-pallas", seed=SEED)
-    reset_launch_counts()
-    t0 = time.time()
-    card = run_experiment("lns", "mnist", device="cuda", **kw)
-    torch.cuda.synchronize()
-    card_s = time.time() - t0
-    counts = launch_counts()
-    cpu = run_experiment("lns", "mnist", device="cpu", **kw)
+    common = dict(epochs=1, max_steps_per_epoch=STEPS, batch_size=BATCH,
+                  seed=SEED)
     x, y, xt, _, _ = datasets.load("mnist", "data", SEED)
     n_val = len(x) // 6
     pbatches = math.ceil(n_val / PREDICT_BATCH) + math.ceil(
         len(xt) / PREDICT_BATCH)
-    want = {"lns_matmul_fused": 2 * STEPS + 2 * pbatches,
-            "lns_matmul_dx": STEPS, "lns_matmul_dw_update": 2 * STEPS,
-            "lns_fused_update": 2 * STEPS}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
-    for k, (c, s) in card.params.items():
-        cc, cs = cpu.params[k]
-        if not ((c == cc).all() and (s == cs).all()):
-            raise AssertionError(f"{k}: card weights differ from the CPU "
-                                 f"lane after {STEPS} steps")
-    if card.val_curve != cpu.val_curve or card.test_acc != cpu.test_acc:
-        raise AssertionError(f"accuracy card {card.val_curve}/"
-                             f"{card.test_acc} vs cpu {cpu.val_curve}/"
-                             f"{cpu.test_acc}")
-    return card, card_s, counts, pbatches
+    paths = path_launches(pbatches)
+    runs = [("fused", "fused", False), ("unfused", "unfused", False),
+            ("segmented", "segmented", False),
+            ("segmented-nccl", "segmented", True)]
+    cpu, out = {}, {}
+    for run, path, in_group in runs:
+        kw, want = paths[path]
+        want = dict(dict.fromkeys(KERNEL_WRAPPERS, 0), **want)
+        end = nccl_group() if in_group else None
+        try:
+            if in_group and not (dist.is_initialized()
+                                 and dist.get_backend() == "nccl"):
+                raise AssertionError("no NCCL group around the run")
+            reset_launch_counts()
+            t0 = time.time()
+            card = run_experiment("lns", "mnist", device="cuda", **common,
+                                  **kw)
+            torch.cuda.synchronize()
+            card_s = time.time() - t0
+            counts = launch_counts()
+        finally:
+            if end is not None:
+                end()
+        if counts != want:
+            raise AssertionError(f"{run}: launch counts {counts}, expected "
+                                 f"{want}")
+        if path not in cpu:
+            cpu[path] = run_experiment("lns", "mnist", device="cpu",
+                                       **common, **kw)
+        ref = cpu[path]
+        for k, (c, s) in card.params.items():
+            cc, cs = ref.params[k]
+            if not ((c == cc).all() and (s == cs).all()):
+                raise AssertionError(f"{run}: {k} on the card differs from "
+                                     f"the CPU lane after {STEPS} steps")
+        if card.val_curve != ref.val_curve or card.test_acc != ref.test_acc:
+            raise AssertionError(f"{run}: accuracy card {card.val_curve}/"
+                                 f"{card.test_acc} vs cpu {ref.val_curve}/"
+                                 f"{ref.test_acc}")
+        out[run] = (card, card_s, {k: v for k, v in counts.items() if v})
+    return out, pbatches
 
 
 # ------------------------------------------------------------- phase 6 --
@@ -345,8 +476,11 @@ def time_device(torch, fn, reps, host_ms):
 
 
 def step_launches(torch, device):
-    """The kernel launches of one fused train step at their real shapes,
-    as (kernel, label, kernel call, plain call, bytes, int32 ops)."""
+    """The kernel launches of one train step of the path that runs each
+    kernel, at their real shapes, as (kernel, label, kernel call, plain
+    call, bytes, int32 ops): the fused step for kernels 1-4, the unfused
+    step for the plain forward and dW, the segmented step for the
+    segment-partial dW and the ⊞-reduce."""
     from repro_torch.core import (DELTA_DEFAULT, LNS16, LogSGDConfig,
                                   UpdateEpilogue, beta_code)
     from repro_torch.kernels import lns_matmul as K
@@ -361,10 +495,11 @@ def step_launches(torch, device):
         r = a.shape[1 - axes[0]]
         ct = a.shape[axes[0]]
         c = b.shape[1 - axes[1]]
+        slots = kw.get("segments") or 1
         args = dict(a_contract_axis=axes[0], b_contract_axis=axes[1],
                     fmt=fmt, spec=spec, **kw)
         nbytes = 5 * (a.code.numel() + b.code.numel()) + extra \
-            + out_planes * r * c
+            + out_planes * r * c * slots
         ops = r * c * ct * OPS_PER_MAC + r * c * epi_ops
         out.append((name, label,
                     lambda: K.mac_cuda(a.code, a.sign, b.code, b.sign,
@@ -404,23 +539,54 @@ def step_launches(torch, device):
                      device=device)
         kw = dict(epilogue=up, fmt=fmt, spec=spec)
         out.append(("lns_fused_update", label,
-                    lambda w=w, g=g: K.update_cuda(w.code, w.sign, g.code,
-                                                   g.sign, **kw),
-                    lambda w=w, g=g: K.update_plain(w.code, w.sign, g.code,
-                                                    g.sign, **kw),
+                    lambda w=w, g=g, kw=kw: K.update_cuda(
+                        w.code, w.sign, g.code, g.sign, **kw),
+                    lambda w=w, g=g, kw=kw: K.update_plain(
+                        w.code, w.sign, g.code, g.sign, **kw),
                     15 * n, n * 2 * OPS_SGD_TERM))
+    # The unfused step: plain forward per layer, plain dW per layer.
+    for (m, k, n), label in (((BATCH, 784, 100), "hidden (5,784)x(784,100)"),
+                             ((BATCH, 100, 10), "out (5,100)x(100,10)")):
+        x, w, _ = fwd_case(torch, rk, m, k, n, fmt, device)
+        mac("lns_matmul", label, x, w, (1, 0), 0, 5, 0)
+    for (m, k, n), label in (((BATCH, 784, 100), "w1 (784,100)"),
+                             ((BATCH, 100, 10), "w2 (100,10)")):
+        x = operands(torch, rk, (m, k), scale=1.0, zero_frac=0.5, fmt=fmt,
+                     device=device)
+        d = operands(torch, rk, (m, n), scale=0.1, zero_frac=0.1, fmt=fmt,
+                     device=device)
+        mac("lns_matmul_dw", label, x, d, (0, 0), 0, 5, 0)
+        # The segmented step: 5 one-row segments.
+        mac("lns_matmul_dw_partials", f"{label} x 5 segments", x, d, (0, 0),
+            0, 5, 0, segments=BATCH)
+    # The segmented step's combine: (5, E) partials of w1, b1, w2, b2
+    # reduced in place as E rows of 5 steps.
+    from repro_torch.kernels.lns_boxsum import boxsum_cuda, boxsum_plain
+    for e, label in ((78400, "w1 (78400,5)"), (100, "b1 (100,5)"),
+                     (1000, "w2 (1000,5)"), (10, "b2 (10,5)")):
+        p = operands(torch, rk, (BATCH, e), scale=0.1, zero_frac=0.1,
+                     fmt=fmt, device=device)
+        out.append(("lns_boxsum", label,
+                    lambda p=p: boxsum_cuda(p.code.T, p.sign.T, fmt=fmt,
+                                            spec=spec),
+                    lambda p=p: boxsum_plain(p.code.T, p.sign.T, fmt=fmt,
+                                             spec=spec),
+                    5 * BATCH * e + 5 * e, OPS_BOXPLUS * BATCH * e))
     return out
 
 
-def time_step(torch):
-    """ms per train step on the card (host clock around 100 steps ending
-    in a synchronize), and a torch.profiler view of 10 steps: device time
-    per kernel and the device's busy share of the profiled wall time."""
+def time_step(torch, path):
+    """ms per train step of ``path`` on the card (host clock around 100
+    steps ending in a synchronize), and a torch.profiler view of 10 steps:
+    device time per kernel and the device's busy share of the profiled
+    wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.paper import datasets
     from repro_torch.paper.mlp import MLPConfig, make_mlp
-    model = make_mlp("lns", MLPConfig(spec="lns16-train-pallas",
+    kw = path_launches(0)[path][0]
+    model = make_mlp("lns", MLPConfig(spec=kw["numerics"],
+                                      fused=kw.get("fused", True),
                                       weight_decay=0.01), "cuda")
     params = model.init(torch.Generator().manual_seed(SEED))
     x, y, _, _, _ = datasets.load("mnist", "data", SEED)
@@ -469,8 +635,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
               f"root of the repository", file=sys.stderr)
         return 1
-    from repro_torch.kernels import build
-    from repro_torch.kernels.lns_matmul import KERNEL_WRAPPERS
+    from repro_torch.distributed import run_device_count_invariance_check
+    from repro_torch.kernels import KERNEL_WRAPPERS, build
     device = torch.device("cuda")
 
     name = torch.cuda.get_device_name(0)
@@ -498,27 +664,45 @@ def main() -> int:
         raise AssertionError("encode / lns_value_to_code differ between "
                              "the card and the CPU lane")
 
-    card_run, card_s, counts, pbatches = main_path(torch)
-    log("5 main path", f"{STEPS} steps of batch {BATCH} + evaluate in "
-        f"{card_s:.2f} s on the card; weights equal to the CPU lane; "
-        f"val acc {card_run.val_curve}, test acc {card_run.test_acc}; "
-        f"launches {counts} ({pbatches} predict batches)")
+    runs, pbatches = main_path(torch)
+    for run, (card_run, card_s, counts) in runs.items():
+        log("5 main path", f"{run}: {STEPS} steps of batch {BATCH} + "
+            f"evaluate in {card_s:.2f} s on the card; weights and accuracy "
+            f"equal to the CPU lane; val acc {card_run.val_curve}, test acc "
+            f"{card_run.test_acc}; launches {counts} ({pbatches} predict "
+            f"batches)")
+    t0 = time.time()
+    ok, ranks = run_device_count_invariance_check(
+        (1,), momentum=0.9, timeout=300)
+    if not (ok and ranks[1]["matches_reference"]):
+        raise AssertionError("a one-rank NCCL run of the segmented step "
+                             "differs from reference_train_step")
+    log("5 ranks", f"run_device_count_invariance_check((1,)) on the card: "
+        f"one NCCL rank in its own process, 3 segmented steps with "
+        f"momentum, weight and momentum codes equal to "
+        f"reference_train_step, in {time.time() - t0:.1f} s")
+    launches = {}
+    for _, _, counts in runs.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
 
-    step_ms, wall_us, prof_rows = time_step(torch)
-    log("6 times", f"{step_ms:.3f} ms per train step on {card}")
-    dev_us = sum(r[0] for r in prof_rows)
-    if prof_rows:
-        log("6 profile", f"10 steps: {dev_us / 10:.1f} us of device time "
-            f"in {sum(r[1] for r in prof_rows) / 10:.0f} kernel launches "
-            f"per step; busy share {dev_us / 10 / (step_ms * 1e3):.4f} of "
-            f"the unprofiled step ({dev_us / wall_us:.4f} of the "
-            f"{wall_us / 10:.1f} us profiled step)")
-        for dev, count, key in prof_rows[:12]:
-            log("6 profile", f"{dev / 10:10.2f} us/step  {count / 10:6.1f} "
-                f"launches/step  {key[:90]}")
-    else:
-        log("6 profile", "torch.profiler saw no device time: busy share "
-            "not measured")
+    for path in ("fused", "unfused", "segmented"):
+        step_ms, wall_us, prof_rows = time_step(torch, path)
+        log("6 times", f"{path}: {step_ms:.3f} ms per train step on {card}")
+        dev_us = sum(r[0] for r in prof_rows)
+        if prof_rows:
+            log("6 profile", f"{path}, 10 steps: {dev_us / 10:.1f} us of "
+                f"device time in {sum(r[1] for r in prof_rows) / 10:.0f} "
+                f"kernel launches per step; busy share "
+                f"{dev_us / 10 / (step_ms * 1e3):.4f} of the unprofiled step "
+                f"({dev_us / wall_us:.4f} of the {wall_us / 10:.1f} us "
+                f"profiled step)")
+            for dev, count, key in prof_rows[:8]:
+                log("6 profile", f"{path} {dev / 10:10.2f} us/step  "
+                    f"{count / 10:6.1f} launches/step  {key[:80]}")
+        else:
+            log("6 profile", f"{path}: torch.profiler saw no device time: "
+                "busy share not measured")
     rows = {}
     for kname, label, kern, plain, nbytes, ops in step_launches(torch,
                                                                device):
@@ -537,12 +721,14 @@ def main() -> int:
         r["plain_ms"] += plain_ms
         r["bytes"] += nbytes
         r["ops"] += ops
+    mm = "src/repro/kernels/lns_matmul/lns_matmul.py"
     replaces = {
-        "lns_matmul_fused": "src/repro/kernels/lns_matmul/lns_matmul.py:599",
-        "lns_matmul_dx": "src/repro/kernels/lns_matmul/lns_matmul.py:539",
-        "lns_matmul_dw_update":
-            "src/repro/kernels/lns_matmul/lns_matmul.py:622",
+        "lns_matmul_fused": f"{mm}:599", "lns_matmul_dx": f"{mm}:539",
+        "lns_matmul_dw_update": f"{mm}:622",
         "lns_fused_update": "src/repro/kernels/lns_matmul/update.py:65",
+        "lns_matmul": f"{mm}:528", "lns_matmul_dw": f"{mm}:555",
+        "lns_matmul_dw_partials": f"{mm}:571",
+        "lns_boxsum": "src/repro/kernels/lns_boxsum/lns_boxsum.py:69",
     }
     kernels = []
     for kname in KERNEL_WRAPPERS:
@@ -552,14 +738,15 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route="cuda",
             source="src/repro_torch/kernels/csrc/lns_mac.cu",
-            replaces=replaces[kname], launches=counts[kname],
+            replaces=replaces[kname], launches=launches[kname],
             max_abs_err=worst[kname], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes > t_ops else "operations",
             library_ms=None))
-    log("6 times", "JSON ms / plain_ms / bound_ms are per train step (the "
-        "sum over the step's launches of each kernel); ms is card time "
-        "alone, plain_ms the plain version's time per call")
+    log("6 times", "JSON ms / plain_ms / bound_ms are per train step of the "
+        "path that runs the kernel (the sum over that step's launches); ms "
+        "is card time alone, plain_ms the plain version's time; launches "
+        "are summed over the phase-5 runs on the card")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

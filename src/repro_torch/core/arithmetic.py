@@ -105,6 +105,24 @@ def boxsum(a: LNSArray, axis: int, eng: DeltaEngine,
     return cur[0]
 
 
+def boxsum_partials(parts: LNSArray, eng: DeltaEngine,
+                    schedule: str = "sequential") -> LNSArray:
+    """⊞-combine stacked partial sums along axis 0 on a fixed schedule.
+
+    The reduction contract of data-parallel training
+    (``distributed/lns_reduce.py``): ``parts`` holds S partials in
+    canonical segment order, and the combine order depends on S alone,
+    never on the rank count.  ``sequential`` is the left fold
+    ``((p0 ⊞ p1) ⊞ p2) ⊞ …``; ``tree`` the balanced pairwise tree over
+    the S slots zero-padded to a power of two.  The two differ in general.
+    """
+    if schedule not in ("sequential", "tree"):
+        raise ValueError(f"unknown ⊞ combine schedule {schedule!r}; "
+                         "expected 'sequential' or 'tree'")
+    order = "sequential" if schedule == "sequential" else "pairwise"
+    return boxsum(parts, 0, eng, order=order)
+
+
 def lns_matmul(x: LNSArray, w: LNSArray, eng: DeltaEngine) -> LNSArray:
     """Z[m,n] = ⊞_k (X[m,k] ⊡ W[k,n]) (eq. 10), folded over k ascending.
 

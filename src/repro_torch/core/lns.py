@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import f32
+from .delta import cached_engine
 from .formats import LNSFormat
 
 
@@ -114,22 +115,21 @@ def convert_format(a: LNSArray, src: LNSFormat, dst: LNSFormat) -> LNSArray:
 # ⊞-MAC dispatcher
 # ------------------------------------------------------------------------
 
-_NOT_PORTED = ("LNSMatmulBackend.{} is not ported yet (ROADMAP queue 2 "
-               "items 5-7: the plain forward, plain dW and segmented dW "
-               "kernels)")
-
-
 @dataclasses.dataclass(frozen=True)
 class LNSMatmulBackend:
-    """The ⊞-MAC products of the fused training step, lane by device.
+    """The ⊞-MAC products of the training steps, lane by device.
 
     The lane is chosen by where the operands lie, never by configuration:
     CUDA tensors go to the hand-written kernels (``kernels/lns_matmul``),
     which launch or raise; CPU tensors run the kernels' plain PyTorch
     versions.  The two lanes are bit-exact to each other.
 
+    * ``matmul(x, w)``              Z  = X ⊞-MAC W
+    * ``affine(x, w, b)``           Z  = X ⊞-MAC W, then ⊞ b
     * ``matmul_fused(x, w)``        Z  = X ⊞-MAC W with the flush epilogue
     * ``matmul_dx(dy, w)``          dX = dY ⊞-MAC Wᵀ
+    * ``matmul_dw(x, dy)``          dW = Xᵀ ⊞-MAC dY
+    * ``matmul_dw_partials(x, dy, S)``  (S, K, N) per-segment dW
     * ``matmul_dw_update(x, dy, ...)``  ⊞-SGD of W by Xᵀ ⊞-MAC dY
     * ``fused_update(w, g, ...)``   elementwise ⊞-SGD
     """
@@ -137,14 +137,32 @@ class LNSMatmulBackend:
     fmt: LNSFormat
     spec: Any  # DeltaSpec
 
-    def matmul(self, x, w):
-        raise NotImplementedError(_NOT_PORTED.format("matmul"))
+    def matmul(self, x: LNSArray, w: LNSArray) -> LNSArray:
+        """Forward (M, K) ⊞-MAC (K, N) → (M, N), sequential over K."""
+        from ..kernels.lns_matmul import lns_matmul_kernel
+        return lns_matmul_kernel(x, w, fmt=self.fmt, spec=self.spec)
 
-    def matmul_dw(self, x, dy):
-        raise NotImplementedError(_NOT_PORTED.format("matmul_dw"))
+    def affine(self, x: LNSArray, w: LNSArray, b: LNSArray) -> LNSArray:
+        """z = x·W ⊞ b: the forward product, then the bias in its own
+        pass."""
+        from .arithmetic import bias_add
+        return bias_add(self.matmul(x, w), b,
+                        cached_engine(self.spec, self.fmt))
 
-    def matmul_dw_partials(self, x, dy, num_segments):
-        raise NotImplementedError(_NOT_PORTED.format("matmul_dw_partials"))
+    def matmul_dw(self, x: LNSArray, dy: LNSArray) -> LNSArray:
+        """Backward dW = Xᵀ (K, M) ⊞-MAC dY (M, N), sequential over M."""
+        from ..kernels.lns_matmul import lns_matmul_dw_kernel
+        return lns_matmul_dw_kernel(x, dy, fmt=self.fmt, spec=self.spec)
+
+    def matmul_dw_partials(self, x: LNSArray, dy: LNSArray,
+                           num_segments: int) -> LNSArray:
+        """Segmented dW: (S, K, N) partials, slot s the sequential ⊞-MAC
+        over segment s of ``num_segments`` equal contiguous segments of
+        the batch.  ⊞-combining the slots in order on a fixed schedule
+        gives the same codes whichever rank computed which slot."""
+        from ..kernels.lns_matmul import lns_matmul_dw_partials_kernel
+        return lns_matmul_dw_partials_kernel(
+            x, dy, num_segments=num_segments, fmt=self.fmt, spec=self.spec)
 
     def matmul_fused(self, x: LNSArray, w: LNSArray, *,
                      bias: "LNSArray | None" = None,

@@ -42,6 +42,15 @@ class PlanRule:
         if not self.overrides:
             raise ValueError(f"rule {self.pattern!r} has no overrides; "
                              f"expected '{self.pattern}=key:value[,...]'")
+        bad_reduce = sorted(k for k, _ in self.overrides
+                            if k.startswith("reduce."))
+        if bad_reduce:
+            raise ValueError(
+                f"rule {self.pattern!r} sets {', '.join(bad_reduce)}: the "
+                f"gradient reduce is one global contract (one canonical "
+                f"segmentation of the global batch), not a per-layer "
+                f"property; set reduce.* on the plan's default spec "
+                f"(e.g. 'lns16-train-pallas,reduce.grad_segments=4;...')")
 
     def matches(self, path: str) -> bool:
         return fnmatch.fnmatchcase(path, self.pattern)
@@ -104,6 +113,10 @@ class NumericsPlan:
     @property
     def backend(self) -> str:
         return self.default.backend
+
+    @property
+    def reduce(self):
+        return self.default.reduce
 
 
 def _canonical_rule(default: NumericsSpec, pattern: str, kv) -> PlanRule:

@@ -17,7 +17,7 @@ import torch
 
 from .arithmetic import boxdot, boxminus, boxplus
 from .delta import DeltaEngine
-from .lns import LNSArray, scalar
+from .lns import LNSArray, scalar, zeros
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,3 +85,40 @@ def apply_update_codes(w: LNSArray, g: LNSArray, m: Optional[LNSArray],
     if ep.weight_decay_code is not None:
         w = boxminus(w, sdot(ep.weight_decay_code, w), eng)
     return w, m
+
+
+def init_momentum(params: dict, cfg: LogSGDConfig, fmt) -> Optional[dict]:
+    """Zero ⊞-momentum state for a dict of parameters (``None`` when
+    momentum is off)."""
+    if cfg.momentum == 0.0:
+        return None
+    return {k: zeros(p.shape, fmt, p.device) for k, p in params.items()}
+
+
+def apply_update(params: dict, grads: dict, momentum: Optional[dict],
+                 cfg: LogSGDConfig, eng: DeltaEngine):
+    """The unfused pure-LNS update of a dict of parameters, each term a
+    separate elementwise pass; returns ``(params, momentum)``."""
+    fmt = eng.fmt
+
+    def const(v: float, like: LNSArray) -> LNSArray:
+        return scalar(v, fmt, like.device)
+
+    def upd(w: LNSArray, g: LNSArray, m: Optional[LNSArray]):
+        if cfg.momentum != 0.0:
+            m = boxplus(boxdot(const(cfg.momentum, w), m, fmt), g, eng)
+            g = m
+        w = boxminus(w, boxdot(const(cfg.lr, w), g, fmt), eng)
+        if cfg.weight_decay != 0.0:
+            wd = const(cfg.lr * cfg.weight_decay, w)
+            w = boxminus(w, boxdot(wd, w, fmt), eng)
+        return w, m
+
+    new_p = {}
+    new_m = None if momentum is None else {}
+    for k, w in params.items():
+        new_p[k], m = upd(w, grads[k],
+                          None if momentum is None else momentum[k])
+        if momentum is not None:
+            new_m[k] = m
+    return new_p, new_m

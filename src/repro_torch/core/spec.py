@@ -1,7 +1,8 @@
 """``NumericsSpec``: the serializable descriptor of the LNS arithmetic.
 
 The subset of the JAX package's spec that the paper MLP needs: format, Δ
-approximation, which tensors are quantized, compute dtype and backend.
+approximation, which tensors are quantized, compute dtype, backend and the
+data-parallel gradient reduce (:class:`ReduceSpec`).
 ``parse`` accepts a registry alias (``"lns16-train-pallas"``), a
 ``key=value`` list, or an alias plus overrides
 (``"lns16-train-pallas,delta=bitshift"``); ``str`` gives the same
@@ -24,9 +25,10 @@ from .formats import FORMATS, LNS16, LNSFormat
 MATMUL_BACKENDS = ("emulate", "pallas")
 QUANTIZE_AXES = ("params", "acts", "grads")
 COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
+REDUCE_MODES = ("boxplus", "float-psum")
+REDUCE_SCHEDULES = ("sequential", "tree")
 #: Spec keys of the JAX package that the port does not parse yet.
-UNPORTED_KEYS = ("interpret", "blocks", "metrics", "reduce.mode",
-                 "reduce.grad_segments", "reduce.schedule")
+UNPORTED_KEYS = ("interpret", "blocks", "metrics")
 
 #: Named Δ specs; other LUTs round-trip as ``lut:<d_max>:<r>``.
 DELTA_NAMES = {
@@ -44,6 +46,39 @@ def _bad_value(key, got, valid):
 
 
 @dataclasses.dataclass(frozen=True)
+class ReduceSpec:
+    """Data-parallel gradient-reduction semantics (the ⊞ contract).
+
+    ``mode="boxplus"`` cuts the global batch into ``grad_segments``
+    contiguous equal segments and ⊞-combines their partials on a fixed
+    ``schedule`` that depends on the segment count alone;
+    ``mode="float-psum"`` decodes, sums in float across ranks and
+    re-encodes (not bit-stable across rank counts).  ``grad_segments=0``
+    resolves to the rank count at run time.
+    """
+
+    mode: str = "boxplus"
+    grad_segments: int = 0
+    schedule: str = "sequential"
+
+    def __post_init__(self):
+        if self.mode not in REDUCE_MODES:
+            raise _bad_value("reduce.mode", self.mode, REDUCE_MODES)
+        if self.schedule not in REDUCE_SCHEDULES:
+            raise _bad_value("reduce.schedule", self.schedule,
+                             REDUCE_SCHEDULES)
+        if self.grad_segments < 0:
+            raise _bad_value("reduce.grad_segments", self.grad_segments,
+                             ("any integer >= 0",))
+
+    def with_(self, **kw) -> "ReduceSpec":
+        return dataclasses.replace(self, **kw)
+
+
+_REDUCE_FIELDS = ("mode", "grad_segments", "schedule")
+
+
+@dataclasses.dataclass(frozen=True)
 class NumericsSpec:
     """One frozen descriptor of the approximate arithmetic.
 
@@ -57,6 +92,9 @@ class NumericsSpec:
                                         params/acts/grads
     ``compute_dtype``       compute_dtype  float32 | bfloat16 | float16
     ``backend``             backend     emulate | pallas (printed only)
+    ``reduce.mode``         reduce.mode  boxplus | float-psum
+    ``reduce.grad_segments``  reduce.grad_segments  int >= 0
+    ``reduce.schedule``     reduce.schedule  sequential | tree
     ======================  ==========  ===================================
     """
 
@@ -65,6 +103,7 @@ class NumericsSpec:
     quantize: str = ""
     compute_dtype: str = "bfloat16"
     backend: str = "emulate"
+    reduce: ReduceSpec = ReduceSpec()
 
     def __post_init__(self):
         if self.backend not in MATMUL_BACKENDS:
@@ -88,7 +127,17 @@ class NumericsSpec:
             raise ValueError("a delta spec requires an LNS fmt")
 
     def with_(self, **kw) -> "NumericsSpec":
-        """Validated copy with field overrides."""
+        """Validated copy with field overrides; dotted ``reduce.*`` keys
+        update the nested :class:`ReduceSpec`."""
+        reduce_kw = {}
+        for k in [k for k in kw if k.startswith("reduce.")]:
+            sub = k.split(".", 1)[1]
+            if sub not in _REDUCE_FIELDS:
+                raise _bad_value("override key", k, tuple(
+                    f"reduce.{f}" for f in _REDUCE_FIELDS))
+            reduce_kw[sub] = kw.pop(k)
+        if reduce_kw:
+            kw["reduce"] = kw.get("reduce", self.reduce).with_(**reduce_kw)
         return dataclasses.replace(self, **kw)
 
     def _flat(self) -> dict:
@@ -99,6 +148,9 @@ class NumericsSpec:
             "quantize": self.quantize or "none",
             "compute_dtype": self.compute_dtype,
             "backend": self.backend,
+            "reduce.mode": self.reduce.mode,
+            "reduce.grad_segments": str(self.reduce.grad_segments),
+            "reduce.schedule": self.reduce.schedule,
         }
 
     def __str__(self) -> str:
@@ -146,7 +198,8 @@ def _delta_from_str(s: str) -> Optional[DeltaSpec]:
                      + ("lut:<d_max>:<r>",))
 
 
-_PARSE_KEYS = ("fmt", "delta", "quantize", "compute_dtype", "backend")
+_PARSE_KEYS = ("fmt", "delta", "quantize", "compute_dtype", "backend",
+               "reduce.mode", "reduce.grad_segments", "reduce.schedule")
 
 
 def override_from_kv(key: str, value: str):
@@ -168,6 +221,11 @@ def override_from_kv(key: str, value: str):
         return "delta_spec", _delta_from_str(value)
     if key == "quantize":
         return "quantize", "" if value == "none" else value
+    if key == "reduce.grad_segments":
+        try:
+            return key, int(value)
+        except ValueError:
+            raise _bad_value(key, value, ("any integer >= 0",)) from None
     return key, value
 
 

@@ -1,0 +1,13 @@
+"""Data-parallel LNS training on ``torch.distributed`` with the
+deterministic ⊞ gradient reduce (``lns_reduce``) and its model
+(``lns_dp``)."""
+from .lns_dp import (DPConfig, LNSDataParallelMLP, reference_train_step,
+                     run_device_count_invariance_check)
+from .lns_reduce import (REDUCE_MODES, combine_partials,
+                         deterministic_boxplus_allreduce,
+                         float_psum_allreduce, gather_partials)
+
+__all__ = ["DPConfig", "LNSDataParallelMLP", "reference_train_step",
+           "run_device_count_invariance_check", "REDUCE_MODES",
+           "combine_partials", "deterministic_boxplus_allreduce",
+           "float_psum_allreduce", "gather_partials"]

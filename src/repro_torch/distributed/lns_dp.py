@@ -1,0 +1,320 @@
+"""Data-parallel LNS training with the deterministic ⊞ gradient reduce, on
+``torch.distributed``.
+
+The paper MLP's log-domain step (``paper/mlp.py: LNSMLP``) scaled over
+ranks, with the ⊞ accumulation order, which is part of the result, fixed
+by the problem and never by the rank count (see ``lns_reduce.py``):
+
+* the global batch is cut into ``grad_segments`` canonical contiguous
+  segments; rank r trains on the r-th contiguous run of them;
+* each rank emits one dW partial per segment (the segment-partial ⊞-MAC
+  kernel) and one bias partial per segment (a sequential ⊞-fold);
+* the partials are all-gathered in rank order and ⊞-combined on a fixed
+  schedule, so 1, 2 or 4 ranks give the codes of the one-process
+  :func:`reference_train_step`; the update then runs on the replicated
+  gradients.
+
+With ``grad_segments`` equal to the batch each segment is one sample and
+the sequential combine is the paper's sequential MAC over the batch.
+``reduce.mode=float-psum`` decodes, sums in float and re-encodes: cheaper
+on the wire, not bit-stable across rank counts.
+
+Process groups are the caller's: ``num_devices > 1`` needs
+``torch.distributed.init_process_group`` with that world size (gloo on
+the CPU, NCCL on the card, one card per rank); a missing or other-sized
+group raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import pickle
+import shutil
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..core.plan import NumericsPlan
+from ..core.spec import ReduceSpec
+from .lns_reduce import (combine_partials, deterministic_boxplus_allreduce,
+                         float_psum_allreduce, rank, world_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPConfig:
+    """Data-parallel execution config of the LNS train step.
+
+    The reduce semantics live in one :class:`~repro_torch.core.spec.
+    ReduceSpec`, the one a spec carries (:meth:`from_spec`).
+    ``reduce.grad_segments`` fixes the canonical segmentation of the global
+    batch; ``0`` resolves to ``num_devices``.  The device of the partials
+    picks the combine's lane, so ``reduce_with_kernel`` is not ported: any
+    value but ``None`` raises.
+    """
+
+    num_devices: int = 1
+    reduce: ReduceSpec = ReduceSpec()
+    reduce_with_kernel: "bool | None" = None
+
+    def __post_init__(self):
+        if self.reduce_with_kernel is not None:
+            raise NotImplementedError(
+                "DPConfig(reduce_with_kernel=) is not ported: the combine "
+                "launches the ⊞-reduce kernel on CUDA tensors and runs its "
+                "plain version on CPU tensors")
+        if self.num_devices < 1:
+            raise ValueError(f"num_devices must be >= 1, got "
+                             f"{self.num_devices}")
+
+    @classmethod
+    def from_spec(cls, spec, num_devices: int = 1, **kw) -> "DPConfig":
+        """The DP plan a spec or plan (or their strings) describes; the
+        reduce axis lives on the plan's default spec."""
+        return cls(num_devices=num_devices,
+                   reduce=NumericsPlan.parse(spec).reduce, **kw)
+
+    def segments(self, global_batch: int) -> int:
+        s = self.reduce.grad_segments or self.num_devices
+        if s % self.num_devices:
+            raise ValueError(f"grad_segments={s} not divisible by "
+                             f"num_devices={self.num_devices}")
+        if global_batch % s:
+            raise ValueError(f"global batch {global_batch} not divisible "
+                             f"into {s} canonical segments")
+        return s
+
+
+class LNSDataParallelMLP:
+    """``make_mlp``'s data-parallel LNS model: the ``init`` /
+    ``init_momentum`` / ``train_step`` / ``predict`` surface of
+    :class:`~repro_torch.paper.mlp.LNSMLP`, so ``run_experiment`` drives
+    it unchanged.
+
+    Every rank passes the same global batch and the same parameters; each
+    trains on its own contiguous run of segments and returns the
+    replicated updated parameters.  Each parameter's partials combine in
+    its own layer's format and Δ engine, so the invariance holds under
+    mixed-format plans too.  The update (fused or not, with or without
+    ⊞-momentum) runs after the combine, on the replicated gradients.
+    """
+
+    def __init__(self, cfg, dp: DPConfig, device="cuda"):
+        from ..paper.mlp import LNSMLP
+        world_size(dp.num_devices)
+        self.cfg = cfg
+        self.dp = dp
+        self.inner = LNSMLP(cfg, device)
+
+    def init(self, gen: torch.Generator):
+        return self.inner.init(gen)
+
+    def init_momentum(self, params):
+        return self.inner.init_momentum(params)
+
+    def predict(self, params, xb) -> torch.Tensor:
+        return self.inner.predict(params, xb)
+
+    def _step_impl(self, params, x, y, momentum=None):
+        inner, dp = self.inner, self.dp
+        n = dp.num_devices
+        segments = dp.segments(x.shape[0])
+        rows = x.shape[0] // n
+        lo = rank() * rows
+        grads, loss = inner.per_segment_grads(
+            params, x[lo:lo + rows], y[lo:lo + rows], segments // n)
+        for k, g in grads.items():
+            eng = inner.param_engines[k]
+            if dp.reduce.mode == "boxplus":
+                grads[k] = deterministic_boxplus_allreduce(
+                    g, eng, num_ranks=n, schedule=dp.reduce.schedule)
+            else:
+                grads[k] = float_psum_allreduce(g, eng, num_ranks=n)
+        if dist.is_initialized():
+            loss = loss.clone()
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM)
+            loss = loss / n
+        new_params, momentum = inner.apply_updates(params, grads, momentum)
+        if momentum is None:
+            return new_params, loss
+        return new_params, momentum, loss
+
+    def train_step(self, params, xb, yb, momentum=None):
+        """One step on the global batch (numpy or tensors); returns
+        (params, loss), or (params, momentum, loss) with a momentum dict.
+        The loss is the mean of the ranks' batch losses."""
+        x, y = self.inner._inputs(xb, yb)
+        return self._step_impl(params, x, y, momentum)
+
+
+def reference_train_step(inner, params, xb, yb, *, grad_segments: int,
+                         reduce_schedule: str = "sequential",
+                         momentum=None):
+    """One-process baseline of the canonical DP schedule: the same
+    segmented backward and fixed-schedule combine with no process group.
+    The DP step must give its codes at every rank count dividing
+    ``grad_segments``.  With a momentum dict the return is ``(params,
+    momentum, loss)``."""
+    x, y = inner._inputs(xb, yb)
+    grads, loss = inner.per_segment_grads(params, x, y, grad_segments)
+    grads = {k: combine_partials(g, inner.param_engines[k],
+                                 schedule=reduce_schedule)
+             for k, g in grads.items()}
+    new_params, momentum = inner.apply_updates(params, grads, momentum)
+    if momentum is None:
+        return new_params, loss
+    return new_params, momentum, loss
+
+
+def _train(step, params, mom, xb, yb, steps: int):
+    """``steps`` calls of ``step(params, xb, yb, mom)``; returns the numpy
+    (params, momentum or None) and the last loss."""
+    from ..paper.mlp import params_to_numpy
+    for _ in range(steps):
+        out = step(params, xb, yb, mom)
+        params, loss = out[0], out[-1]
+        if mom is not None:
+            mom = out[1]
+    return (params_to_numpy(params),
+            None if mom is None else params_to_numpy(mom), float(loss))
+
+
+def _rank_main(rank_: int, world: int, job: dict) -> None:
+    """One rank of :func:`run_device_count_invariance_check` (gloo on the
+    CPU, NCCL on card ``rank_``): trains and writes its replica of the
+    parameters to the job's directory."""
+    torch.set_num_threads(1)
+    device = job["device"]
+    if device == "cuda":
+        torch.cuda.set_device(rank_)
+        device = f"cuda:{rank_}"
+    dist.init_process_group(
+        "nccl" if device != "cpu" else "gloo",
+        init_method=f"file://{job['dir']}/store_{world}",
+        world_size=world, rank=rank_,
+        timeout=datetime.timedelta(seconds=job["timeout"]))
+    try:
+        from ..paper.mlp import params_from_numpy
+        model = LNSDataParallelMLP(job["cfg"], DPConfig.from_spec(
+            job["plan"], num_devices=world), device=device)
+        params = params_from_numpy(job["params"], device)
+        out = _train(model.train_step, params, model.init_momentum(params),
+                     job["xb"], job["yb"], job["steps"])
+        path = Path(job["dir"]) / f"out_{world}_{rank_}.pkl"
+        path.write_bytes(pickle.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(world: int, job: dict, deadline: float):
+    """Run ``world`` ranks; returns every rank's (params, momentum,
+    loss)."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_rank_main, args=(world, job), nprocs=world,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks did not finish in "
+                                   f"{job['timeout']} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [pickle.loads((Path(job["dir"]) / f"out_{world}_{r}.pkl"
+                          ).read_bytes()) for r in range(world)]
+
+
+def _same(a, b) -> bool:
+    """Equal (params, momentum) codes and signs; momentum may be None."""
+    if a is None or b is None:
+        return a is b
+    return all(np.array_equal(a[k][0], b[k][0])
+               and np.array_equal(a[k][1], b[k][1]) for k in b)
+
+
+def run_device_count_invariance_check(device_counts=(1, 2, 4), *,
+                                      steps: int = 3, batch: int = 8,
+                                      numerics=None, momentum: float = 0.0,
+                                      fused: bool = True, n_in: int = 12,
+                                      n_hidden: int = 9, n_out: int = 4,
+                                      seed: int = 0, init_params=None,
+                                      device: str = "cuda",
+                                      timeout: float = 300.0,
+                                      verbose: bool = False):
+    """Train the paper MLP at several rank counts, one process group of
+    that size each, and compare the weight codes with
+    :func:`reference_train_step`.
+
+    ``device="cuda"`` runs NCCL ranks, rank r on card r, and raises unless
+    there are as many cards as the largest rank count; ``device="cpu"``
+    runs gloo ranks on the CPU.  The reference step runs in this process
+    on the first card, or on the CPU.  ``numerics`` is a spec or plan
+    string whose ``reduce.grad_segments`` fixes the segmentation (default
+    4).  The data come from ``numpy.random.default_rng(seed)`` as in the
+    JAX package; ``init_params`` (``params_to_numpy`` form) sets the
+    initial weights, else they are drawn from ``seed``.  Returns ``(ok,
+    runs)``: ``ok`` is True when every rank count under
+    ``reduce.mode=boxplus`` gave the reference's weight (and momentum)
+    codes on every rank, and ``runs[d]`` holds rank 0's ``params``,
+    ``momentum`` (``None`` without), ``loss``, ``matches_reference`` and
+    ``replicas_agree``.  The momentum after the first step is the
+    combined gradient itself, so it shows a combine in another order where
+    the weights may not.
+    """
+    from ..paper.mlp import (LNSMLP, MLPConfig, params_from_numpy,
+                             params_to_numpy)
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if device == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < max(device_counts):
+            raise RuntimeError(
+                f"{max(device_counts)} NCCL ranks need as many cards; "
+                f"{cards} present (device='cpu' runs gloo ranks)")
+    ref_device = "cuda:0" if device == "cuda" else "cpu"
+    plan = NumericsPlan.parse(
+        numerics or "lns16-train-pallas,reduce.grad_segments=4")
+    segs = plan.reduce.grad_segments or 4
+    plan = plan.with_(**{"reduce.grad_segments": segs})
+    rng = np.random.default_rng(seed)
+    xb = rng.uniform(0, 1, size=(batch, n_in)).astype(np.float32)
+    yb = rng.integers(0, n_out, size=(batch,))
+    cfg = MLPConfig(n_in=n_in, n_hidden=n_hidden, n_out=n_out,
+                    spec=plan.with_(**{"reduce.grad_segments": 0}),
+                    momentum=momentum, fused=fused)
+    inner = LNSMLP(cfg, ref_device)
+    if init_params is None:
+        init_params = params_to_numpy(inner.init(
+            torch.Generator().manual_seed(seed)))
+    params = params_from_numpy(init_params, ref_device)
+    ref, ref_mom, _ = _train(
+        lambda p, x, y, m: reference_train_step(
+            inner, p, x, y, grad_segments=segs,
+            reduce_schedule=plan.reduce.schedule, momentum=m),
+        params, inner.init_momentum(params), xb, yb, steps)
+    workdir = tempfile.mkdtemp()  # the ranks' file stores and results
+    job = dict(cfg=cfg, plan=plan, params=init_params, xb=xb, yb=yb,
+               steps=steps, dir=workdir, timeout=timeout, device=device)
+    deadline = time.monotonic() + timeout
+    runs, ok = {}, True
+    try:
+        for d in device_counts:
+            outs = _spawn(d, job, deadline)
+            params, mom, loss = outs[0]
+            agree = all(_same(o[0], params) and _same(o[1], mom)
+                        for o in outs)
+            same = _same(params, ref) and _same(mom, ref_mom) and agree
+            runs[d] = dict(params=params, momentum=mom, loss=loss,
+                           matches_reference=same, replicas_agree=agree)
+            ok = ok and (same if plan.reduce.mode == "boxplus" else agree)
+            if verbose:
+                print(f"[lns_dp] ranks={d} loss={loss:.4f} "
+                      f"bit-identical-to-reference={same}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return ok, runs

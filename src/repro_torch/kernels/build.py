@@ -42,7 +42,8 @@ class MacParams(ctypes.Structure):
     _fields_ = [("lns", LnsArgs),
                 ("a_code", _P), ("a_sign", _P), ("a_sr", _I), ("a_st", _I),
                 ("b_code", _P), ("b_sign", _P), ("b_st", _I), ("b_sc", _I),
-                ("R", _I), ("C", _I), ("CT", _I), ("epilogue", _I),
+                ("R", _I), ("C", _I), ("CT", _I), ("S", _I),
+                ("epilogue", _I),
                 ("bias_code", _P), ("bias_sign", _P),
                 ("llrelu_on", _I), ("beta", _I),
                 ("dst_on", _I), ("dst_qf", _I), ("dst_code_max", _I),
@@ -59,6 +60,12 @@ class UpdateParams(ctypes.Structure):
                 ("g_sign", _P), ("m_code", _P), ("m_sign", _P),
                 ("w_code_out", _P), ("w_sign_out", _P),
                 ("m_code_out", _P), ("m_sign_out", _P)]
+
+
+class BoxsumParams(ctypes.Structure):
+    _fields_ = [("lns", LnsArgs), ("code", _P), ("sign", _P), ("rows", _I),
+                ("steps", _I), ("row_stride", _I), ("step_stride", _I),
+                ("out_code", _P), ("out_sign", _P)]
 
 
 def nvcc_path() -> str:
@@ -91,11 +98,11 @@ def _build(src: Path) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """The ⊞-MAC / ⊞-SGD library, built on first call."""
+    """The ⊞-MAC / ⊞-SGD / ⊞-reduce library, built on first call."""
     path, _ = _build(CSRC / "lns_mac.cu")
     lib = ctypes.CDLL(str(path))
     for name in ("lns_mac_params_size", "lns_update_params_size",
-                 "lns_max_table"):
+                 "lns_boxsum_params_size", "lns_max_table"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.lns_error_string.argtypes = [ctypes.c_int]
@@ -104,8 +111,11 @@ def load_library() -> ctypes.CDLL:
     lib.lns_mac_launch.restype = ctypes.c_int
     lib.lns_update_launch.argtypes = [ctypes.POINTER(UpdateParams), _P]
     lib.lns_update_launch.restype = ctypes.c_int
+    lib.lns_boxsum_launch.argtypes = [ctypes.POINTER(BoxsumParams), _P]
+    lib.lns_boxsum_launch.restype = ctypes.c_int
     if (lib.lns_mac_params_size() != ctypes.sizeof(MacParams)
-            or lib.lns_update_params_size() != ctypes.sizeof(UpdateParams)):
+            or lib.lns_update_params_size() != ctypes.sizeof(UpdateParams)
+            or lib.lns_boxsum_params_size() != ctypes.sizeof(BoxsumParams)):
         raise RuntimeError("ctypes parameter blocks disagree with "
                            "csrc/lns_mac.cu")
     return lib

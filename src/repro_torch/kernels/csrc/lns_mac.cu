@@ -1,14 +1,22 @@
 // Hand-written Hopper (sm_90a) kernels for log-domain training: the
-// sequential ⊞-MAC with its flush-time epilogues, and the elementwise ⊞-SGD.
+// sequential ⊞-MAC with its flush-time epilogues, the elementwise ⊞-SGD and
+// the row-wise sequential ⊞-reduce.
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   * lns_mac_launch    — src/repro/kernels/lns_matmul/lns_matmul.py:
 //                         _mac_kernel (:236) as launched by
 //                         lns_matmul_fused_pallas (:599),
-//                         lns_matmul_dx_pallas (:539) and
-//                         lns_matmul_dw_update_pallas (:622);
+//                         lns_matmul_dx_pallas (:539),
+//                         lns_matmul_dw_update_pallas (:622),
+//                         lns_matmul_pallas (:528),
+//                         lns_matmul_dw_pallas (:555) and, with one
+//                         contraction segment per grid z,
+//                         lns_matmul_dw_partials_pallas (:571);
 //   * lns_update_launch — src/repro/kernels/lns_matmul/update.py:
-//                         _update_kernel (:35).
+//                         _update_kernel (:35);
+//   * lns_boxsum_launch — src/repro/kernels/lns_boxsum/lns_boxsum.py:
+//                         _kernel (:28) as launched by
+//                         lns_boxsum_pallas (:69).
 //
 // What bounds it on an H100: there is no multiply, so no tensor core can
 // help.  Each ⊞-MAC step is ~46 dependent int32 ALU operations plus one
@@ -48,6 +56,7 @@ constexpr int kTileK = 32;   // contraction chunk staged in shared memory
 constexpr int kThreads = kTileR * kTileC;
 constexpr int kMaxTab = 1024;
 constexpr int kUpdateThreads = 256;
+constexpr int kBoxsumThreads = 256;
 
 enum DeltaKind : int { kLut = 0, kBitshift = 1, kExact = 2 };
 enum Epilogue : int { kEpiNone = 0, kEpiFwd = 1, kEpiUpdate = 2 };
@@ -80,7 +89,10 @@ struct MacParams {
   const int32_t* b_code;
   const int8_t* b_sign;
   int64_t b_st, b_sc;
-  int64_t R, C, CT;
+  // S contraction segments of CT steps each, one per grid z: segment z
+  // reads steps [z * CT, (z + 1) * CT) of the operands and writes its
+  // output slot at z * R * C.  S = 1 walks the whole contraction.
+  int64_t R, C, CT, S;
   int64_t epilogue;
   // Forward epilogue (FwdEpilogue): a null bias pointer means no bias.
   const int32_t* bias_code;
@@ -115,6 +127,17 @@ struct UpdateParams {
   int8_t* w_sign_out;
   int32_t* m_code_out;
   int8_t* m_sign_out;
+};
+
+// The ⊞-reduce of `rows` rows of `steps` elements: row i's step s is at
+// code[i * row_stride + s * step_stride] (likewise sign).
+struct BoxsumParams {
+  LnsArgs lns;
+  const int32_t* code;
+  const int8_t* sign;
+  int64_t rows, steps, row_stride, step_stride;
+  int32_t* out_code;
+  int8_t* out_sign;
 };
 
 static_assert(sizeof(LnsArgs) == 10 * 8, "LnsArgs layout");
@@ -264,7 +287,9 @@ __device__ __forceinline__ void sgd_update(int& wc, int& ws, int& mc,
   }
 }
 
-// _mac_kernel (lns_matmul.py:236) with the epilogues of :165 and :214.
+// _mac_kernel (lns_matmul.py:236) with the epilogues of :165 and :214, and
+// its partial flush (:300, :343): grid z walks contraction segment z alone
+// into its own output slot.
 template <int KIND>
 __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
   __shared__ int32_t s_tp[kMaxTab];
@@ -290,6 +315,9 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
   }
   const Lns k = make_lns(p.lns, s_tp, s_tm);
 
+  // The loop walks the segment's own steps; t_lo moves only the global
+  // reads, so that S = 1 runs the loop of the unsegmented kernel.
+  const int64_t t_lo = (int64_t)blockIdx.z * p.CT;
   int acc_c = k.zero;
   int acc_s = 0;
   for (int64_t t0 = 0; t0 < p.CT; t0 += kTileK) {
@@ -306,7 +334,7 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
       }
       int64_t gr = r0 + lr, gt = t0 + lt;
       bool in = gr < p.R && gt < p.CT;
-      int64_t off = gr * p.a_sr + gt * p.a_st;
+      int64_t off = gr * p.a_sr + (t_lo + gt) * p.a_st;
       s_ac[lr][lt] = in ? p.a_code[off] : k.zero;
       s_as[lr][lt] = in ? p.a_sign[off] : (int8_t)0;
     }
@@ -323,7 +351,7 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
       }
       int64_t gt = t0 + lt, gc = c0 + lc;
       bool in = gt < p.CT && gc < p.C;
-      int64_t off = gt * p.b_st + gc * p.b_sc;
+      int64_t off = (t_lo + gt) * p.b_st + gc * p.b_sc;
       s_bc[lt][lc] = in ? p.b_code[off] : k.zero;
       s_bs[lt][lc] = in ? p.b_sign[off] : (int8_t)0;
     }
@@ -344,7 +372,7 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
     __syncthreads();
   }
   if (r >= p.R || c >= p.C) return;
-  const int64_t o = r * p.C + c;
+  const int64_t o = (int64_t)blockIdx.z * p.R * p.C + r * p.C + c;
   int code = acc_c, sign = acc_s;
 
   if (p.epilogue == kEpiFwd) {
@@ -413,12 +441,48 @@ __global__ void __launch_bounds__(kUpdateThreads)
   }
 }
 
+// _kernel (lns_boxsum.py:28): one thread per row folds the row's steps
+// in ascending order into one accumulator.  The row's steps are a serial
+// chain of ⊞ (~36 int32 operations each) and every element is read once,
+// so at the data-parallel combine's shapes (up to 78400 rows of 5 steps:
+// 2.4 MB and 14 M operations, about a microsecond either way) the launch
+// dominates.  Rows and steps are read through strides: the combine passes
+// its (S, E) partials in place, where a warp's 32 rows are 32 neighbouring
+// words at every step.
+template <int KIND>
+__global__ void __launch_bounds__(kBoxsumThreads)
+    boxsum_kernel(const BoxsumParams p) {
+  __shared__ int32_t s_tp[kMaxTab];
+  __shared__ int32_t s_tm[kMaxTab];
+  if (KIND == kLut) {
+    for (int i = threadIdx.x; i < p.lns.n_tab; i += kBoxsumThreads) {
+      s_tp[i] = p.lns.tab_plus[i];
+      s_tm[i] = p.lns.tab_minus[i];
+    }
+    __syncthreads();
+  }
+  const int64_t i = (int64_t)blockIdx.x * kBoxsumThreads + threadIdx.x;
+  if (i >= p.rows) return;
+  const Lns k = make_lns(p.lns, s_tp, s_tm);
+  const int32_t* code = p.code + i * p.row_stride;
+  const int8_t* sign = p.sign + i * p.row_stride;
+  int acc_c = k.zero;
+  int acc_s = 0;
+  for (int64_t s = 0; s < p.steps; ++s) {
+    const int64_t at = s * p.step_stride;
+    boxplus<KIND>(acc_c, acc_s, code[at], sign[at], k, acc_c, acc_s);
+  }
+  p.out_code[i] = acc_c;
+  p.out_sign[i] = (int8_t)acc_s;
+}
+
 }  // namespace
 
 extern "C" {
 
 int lns_mac_params_size() { return (int)sizeof(MacParams); }
 int lns_update_params_size() { return (int)sizeof(UpdateParams); }
+int lns_boxsum_params_size() { return (int)sizeof(BoxsumParams); }
 int lns_max_table() { return kMaxTab; }
 const char* lns_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -427,8 +491,11 @@ const char* lns_error_string(int err) {
 // Enqueues one ⊞-MAC launch on ``stream``; returns cudaGetLastError().
 int lns_mac_launch(const MacParams* p, void* stream) {
   if (p->lns.n_tab > kMaxTab) return (int)cudaErrorInvalidValue;
+  // Segments take no epilogue; the grid z extent holds at most 65535.
+  if (p->S < 1 || p->S > 65535 || (p->S > 1 && p->epilogue != kEpiNone))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((p->C + kTileC - 1) / kTileC),
-            (unsigned)((p->R + kTileR - 1) / kTileR));
+            (unsigned)((p->R + kTileR - 1) / kTileR), (unsigned)p->S);
   cudaStream_t s = (cudaStream_t)stream;
   switch (p->lns.delta_kind) {
     case kLut: mac_kernel<kLut><<<grid, kThreads, 0, s>>>(*p); break;
@@ -449,6 +516,24 @@ int lns_update_launch(const UpdateParams* p, void* stream) {
       update_kernel<kBitshift><<<grid, kUpdateThreads, 0, s>>>(*p);
       break;
     case kExact: update_kernel<kExact><<<grid, kUpdateThreads, 0, s>>>(*p); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Enqueues one ⊞-reduce launch; returns cudaGetLastError().
+int lns_boxsum_launch(const BoxsumParams* p, void* stream) {
+  if (p->lns.n_tab > kMaxTab) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)((p->rows + kBoxsumThreads - 1) / kBoxsumThreads));
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (p->lns.delta_kind) {
+    case kLut: boxsum_kernel<kLut><<<grid, kBoxsumThreads, 0, s>>>(*p); break;
+    case kBitshift:
+      boxsum_kernel<kBitshift><<<grid, kBoxsumThreads, 0, s>>>(*p);
+      break;
+    case kExact:
+      boxsum_kernel<kExact><<<grid, kBoxsumThreads, 0, s>>>(*p);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

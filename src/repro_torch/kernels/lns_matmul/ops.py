@@ -10,8 +10,9 @@ from ...core.delta import DeltaSpec
 from ...core.formats import LNSFormat
 from ...core.lns import LNSArray
 from ...core.sgd import UpdateEpilogue
-from .lns_matmul import (FwdEpilogue, lns_matmul_dw_update, lns_matmul_dx,
-                         lns_matmul_fused)
+from .lns_matmul import (FwdEpilogue, lns_matmul, lns_matmul_dw,
+                         lns_matmul_dw_partials, lns_matmul_dw_update,
+                         lns_matmul_dx, lns_matmul_fused)
 from .update import lns_fused_update
 
 
@@ -20,6 +21,13 @@ def _check_momentum(epilogue: UpdateEpilogue, m) -> None:
         raise ValueError(
             f"epilogue momentum={epilogue.momentum_code} but momentum "
             f"state {'was' if m is not None else 'was not'} passed")
+
+
+def lns_matmul_kernel(x: LNSArray, w: LNSArray, *, fmt: LNSFormat,
+                      spec: DeltaSpec) -> LNSArray:
+    """Forward ⊞-MAC: X (M, K) ⊞-MAC W (K, N) → (M, N), no epilogue."""
+    return LNSArray(*lns_matmul(x.code, x.sign, w.code, w.sign, fmt=fmt,
+                                spec=spec))
 
 
 def lns_matmul_fused_kernel(x: LNSArray, w: LNSArray, *,
@@ -46,6 +54,24 @@ def lns_matmul_dx_kernel(dy: LNSArray, w: LNSArray, *, fmt: LNSFormat,
     """Backward-activation ⊞-MAC: dY (M, N) ⊞-MAC Wᵀ → dX (M, K)."""
     return LNSArray(*lns_matmul_dx(dy.code, dy.sign, w.code, w.sign,
                                    fmt=fmt, spec=spec))
+
+
+def lns_matmul_dw_kernel(x: LNSArray, dy: LNSArray, *, fmt: LNSFormat,
+                         spec: DeltaSpec) -> LNSArray:
+    """Backward-weight ⊞-MAC: Xᵀ ⊞-MAC dY (M, N) → dW (K, N)."""
+    return LNSArray(*lns_matmul_dw(x.code, x.sign, dy.code, dy.sign,
+                                   fmt=fmt, spec=spec))
+
+
+def lns_matmul_dw_partials_kernel(x: LNSArray, dy: LNSArray, *,
+                                  num_segments: int, fmt: LNSFormat,
+                                  spec: DeltaSpec) -> LNSArray:
+    """Segmented backward-weight ⊞-MAC: (S, K, N) per-segment dW partials
+    over ``num_segments`` equal contiguous segments of the batch; raises
+    ``ValueError`` when the batch does not divide."""
+    return LNSArray(*lns_matmul_dw_partials(
+        x.code, x.sign, dy.code, dy.sign, num_segments=num_segments,
+        fmt=fmt, spec=spec))
 
 
 def lns_matmul_dw_update_kernel(x: LNSArray, dy: LNSArray, *, w: LNSArray,

@@ -18,8 +18,8 @@ from ...core.delta import DeltaSpec
 from ...core.formats import LNSFormat
 from ...core.sgd import UpdateEpilogue
 from .. import build
-from .lns_matmul import (_apply_update_epilogue, _checked, _delta_fn, _lane,
-                         _ptr, lns_args, sgd_args)
+from .._common import checked, delta_fn, lane, lns_args, ptr
+from .lns_matmul import _apply_update_epilogue, sgd_args
 
 
 def update_plain(w_code, w_sign, g_code, g_sign, *, epilogue: UpdateEpilogue,
@@ -27,7 +27,7 @@ def update_plain(w_code, w_sign, g_code, g_sign, *, epilogue: UpdateEpilogue,
     """Plain PyTorch version of ``update_kernel`` on any device."""
     w_c, w_s, m_c, m_s = _apply_update_epilogue(
         w_code, w_sign, m_code, m_sign, g_code, g_sign, epilogue,
-        _delta_fn(spec, fmt, w_code.device), fmt)
+        delta_fn(spec, fmt, w_code.device), fmt)
     return (w_c, w_s) + ((m_c, m_s) if epilogue.has_momentum else ())
 
 
@@ -37,13 +37,13 @@ def update_cuda(w_code, w_sign, g_code, g_sign, *, epilogue: UpdateEpilogue,
     planes of any rank; same outputs as :func:`update_plain`."""
     lib = build.load_library()
     shape, dev = tuple(w_code.shape), w_code.device
-    planes = [_checked(w_code, torch.int32, shape, "w_code", dev),
-              _checked(w_sign, torch.int8, shape, "w_sign", dev),
-              _checked(g_code, torch.int32, shape, "g_code", dev),
-              _checked(g_sign, torch.int8, shape, "g_sign", dev)]
+    planes = [checked(w_code, torch.int32, shape, "w_code", dev),
+              checked(w_sign, torch.int8, shape, "w_sign", dev),
+              checked(g_code, torch.int32, shape, "g_code", dev),
+              checked(g_sign, torch.int8, shape, "g_sign", dev)]
     if epilogue.has_momentum:
-        planes += [_checked(m_code, torch.int32, shape, "m_code", dev),
-                   _checked(m_sign, torch.int8, shape, "m_sign", dev)]
+        planes += [checked(m_code, torch.int32, shape, "m_code", dev),
+                   checked(m_sign, torch.int8, shape, "m_sign", dev)]
     else:
         planes += [None, None]
     outs = [torch.empty(shape, dtype=torch.int32, device=dev),
@@ -54,12 +54,12 @@ def update_cuda(w_code, w_sign, g_code, g_sign, *, epilogue: UpdateEpilogue,
     p = build.UpdateParams(
         lns=lns_args(fmt, spec, dev), sgd=sgd_args(epilogue),
         n=w_code.numel(),
-        w_code=_ptr(planes[0]), w_sign=_ptr(planes[1]),
-        g_code=_ptr(planes[2]), g_sign=_ptr(planes[3]),
-        m_code=_ptr(planes[4]), m_sign=_ptr(planes[5]),
-        w_code_out=_ptr(outs[0]), w_sign_out=_ptr(outs[1]))
+        w_code=ptr(planes[0]), w_sign=ptr(planes[1]),
+        g_code=ptr(planes[2]), g_sign=ptr(planes[3]),
+        m_code=ptr(planes[4]), m_sign=ptr(planes[5]),
+        w_code_out=ptr(outs[0]), w_sign_out=ptr(outs[1]))
     if epilogue.has_momentum:
-        p.m_code_out, p.m_sign_out = _ptr(outs[2]), _ptr(outs[3])
+        p.m_code_out, p.m_sign_out = ptr(outs[2]), ptr(outs[3])
     if p.n == 0:
         raise ValueError("empty update")
     with torch.cuda.device(dev):
@@ -80,7 +80,7 @@ def lns_fused_update(w_code, w_sign, g_code, g_sign, *,
                          "planes (m_code/m_sign)")
     kw = dict(epilogue=epilogue, fmt=fmt, spec=spec, m_code=m_code,
               m_sign=m_sign)
-    if _lane(w_code) == "cuda":
+    if lane(w_code) == "cuda":
         lns_fused_update.launches += 1
         return update_cuda(w_code, w_sign, g_code, g_sign, **kw)
     return update_plain(w_code, w_sign, g_code, g_sign, **kw)

@@ -5,12 +5,18 @@ Backprop follows eq. (10)-(14): δ2 = P ⊟ Y, gW2 = a1ᵀ ⊡⊞ δ2,
 Every forward / backward / update quantity is an LNS code; the CE loss is
 a monitoring readout only.
 
-The step is the fused one: the forward ⊞-MACs fold bias ⊞ / llReLU /
-format conversion into their flush, each dW ⊞-MAC applies the ⊞-SGD update
-at its flush (the weight gradient is never stored), and the bias
-gradients (pairwise ⊞-folds) go through the elementwise update kernel.
-One step launches the fused forward kernel twice, the dX kernel once, the
-dW-update kernel twice and the update kernel twice.
+With ``MLPConfig.fused`` (the default) the forward ⊞-MACs fold bias ⊞ /
+llReLU / format conversion into their flush, each dW ⊞-MAC applies the
+⊞-SGD update at its flush (the weight gradient is never stored), and the
+bias gradients (pairwise ⊞-folds) go through the elementwise update
+kernel: one step launches the fused forward kernel twice, the dX kernel
+once, the dW-update kernel twice and the update kernel twice.  The unfused
+step (``fused=False``, and the fallback when ``lr <= 0``) runs each piece
+as its own pass: the plain forward and dW kernels, and the ⊞-SGD as
+elementwise tensor ops (``core/sgd.py: apply_update``).  Both give the
+same codes.  A spec with ``reduce.grad_segments`` (or
+``data_parallel > 1``) routes ``make_mlp`` to the data-parallel model
+(``distributed/lns_dp.py``), which emits per-segment partials.
 
 Arithmetic is per layer: ``MLPConfig.spec`` is a
 :class:`~repro_torch.core.plan.NumericsPlan` over the layer paths
@@ -28,7 +34,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..core.activations import beta_code, llrelu_grad_from_sign
+from ..core.activations import beta_code, llrelu, llrelu_grad_from_sign
 from ..core.arithmetic import boxdot, boxsum
 from ..core.delta import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT,
                           DELTA_SOFTMAX, DeltaEngine, DeltaSpec, cached_engine)
@@ -37,7 +43,7 @@ from ..core.initializers import he_sigma, log_normal_init
 from ..core.lns import (LNSArray, LNSMatmulBackend, convert_format, encode,
                         zeros)
 from ..core.plan import NumericsPlan
-from ..core.sgd import LogSGDConfig, UpdateEpilogue
+from ..core.sgd import LogSGDConfig, UpdateEpilogue, apply_update
 from ..core.softmax import ce_grad_init, ce_loss_readout, log_softmax_lns
 from ..core.spec import NumericsSpec
 
@@ -66,22 +72,12 @@ class MLPConfig:
     spec: Any = None                # NumericsPlan | NumericsSpec | string |
                                     # None (→ from bits/approx); normalized
                                     # to a NumericsPlan
-    fused: bool = True              # False: the unfused step (not ported)
-    data_parallel: int = 1          # > 1: DP training (not ported)
+    fused: bool = True              # flush-time kernel epilogues; False =
+                                    # the separate-pass step, same codes
+    data_parallel: int = 1          # ranks of the data-parallel step
     faults: Any = None              # fault injection (not ported)
 
     def __post_init__(self):
-        if not self.fused:
-            raise NotImplementedError(
-                "fused=False (the unfused separate-pass step) is not ported "
-                "yet: ROADMAP queue 1")
-        if self.lr <= 0:
-            raise NotImplementedError(
-                "lr <= 0 (the unfused update fallback) is not ported yet: "
-                "ROADMAP queue 1")
-        if self.data_parallel != 1:
-            raise NotImplementedError(
-                "data-parallel training is not ported yet: ROADMAP queue 1")
         if self.faults is not None:
             raise NotImplementedError(
                 "fault injection (resil/) is not ported yet: ROADMAP queue 1")
@@ -126,6 +122,16 @@ def _device(device) -> torch.device:
     return device
 
 
+def segmented_boxsum(d: LNSArray, num_segments: int, eng) -> LNSArray:
+    """Per-segment sequential ⊞-fold over the batch axis: (B, K) → (S, K);
+    slot s folds segment s's rows only (the bias side of the
+    data-parallel reduce)."""
+    b, tail = d.shape[0], tuple(d.shape[1:])
+    shape = (num_segments, b // num_segments) + tail
+    return boxsum(LNSArray(d.code.reshape(shape), d.sign.reshape(shape)), 1,
+                  eng, order="sequential")
+
+
 class LNSMLP:
     """End-to-end log-domain training (the paper's contribution) on
     ``device``; parameters are dicts of :class:`LNSArray` on that device.
@@ -152,10 +158,14 @@ class LNSMLP:
         self.sgd = LogSGDConfig(lr=cfg.lr, weight_decay=cfg.weight_decay,
                                 momentum=cfg.momentum)
         # The ⊞-SGD as static scalar codes, one per layer format: what the
-        # fused kernels apply at flush.
-        self.update_eps = {p: UpdateEpilogue.from_sgd(self.sgd, self.fmts[p])
-                           for p in LAYER_PATHS}
+        # fused kernels apply at flush.  lr <= 0 has no scalar code: the
+        # step then falls back to the unfused update.
+        self.update_eps = (
+            {p: UpdateEpilogue.from_sgd(self.sgd, self.fmts[p])
+             for p in LAYER_PATHS} if cfg.lr > 0 else None)
+        # Per-parameter views (the unit the data-parallel reduce keys on).
         self.param_fmts = {k: self.fmts[l] for k, l in PARAM_LAYER.items()}
+        self.param_engines = {k: self.engs[l] for k, l in PARAM_LAYER.items()}
 
     def init(self, gen: torch.Generator):
         """Log-normal He init (eq. 12) drawn from ``gen``, then moved to
@@ -182,12 +192,21 @@ class LNSMLP:
 
     def _forward(self, params, x: LNSArray):
         """Returns (z1_sign, a1 [out fmt], z2); ``z1_sign`` is the post-bias
-        pre-activation sign plane, the only piece of z1 backward needs."""
-        a1, z1_sign = self.mms["hidden"].matmul_fused(
-            x, params["w1"], bias=params["b1"], llrelu_beta=self.beta,
-            out_fmt=self.fmts["out"], emit_z_sign=True)
-        z2 = self.mms["out"].matmul_fused(a1, params["w2"], bias=params["b2"])
-        return z1_sign, a1, z2
+        pre-activation sign plane, the only piece of z1 backward needs.
+        Fused, bias ⊞ / llReLU / conversion run in the forward kernels'
+        flush; unfused, each is a pass of its own."""
+        mm_h, mm_o = self.mms["hidden"], self.mms["out"]
+        fh, fo = self.fmts["hidden"], self.fmts["out"]
+        if self.cfg.fused:
+            a1, z1_sign = mm_h.matmul_fused(
+                x, params["w1"], bias=params["b1"], llrelu_beta=self.beta,
+                out_fmt=fo, emit_z_sign=True)
+            z2 = mm_o.matmul_fused(a1, params["w2"], bias=params["b2"])
+            return z1_sign, a1, z2
+        z1 = mm_h.affine(x, params["w1"], params["b1"])
+        a1 = convert_format(llrelu(z1, self.beta, fh), fh, fo)
+        z2 = mm_o.affine(a1, params["w2"], params["b2"])
+        return z1.sign, a1, z2
 
     def _bwd_core(self, params, xb, yb):
         """Forward + error backprop; returns ``(x, a1, d1, d2, loss)``."""
@@ -201,7 +220,68 @@ class LNSMLP:
         d1 = boxdot(bp, llrelu_grad_from_sign(z1_sign, self.beta), fh)
         return x, a1, d1, d2, ce_loss_readout(p, yb, fo)
 
+    def _backward(self, params, xb, yb, num_segments=None):
+        """Gradients of every parameter, each in its own layer's format.
+
+        ``num_segments=None`` gives fully ⊞-reduced gradients (the
+        sequential MAC over the batch for dW, the pairwise ⊞-fold for the
+        biases); an integer gives per-segment partials with a leading
+        segment axis, what the data-parallel reduce combines."""
+        mm_h, mm_o = self.mms["hidden"], self.mms["out"]
+        eng_h, eng_o = self.engs["hidden"], self.engs["out"]
+        x, a1, d1, d2, loss = self._bwd_core(params, xb, yb)
+        if num_segments is None:
+            grads = dict(w1=mm_h.matmul_dw(x, d1), b1=boxsum(d1, 0, eng_h),
+                         w2=mm_o.matmul_dw(a1, d2), b2=boxsum(d2, 0, eng_o))
+        else:
+            grads = dict(
+                w1=mm_h.matmul_dw_partials(x, d1, num_segments),
+                b1=segmented_boxsum(d1, num_segments, eng_h),
+                w2=mm_o.matmul_dw_partials(a1, d2, num_segments),
+                b2=segmented_boxsum(d2, num_segments, eng_o))
+        return grads, loss
+
+    def per_segment_grads(self, params, xb, yb, num_segments: int):
+        """Per-segment gradient partials (leading segment axis) + loss."""
+        return self._backward(params, xb, yb, num_segments)
+
+    def apply_updates(self, params, grads, momentum=None):
+        """⊞-SGD of every parameter under its own layer's Δ engine: the
+        elementwise update kernel when fused (and lr > 0), else
+        ``core/sgd.py: apply_update``.  The two give the same codes."""
+        if self.cfg.fused and self.update_eps is not None:
+            # cfg.momentum == 0 with a momentum dict passed: the state
+            # passes through untouched, as in the unfused update.
+            has_mom = self.sgd.momentum != 0.0 and momentum is not None
+            new_p = {}
+            new_m = dict(momentum) if momentum is not None else None
+            for k in params:
+                layer = PARAM_LAYER[k]
+                new_p[k], m = self.mms[layer].fused_update(
+                    params[k], grads[k], momentum[k] if has_mom else None,
+                    self.update_eps[layer])
+                if has_mom:
+                    new_m[k] = m
+            return new_p, new_m
+        new_p, new_m = {}, ({} if momentum is not None else None)
+        for layer in LAYER_PATHS:
+            keys = [k for k, l in PARAM_LAYER.items() if l == layer]
+            p2, m2 = apply_update(
+                {k: params[k] for k in keys}, {k: grads[k] for k in keys},
+                None if momentum is None else {k: momentum[k] for k in keys},
+                self.sgd, self.engs[layer])
+            new_p.update(p2)
+            if momentum is not None:
+                new_m.update(m2)
+        return new_p, new_m
+
     def _step_impl(self, params, xb, yb, momentum=None):
+        if not self.cfg.fused or self.update_eps is None:
+            grads, loss = self._backward(params, xb, yb)
+            params, momentum = self.apply_updates(params, grads, momentum)
+            if momentum is None:
+                return params, loss
+            return params, momentum, loss
         x, a1, d1, d2, loss = self._bwd_core(params, xb, yb)
         # cfg.momentum == 0 with a momentum dict passed: the state passes
         # through untouched.
@@ -229,9 +309,8 @@ class LNSMLP:
         return x, torch.as_tensor(yb, device=self.device).long()
 
     def train_step(self, params, xb, yb, momentum=None):
-        """One fused step on a batch (numpy or tensors); returns (params,
-        loss), or (params, momentum, loss) when a momentum dict is passed.
-        """
+        """One step on a batch (numpy or tensors); returns (params, loss),
+        or (params, momentum, loss) when a momentum dict is passed."""
         x, y = self._inputs(xb, yb)
         return self._step_impl(params, x, y, momentum)
 
@@ -261,9 +340,24 @@ def params_to_numpy(params: dict) -> dict:
             for k, v in params.items()}
 
 
-def make_mlp(backend: str, cfg: MLPConfig, device="cuda") -> LNSMLP:
+def make_mlp(backend: str, cfg: MLPConfig, device="cuda"):
+    """The paper MLP of ``backend`` on ``device``.  With
+    ``cfg.data_parallel > 1`` or a spec that sets
+    ``reduce.grad_segments``, the data-parallel model
+    (:class:`~repro_torch.distributed.lns_dp.LNSDataParallelMLP`), so that
+    one- and many-rank runs sharing a segmentation give the same codes."""
+    if cfg.data_parallel > 1 and backend != "lns":
+        raise ValueError(
+            f"data_parallel={cfg.data_parallel} is the LNS data-parallel "
+            f"step (distributed/lns_dp); the {backend!r} backend has no "
+            f"deterministic-reduce train step")
     if backend != "lns":
         raise NotImplementedError(
             f"the {backend!r} MLP (FloatMLP / FxpMLP) is not ported yet: "
             f"ROADMAP queue 1")
+    if cfg.data_parallel > 1 or cfg.spec.reduce.grad_segments:
+        from ..distributed.lns_dp import DPConfig, LNSDataParallelMLP
+        return LNSDataParallelMLP(
+            cfg, DPConfig(num_devices=cfg.data_parallel,
+                          reduce=cfg.spec.reduce), device)
     return LNSMLP(cfg, device)

@@ -41,6 +41,7 @@ def run_experiment(backend: str, dataset: str, *, bits: int = 16,
                    weight_decay: float | None = None,
                    momentum: float = 0.0, seed: int = 0,
                    data_dir: str = "data", numerics=None,
+                   fused: bool = True, data_parallel: int = 1,
                    max_steps_per_epoch: int | None = None,
                    device="cuda") -> RunResult:
     """Train the paper MLP on ``device``; returns the learning curve, the
@@ -49,15 +50,22 @@ def run_experiment(backend: str, dataset: str, *, bits: int = 16,
     Paper hyperparameters: SGD, minibatch 5, lr 0.01, 20 epochs, 1:5
     validation holdout.  ``numerics`` is a spec or per-layer plan string
     (``"lns16-train-pallas"``, ``"lns16-train-pallas;hidden=fmt:lns12"``).
-    The weights are drawn from a CPU ``torch.Generator`` seeded with
-    ``seed``, so every device starts from the same weights.
+    ``fused=False`` trains the unfused step (same codes, one pass per
+    piece).  A spec with ``reduce.grad_segments`` (e.g.
+    ``"lns16-train-pallas,reduce.grad_segments=5"``) trains the segmented
+    data-parallel step; ``data_parallel > 1`` runs it over that many
+    ranks of the caller's process group, each rank calling this function
+    with its own ``device``.  ``batch_size`` must divide into the
+    canonical segment count.  The weights are drawn from a CPU
+    ``torch.Generator`` seeded with ``seed``, so every device starts from
+    the same weights.
     """
     x, yl, x_te, y_te, spec = datasets.load(dataset, data_dir, seed)
     x_tr, y_tr, x_val, y_val = datasets.train_val_split(x, yl, 5, seed)
     wd = WEIGHT_DECAY[bits] if weight_decay is None else weight_decay
     cfg = MLPConfig(n_out=spec.n_classes, lr=lr, weight_decay=wd,
                     momentum=momentum, bits=bits, approx=approx,
-                    spec=numerics)
+                    spec=numerics, fused=fused, data_parallel=data_parallel)
     model = make_mlp(backend, cfg, device)
     params = model.init(torch.Generator().manual_seed(seed))
     mom = model.init_momentum(params)

@@ -14,6 +14,12 @@ import torch
 import repro.core as J
 import repro_torch.core as T
 
+# The plain ⊞ versions are long chains of small tensor ops.  Under xdist
+# several port test files run at once, and OpenMP pools of 8 spinning
+# threads in each process oversubscribe the cores many times over: one
+# intra-op thread a process keeps each file near its serial time.
+torch.set_num_threads(1)
+
 FMTS = ("lns16", "lns12")
 DELTAS = {"lut": (J.DELTA_DEFAULT, T.DELTA_DEFAULT),
           "lut640": (J.DELTA_SOFTMAX, T.DELTA_SOFTMAX),

@@ -4,15 +4,17 @@ host without a CUDA card and run on the H100 with
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Imports no JAX: the card's machine has none.  Each kernel is held bit for
-bit against its plain PyTorch version on the card, and the fused train
-step on the card against the CPU lane.
+bit against its plain PyTorch version on the card, and the fused, unfused
+and segmented train steps on the card against the CPU lane.
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
+import repro_torch.kernels as TKS
 import repro_torch.kernels.lns_matmul as TK
+from repro_torch.kernels.lns_boxsum import boxsum_plain, lns_boxsum
 from repro_torch.paper import MLPConfig, make_mlp, params_to_numpy
 from repro_torch.paper import datasets
 
@@ -113,7 +115,7 @@ def test_train_steps_card_equal_cpu(cuda, case):
     params = {d: m.init(torch.Generator().manual_seed(1))
               for d, m in models.items()}
     moms = {d: m.init_momentum(params[d]) for d, m in models.items()}
-    TK.reset_launch_counts()
+    TKS.reset_launch_counts()
     for step in range(20):
         sl = slice(step * 5, (step + 1) * 5)
         for d, m in models.items():
@@ -127,9 +129,108 @@ def test_train_steps_card_equal_cpu(cuda, case):
         for k in want:
             for g, w in zip(got[k], want[k]):
                 np.testing.assert_array_equal(g, w, err_msg=f"{k} @{step}")
-    assert TK.launch_counts() == {
-        "lns_matmul_fused": 40, "lns_matmul_dx": 20,
-        "lns_matmul_dw_update": 40, "lns_fused_update": 40}
+    assert TKS.launch_counts() == dict(
+        dict.fromkeys(TKS.KERNEL_WRAPPERS, 0), lns_matmul_fused=40,
+        lns_matmul_dx=20, lns_matmul_dw_update=40, lns_fused_update=40)
     np.testing.assert_array_equal(
         models["cuda"].predict(params["cuda"], x[:500]).cpu().numpy(),
         models["cpu"].predict(params["cpu"], x[:500]).numpy())
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
+def test_plain_and_segment_kernels_equal_plain_on_card(cuda, kind, fmt_name):
+    """The plain forward, plain dW and segment-partial dW at a ragged
+    shape; S = 1 is the plain dW."""
+    fmt, spec = T.FORMATS[fmt_name], DELTA[kind]
+    gen = torch.Generator().manual_seed(2)
+    m, k, n = 40, 71, 37
+    x = _operand(gen, (m, k), fmt, cuda, zero_frac=0.5)
+    w = _operand(gen, (k, n), fmt, cuda, scale=0.05)
+    dy = _operand(gen, (m, n), fmt, cuda, scale=0.1)
+    kw = dict(fmt=fmt, spec=spec)
+    _same(TK.lns_matmul(x.code, x.sign, w.code, w.sign, **kw),
+          TK.mac_plain(x.code, x.sign, w.code, w.sign, a_contract_axis=1,
+                       b_contract_axis=0, **kw))
+    dw = TK.lns_matmul_dw(x.code, x.sign, dy.code, dy.sign, **kw)
+    _same(dw, TK.mac_plain(x.code, x.sign, dy.code, dy.sign,
+                           a_contract_axis=0, b_contract_axis=0, **kw))
+    for s in (1, 2, 4, 5, 8):
+        got = TK.lns_matmul_dw_partials(x.code, x.sign, dy.code, dy.sign,
+                                        num_segments=s, **kw)
+        _same(got, TK.mac_plain(x.code, x.sign, dy.code, dy.sign,
+                                a_contract_axis=0, b_contract_axis=0,
+                                segments=s, **kw))
+        if s == 1:
+            _same((got[0][0], got[1][0]), dw)
+    with pytest.raises(ValueError, match="not divisible"):
+        TK.lns_matmul_dw_partials(x.code, x.sign, dy.code, dy.sign,
+                                  num_segments=3, **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
+def test_boxsum_kernel_equals_plain_on_card(cuda, kind, fmt_name):
+    """The ⊞-reduce over K ∈ {1, 5, 37, 128}, dense and through the
+    transposed view the combine reads, with exact cancellations."""
+    fmt, spec = T.FORMATS[fmt_name], DELTA[kind]
+    gen = torch.Generator().manual_seed(3)
+    for k in (1, 5, 37, 128):
+        a = _operand(gen, (k, 301), fmt, cuda)
+        if k > 1:
+            a.code[1, ::2] = a.code[0, ::2]
+            a.sign[1, ::2] = a.sign[0, ::2] ^ 1
+        kw = dict(fmt=fmt, spec=spec)
+        for code, sign in ((a.code.T, a.sign.T),
+                           (a.code.T.contiguous(), a.sign.T.contiguous())):
+            _same(lns_boxsum(code, sign, **kw), boxsum_plain(code, sign,
+                                                             **kw))
+    torch.cuda.synchronize()
+
+
+PATHS = {
+    "unfused": (dict(spec="lns16-train-pallas", fused=False),
+                dict(lns_matmul=40, lns_matmul_dx=20, lns_matmul_dw=40)),
+    "segmented": (dict(spec="lns16-train-pallas,reduce.grad_segments=5"),
+                  dict(lns_matmul_fused=40, lns_matmul_dx=20,
+                       lns_matmul_dw_partials=40, lns_boxsum=80,
+                       lns_fused_update=80)),
+}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_unfused_and_segmented_steps_card_equal_cpu(cuda, path):
+    """20 full-width steps of the unfused and the segmented step on the
+    card equal the CPU lane, with the kernel launches each path makes."""
+    kw, launches = PATHS[path]
+    x, y, _, _, _ = datasets.load("mnist", "data", 0)
+    models = {d: make_mlp("lns", MLPConfig(momentum=0.9, weight_decay=0.01,
+                                           **kw), device=d)
+              for d in ("cuda", "cpu")}
+    params = {d: m.init(torch.Generator().manual_seed(4))
+              for d, m in models.items()}
+    moms = {d: m.init_momentum(params[d]) for d, m in models.items()}
+    TKS.reset_launch_counts()
+    for step in range(20):
+        sl = slice(step * 5, (step + 1) * 5)
+        for d, m in models.items():
+            params[d], moms[d], _ = m.train_step(params[d], x[sl], y[sl],
+                                                 moms[d])
+        for k, (g, w) in enumerate(zip(
+                params_to_numpy(params["cuda"]).values(),
+                params_to_numpy(params["cpu"]).values())):
+            np.testing.assert_array_equal(g[0], w[0], err_msg=f"{k}@{step}")
+            np.testing.assert_array_equal(g[1], w[1], err_msg=f"{k}@{step}")
+    assert TKS.launch_counts() == dict(
+        dict.fromkeys(TKS.KERNEL_WRAPPERS, 0), **launches)
+
+
+def test_invariance_check_on_card(cuda):
+    """The invariance check's default lane: one NCCL rank per card, in a
+    process of its own, holds its weight and momentum codes to
+    ``reference_train_step`` on the card."""
+    from repro_torch.distributed import run_device_count_invariance_check
+    ok, runs = run_device_count_invariance_check(
+        (1,), momentum=0.9, timeout=300)
+    assert ok and runs[1]["matches_reference"] and runs[1]["replicas_agree"]

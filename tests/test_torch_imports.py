@@ -1,6 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -31,3 +34,22 @@ def test_sources_found():
     assert len(SOURCES) > 20
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
             / "lns_mac.cu").exists()
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for pkg in ("distributed", "kernels/lns_boxsum"):
+        assert f"src/repro_torch/{pkg}/__init__.py" in names, pkg
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.paper", "repro_torch.distributed",
+    "repro_torch.kernels.lns_boxsum", "repro_torch.kernels.lns_matmul"])
+def test_import_loads_no_jax(module):
+    """Importing the module in a fresh interpreter loads neither JAX nor
+    the JAX package."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

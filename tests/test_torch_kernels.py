@@ -1,5 +1,7 @@
 """The port's ⊞-MAC and ⊞-SGD kernels (``repro_torch.kernels.lns_matmul``)
-against the JAX package, on the CPU lane.
+against the JAX package, on the CPU lane: the fused forward, dX, dW-update
+and elementwise update of the fused step, and the plain forward, plain dW
+and segment-partial dW of the unfused and segmented steps.
 
 The CUDA kernels cannot run here; what runs is each wrapper's plain
 PyTorch version, the arithmetic the kernels are held to on the card
@@ -19,11 +21,18 @@ import torch
 import repro.core as J
 import repro.kernels.lns_matmul as JK
 import repro_torch.core as T
+import repro_torch.kernels as TKS
 import repro_torch.kernels.lns_matmul as TK
 from repro.kernels.lns_matmul.lns_matmul import (lns_matmul_dw_update_pallas,
                                                  lns_matmul_dx_pallas,
                                                  lns_matmul_fused_pallas)
 from repro.kernels.lns_matmul.update import lns_fused_update_pallas
+
+# The plain ⊞ versions are long chains of small tensor ops.  Under xdist
+# several port test files run at once, and OpenMP pools of 8 spinning
+# threads in each process oversubscribe the cores many times over: one
+# intra-op thread a process keeps each file near its serial time.
+torch.set_num_threads(1)
 
 DELTA = {"lut": (J.DELTA_DEFAULT, T.DELTA_DEFAULT),
          "bitshift": (J.DELTA_BITSHIFT, T.DELTA_BITSHIFT),
@@ -337,20 +346,36 @@ def test_dispatcher_matches_oracles_on_cpu():
 
 
 def test_cpu_lane_launches_nothing():
-    TK.reset_launch_counts()
-    x, w, b = (T.LNSArray(*_t(p)) for p in _fwd_operands(22, 3, 8, 4,
+    TKS.reset_launch_counts()
+    x, w, b = (T.LNSArray(*_t(p)) for p in _fwd_operands(22, 4, 8, 4,
                                                         "lns16"))
-    T.LNSMatmulBackend(fmt=T.LNS16, spec=T.DELTA_DEFAULT).matmul_fused(x, w)
-    assert TK.launch_counts() == dict.fromkeys(TK.KERNEL_WRAPPERS, 0)
+    be = T.LNSMatmulBackend(fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    be.matmul_fused(x, w)
+    be.affine(x, w, b)
+    be.matmul_dw(x, x)
+    be.matmul_dw_partials(x, x, 2)
+    assert TKS.launch_counts() == dict.fromkeys(TKS.KERNEL_WRAPPERS, 0)
+    assert set(TKS.KERNEL_WRAPPERS) == {
+        "lns_matmul_fused", "lns_matmul_dx", "lns_matmul_dw_update",
+        "lns_fused_update", "lns_matmul", "lns_matmul_dw",
+        "lns_matmul_dw_partials", "lns_boxsum"}
 
 
 def test_unported_products_and_bad_inputs_raise():
     be = T.LNSMatmulBackend(fmt=T.LNS16, spec=T.DELTA_DEFAULT)
-    x = T.zeros((2, 3), T.LNS16)
-    for call in (lambda: be.matmul(x, x.T), lambda: be.matmul_dw(x, x),
-                 lambda: be.matmul_dw_partials(x, x, 2)):
+    x = T.zeros((6, 3), T.LNS16)
+    for s in (4, 0, 7):
+        with pytest.raises(ValueError, match="not divisible"):
+            be.matmul_dw_partials(x, x, s)
+    with pytest.raises(ValueError, match="epilogue"):
+        TK.mac_plain(x.code, x.sign, x.code, x.sign, a_contract_axis=0,
+                     b_contract_axis=0, fmt=T.LNS16, spec=T.DELTA_DEFAULT,
+                     segments=2, fwd_epilogue=TK.FwdEpilogue())
+    # The reference kernels' interpret / blocks switches stay unported.
+    for text in ("lns16-train-pallas,interpret=on",
+                 "lns16-train-pallas,blocks=auto"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+            T.NumericsSpec.parse(text)
     ep = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(momentum=0.9), T.LNS16)
     with pytest.raises(ValueError, match="momentum"):
         be.fused_update(x, x, None, ep)
@@ -377,3 +402,167 @@ def test_kernel_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
             build.load_library()
     finally:
         build.load_library.cache_clear()
+
+
+# ------------------------------- plain forward, plain dW, segment partials --
+
+@partial(jax.jit, static_argnames=("fmt", "spec"))
+def _jax_fwd_ref(xc, xs, wc, ws, *, fmt, spec):
+    return JK.lns_matmul_ref(xc, xs, wc, ws, fmt=fmt, spec=spec)
+
+
+@partial(jax.jit, static_argnames=("fmt", "spec"))
+def _jax_dw_ref(xc, xs, dc, ds, *, fmt, spec):
+    return JK.lns_matmul_dw_ref(xc, xs, dc, ds, fmt=fmt, spec=spec)
+
+
+@partial(jax.jit, static_argnames=("fmt", "spec", "num_segments"))
+def _jax_dw_partials_ref(xc, xs, dc, ds, *, fmt, spec, num_segments):
+    return JK.lns_matmul_dw_partials_ref(xc, xs, dc, ds, fmt=fmt, spec=spec,
+                                         num_segments=num_segments)
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt", ["lns16", "lns12"])
+@pytest.mark.parametrize("shape", [(7, 53, 45), (5, 100, 10)],
+                         ids=["ragged", "step-out"])
+def test_matmul_plain_vs_reference(kind, fmt, shape):
+    m, k, n = shape
+    js, ts = DELTA[kind]
+    x, w, _ = _fwd_operands(23, m, k, n, fmt)
+    want = _jax_fwd_ref(*x, *w, fmt=J.FORMATS[fmt], spec=js)
+    _eq(TK.lns_matmul(*_t(x), *_t(w), fmt=T.FORMATS[fmt], spec=ts), want,
+        "plain")
+    r = TK.lns_matmul_ref(T.LNSArray(*_t(x)), T.LNSArray(*_t(w)),
+                          fmt=T.FORMATS[fmt], spec=ts)
+    _eq([r.code, r.sign], want, "ref")
+
+
+@pytest.mark.parametrize("fmt", ["lns16", "lns12"])
+def test_matmul_full_width(fmt):
+    """The unfused step's hidden-layer product, (5,784)·(784,100)."""
+    x, w, _ = _fwd_operands(24, 5, 784, 100, fmt)
+    want = _jax_fwd_ref(*x, *w, fmt=J.FORMATS[fmt], spec=J.DELTA_DEFAULT)
+    _eq(TK.lns_matmul(*_t(x), *_t(w), fmt=T.FORMATS[fmt],
+                      spec=T.DELTA_DEFAULT), want)
+
+
+def _dw_operands(seed, m, k, n, fmt):
+    rng = np.random.default_rng(seed)
+    return (_operand(rng, (m, k), fmt, zero_frac=0.5),
+            _operand(rng, (m, n), fmt, scale=0.1))
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt", ["lns16", "lns12"])
+@pytest.mark.parametrize("shape", [(37, 40, 24), (5, 784, 100)],
+                         ids=["ragged", "step-w1"])
+def test_dw_plain_vs_reference(kind, fmt, shape):
+    m, k, n = shape
+    js, ts = DELTA[kind]
+    x, dy = _dw_operands(25, m, k, n, fmt)
+    want = _jax_dw_ref(*x, *dy, fmt=J.FORMATS[fmt], spec=js)
+    _eq(TK.lns_matmul_dw(*_t(x), *_t(dy), fmt=T.FORMATS[fmt], spec=ts),
+        want, "plain")
+    r = TK.lns_matmul_dw_ref(T.LNSArray(*_t(x)), T.LNSArray(*_t(dy)),
+                             fmt=T.FORMATS[fmt], spec=ts)
+    _eq([r.code, r.sign], want, "ref")
+
+
+DW_PARTIALS_CASES = [(k, f, 8, s) for k in DELTA for f in ("lns16", "lns12")
+                     for s in (1, 2, 4, 8)]
+DW_PARTIALS_CASES += [("lut", "lns16", 5, 5), ("bitshift", "lns12", 5, 5)]
+
+
+@pytest.mark.parametrize("kind,fmt,batch,segments", DW_PARTIALS_CASES)
+def test_dw_partials_plain_vs_reference(kind, fmt, batch, segments):
+    js, ts = DELTA[kind]
+    x, dy = _dw_operands(26, batch, 13, 9, fmt)
+    want = _jax_dw_partials_ref(*x, *dy, fmt=J.FORMATS[fmt], spec=js,
+                                num_segments=segments)
+    got = TK.lns_matmul_dw_partials(*_t(x), *_t(dy), num_segments=segments,
+                                    fmt=T.FORMATS[fmt], spec=ts)
+    assert tuple(got[0].shape) == (segments, 13, 9)
+    _eq(got, want, "plain")
+    r = TK.lns_matmul_dw_partials_ref(
+        T.LNSArray(*_t(x)), T.LNSArray(*_t(dy)), num_segments=segments,
+        fmt=T.FORMATS[fmt], spec=ts)
+    _eq([r.code, r.sign], want, "ref")
+
+
+def test_dw_partials_full_width():
+    """The segmented step's w1 partials: batch 5 in 5 segments."""
+    x, dy = _dw_operands(27, 5, 784, 100, "lns16")
+    want = _jax_dw_partials_ref(*x, *dy, fmt=J.LNS16, spec=J.DELTA_DEFAULT,
+                                num_segments=5)
+    _eq(TK.lns_matmul_dw_partials(*_t(x), *_t(dy), num_segments=5,
+                                  fmt=T.LNS16, spec=T.DELTA_DEFAULT), want)
+
+
+def test_dw_partials_one_segment_is_dw_and_rows_fold_to_dw():
+    """S = 1 is the plain dW bit for bit; with one-row segments each slot
+    is that sample's outer product and the sequential combine of the
+    slots is the plain dW again."""
+    x, dy = (T.LNSArray(*_t(p)) for p in _dw_operands(28, 6, 9, 4, "lns16"))
+    kw = dict(fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    dw = TK.lns_matmul_dw_kernel(x, dy, **kw)
+    one = TK.lns_matmul_dw_partials_kernel(x, dy, num_segments=1, **kw)
+    assert torch.equal(one.code[0], dw.code)
+    assert torch.equal(one.sign[0], dw.sign)
+    rows = TK.lns_matmul_dw_partials_kernel(x, dy, num_segments=6, **kw)
+    for s in range(6):
+        outer = T.boxdot(x[s][:, None], dy[s][None, :], T.LNS16)
+        assert torch.equal(rows.code[s], outer.code)
+        assert torch.equal(rows.sign[s], outer.sign)
+    eng = T.cached_engine(T.DELTA_DEFAULT, T.LNS16)
+    folded = T.boxsum_partials(rows, eng, schedule="sequential")
+    assert torch.equal(folded.code, dw.code)
+    assert torch.equal(folded.sign, dw.sign)
+
+
+def test_entry_points_vs_pallas_interpret():
+    """The LNSArray entry points against the reference's Pallas kernels
+    in interpret mode, at tiny shapes with ragged blocks."""
+    x, w, _ = _fwd_operands(29, 8, 20, 12, "lns16")
+    jx, jw = J.LNSArray(*x), J.LNSArray(*w)
+    tx, tw = T.LNSArray(*_t(x)), T.LNSArray(*_t(w))
+    blk = dict(block_m=8, block_n=8, block_k=8, interpret=True)
+    z = TK.lns_matmul_kernel(tx, tw, fmt=T.LNS16, spec=T.DELTA_BITSHIFT)
+    jz = JK.lns_matmul_kernel(jx, jw, fmt=J.LNS16, spec=J.DELTA_BITSHIFT,
+                              **blk)
+    _eq([z.code, z.sign], [jz.code, jz.sign], "fwd")
+    dy = _operand(np.random.default_rng(30), (8, 12), "lns16", scale=0.1)
+    jd, td = J.LNSArray(*dy), T.LNSArray(*_t(dy))
+    g = TK.lns_matmul_dw_kernel(tx, td, fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    jg = JK.lns_matmul_dw_kernel(jx, jd, fmt=J.LNS16, spec=J.DELTA_DEFAULT,
+                                 block_k=8, block_n=8, block_m=8,
+                                 interpret=True)
+    _eq([g.code, g.sign], [jg.code, jg.sign], "dw")
+    p = TK.lns_matmul_dw_partials_kernel(tx, td, num_segments=4,
+                                         fmt=T.LNS16, spec=T.DELTA_EXACT)
+    jp = JK.lns_matmul_dw_partials_kernel(jx, jd, num_segments=4,
+                                          fmt=J.LNS16, spec=J.DELTA_EXACT,
+                                          block_k=8, block_n=8,
+                                          interpret=True)
+    _eq([p.code, p.sign], [jp.code, jp.sign], "dw_partials")
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+def test_dispatcher_products_match_reference_emulate(kind):
+    """``LNSMatmulBackend.matmul`` / ``affine`` / ``matmul_dw`` /
+    ``matmul_dw_partials`` equal the reference dispatcher's emulate
+    lane."""
+    js, ts = DELTA[kind]
+    x, w, b = _fwd_operands(31, 6, 14, 5, "lns12")
+    dy = _operand(np.random.default_rng(32), (6, 5), "lns12", scale=0.1)
+    jbe = J.LNSMatmulBackend(fmt=J.LNS12, spec=js, backend="emulate")
+    tbe = T.LNSMatmulBackend(fmt=T.LNS12, spec=ts)
+    jx, jw, jb, jd = (J.LNSArray(*p) for p in (x, w, b, dy))
+    tx, tw, tb, td = (T.LNSArray(*_t(p)) for p in (x, w, b, dy))
+    for name, got, want in (
+            ("matmul", tbe.matmul(tx, tw), jbe.matmul(jx, jw)),
+            ("affine", tbe.affine(tx, tw, tb), jbe.affine(jx, jw, jb)),
+            ("matmul_dw", tbe.matmul_dw(tx, td), jbe.matmul_dw(jx, jd)),
+            ("matmul_dw_partials", tbe.matmul_dw_partials(tx, td, 3),
+             jbe.matmul_dw_partials(jx, jd, 3))):
+        _eq([got.code, got.sign], [want.code, want.sign], name)

@@ -1,5 +1,6 @@
-"""The slice: the paper MLP's fused log-domain train step, predict and
-evaluate in the port (``repro_torch.paper``) against the JAX package.
+"""The paper MLP's log-domain train steps, predict and evaluate in the
+port (``repro_torch.paper``) against the JAX package: the fused step, and
+the unfused step (``fused=False``, and its fallback at ``lr = 0``).
 
 Both start from the JAX package's initial weights, carried across as numpy
 (threefry cannot be matched in torch), and see the same batches of the
@@ -20,6 +21,12 @@ from repro_torch.paper import datasets as tds
 from repro_torch.paper import (MLPConfig, evaluate, make_mlp,
                                params_from_numpy, params_to_numpy,
                                run_experiment)
+
+# The plain ⊞ versions are long chains of small tensor ops.  Under xdist
+# several port test files run at once, and OpenMP pools of 8 spinning
+# threads in each process oversubscribe the cores many times over: one
+# intra-op thread a process keeps each file near its serial time.
+torch.set_num_threads(1)
 
 STEPS, BATCH = 20, 5
 
@@ -55,7 +62,30 @@ def test_train_steps_equal_reference(case, mnist):
     """20 fused steps of batch 5: the port's weight (and momentum) codes
     and signs equal the reference's after every step; then predict and
     evaluate on the validation split agree."""
-    jspec, tspec, kw = CASES[case]
+    _check_steps(CASES[case], case, mnist, evaluate_all=case in EVALUATE)
+
+
+# The unfused step: the plain forward / dW kernels' plain versions, the
+# bias ⊞ and llReLU as passes of their own, the ⊞-SGD as tensor ops.
+UNFUSED_CASES = {
+    name: (jspec, tspec, dict(kw, fused=False))
+    for name, (jspec, tspec, kw) in CASES.items()}
+# lr = 0 has no update scalar code: the fused config falls back to the
+# unfused update (and trains nothing but the momentum).
+UNFUSED_CASES["lr0-momentum"] = ("lns16-train-emulate", "lns16-train-pallas",
+                                 {"lr": 0.0, "momentum": 0.9})
+
+
+@pytest.mark.parametrize("case", list(UNFUSED_CASES))
+def test_unfused_train_steps_equal_reference(case, mnist):
+    """20 unfused steps of batch 5 at full width equal the reference's
+    ``LNSMLP(fused=False)`` after every step; predict agrees."""
+    _check_steps(UNFUSED_CASES[case], case, mnist,
+                 evaluate_all=case == "lut-lns16")
+
+
+def _check_steps(spec_case, case, mnist, *, evaluate_all):
+    jspec, tspec, kw = spec_case
     x_tr, y_tr, x_val, y_val = mnist
     jm = jmake("lns", JConfig(spec=jspec, **kw))
     tm = make_mlp("lns", MLPConfig(spec=tspec, **kw), device="cpu")
@@ -85,7 +115,7 @@ def test_train_steps_equal_reference(case, mnist):
     pred = tm.predict(tp, x_val[:PRED]).numpy()
     np.testing.assert_array_equal(pred, np.asarray(jm.predict(jp,
                                                               x_val[:PRED])))
-    if case in EVALUATE:
+    if evaluate_all:
         assert evaluate(tm, tp, x_val, y_val) == jevaluate(jm, jp, x_val,
                                                            y_val)
 
@@ -152,12 +182,19 @@ def test_run_experiment_cpu_lane():
 
 
 def test_unported_paths_raise():
-    for kw in (dict(fused=False), dict(lr=0.0), dict(data_parallel=2),
-               dict(faults="bitflip")):
+    for kw in (dict(faults="bitflip"),
+               dict(spec="lns16-train-pallas,interpret=on"),
+               dict(spec="lns16-train-pallas;hidden=metrics:full")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MLPConfig(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mlp("fxp", MLPConfig(), device="cpu")
+    for backend in ("fxp", "float"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_mlp(backend, MLPConfig(), device="cpu")
+    with pytest.raises(ValueError, match="data_parallel"):
+        make_mlp("fxp", MLPConfig(data_parallel=2), device="cpu")
+    # What this slice ported constructs.
+    for kw in (dict(fused=False), dict(lr=0.0), dict(data_parallel=2)):
+        MLPConfig(**kw)
     with pytest.raises(ValueError, match="match no layer"):
         make_mlp("lns", MLPConfig(spec="lns16-train-pallas;hiden=fmt:lns12"),
                  device="cpu")

@@ -23,15 +23,21 @@ STRINGS = [
     "lns16-train-emulate;hidden=fmt:lns12,delta:bitshift;out=delta:exact",
     "lns16-train-pallas;*=delta:bitshift;out=fmt:lns12",
     "lns16-train-pallas,fmt=lns12;hidden=fmt:lns16",
+    "lns16-train-pallas,reduce.grad_segments=4",
+    "lns16-train-pallas,reduce.grad_segments=5,reduce.schedule=tree",
+    "lns16-train-emulate,reduce.mode=float-psum,reduce.grad_segments=4",
+    "lns16-train-pallas,reduce.grad_segments=4;hidden=fmt:lns12",
 ]
 
 
 def _arith(spec):
     """The arithmetic a spec selects: (format fields, Δ spec fields)."""
     f, d = spec.fmt, spec.delta_spec
+    r = spec.reduce
     return ((f.qi, f.qf, f.name) if f else None,
             (d.kind, d.d_max, d.r) if d else None, spec.quantize,
-            spec.compute_dtype, spec.backend)
+            spec.compute_dtype, spec.backend,
+            (r.mode, r.grad_segments, r.schedule))
 
 
 @pytest.mark.parametrize("text", STRINGS)
@@ -69,7 +75,7 @@ def test_spec_aliases_match_reference():
 
 @pytest.mark.parametrize("text,err", [
     ("lns16-train-pallas,interpret=on", NotImplementedError),
-    ("lns16-train-pallas,reduce.mode=float-psum", NotImplementedError),
+    ("lns16-train-pallas,blocks=auto", NotImplementedError),
     ("lns16-train-pallas;hidden=metrics:full", NotImplementedError),
     ("lns16-train-pallas,backend=cuda", ValueError),
     ("lns16-train-pallas,fmt=lns9", ValueError),
@@ -79,8 +85,31 @@ def test_spec_aliases_match_reference():
     ("lns16-train-pallas;hidden", ValueError),
     ("lns16-train-pallas;hid:den=fmt:lns12", ValueError),
     ("lns16-train-pallas;hidden=fmt:lns12,fmt:lns16", ValueError),
+    ("lns16-train-pallas;hidden=reduce.grad_segments:4", ValueError),
+    ("lns16-train-pallas,reduce.mode=ring", ValueError),
+    ("lns16-train-pallas,reduce.schedule=ring", ValueError),
+    ("lns16-train-pallas,reduce.grad_segments=-1", ValueError),
+    ("lns16-train-pallas,reduce.grad_segments=two", ValueError),
     ("", ValueError),
 ])
 def test_bad_strings_raise(text, err):
     with pytest.raises(err):
         T.NumericsPlan.parse(text)
+
+
+def test_reduce_spec_like_reference():
+    """``ReduceSpec`` and the nested ``reduce.*`` overrides of ``with_``
+    behave as the reference's."""
+    t = T.NumericsSpec.parse("lns16-train-pallas")
+    j = JS.NumericsSpec.parse("lns16-train-pallas")
+    kw = {"reduce.mode": "float-psum", "reduce.grad_segments": 8}
+    assert _arith(t.with_(**kw)) == _arith(j.with_(**kw))
+    assert str(t.with_(**kw)) == str(j.with_(**kw))
+    assert T.ReduceSpec() == T.ReduceSpec("boxplus", 0, "sequential")
+    assert (T.NumericsPlan.parse("lns16-train-pallas;hidden=fmt:lns12")
+            .with_(**kw).reduce == T.ReduceSpec("float-psum", 8))
+    for bad in ({"reduce.colour": 1}, {"reduce.grad_segments": -2}):
+        with pytest.raises(ValueError):
+            t.with_(**bad)
+        with pytest.raises(ValueError):
+            j.with_(**bad)
