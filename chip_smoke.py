@@ -14,7 +14,10 @@ the result line:
    predict shape (batch 500) and at ragged shapes, over the Δ kinds
    (lut / bitshift / exact), the formats (lns16 / lns12), the epilogues,
    the segment counts S ∈ {1, 2, 4, 5, 8} of the segment-partial dW and
-   the reduce lengths K ∈ {1, 5, 37, 128} of the ⊞-reduce;
+   the reduce lengths K ∈ {1, 5, 37, 128} of the ⊞-reduce; and the Δ-index
+   sweep: a two-step contraction whose second ⊞ meets every difference of
+   the format with both sign relations, for LUT steps that are powers of
+   two and one that is not, and for a table of the kernels' largest size;
 4. hold ``encode`` (all 256 pixel values) and ``lns_value_to_code`` (every
    lns16 / lns12 code) on the card against the CPU lane, and count how
    many exact-Δ codes the card and the CPU round differently;
@@ -57,13 +60,15 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations per ⊞-MAC step, counted from csrc/lns_mac.cu: the
-# product (10) and the ⊞ with a LUT Δ (36).  Per output at flush: the
-# forward epilogue (bias ⊞ 36, llReLU 5, requantize 8) and the ⊞-SGD
-# (scalar ⊡ 6 + ⊞ 36, once for lr, again for momentum and weight decay).
-OPS_PER_MAC = 46
-OPS_FWD_EPILOGUE = 49
-OPS_SGD_TERM = 42
-OPS_BOXPLUS = 36
+# product (stage_product, 5) and mac_step with a LUT Δ (18, its table load
+# included).  The ⊞ of the epilogues and the ⊞-reduce (boxplus with a LUT
+# Δ) is 30.  Per output at flush: the forward epilogue (bias ⊞ 30, llReLU
+# 5, requantize 8) and the ⊞-SGD (scalar ⊡ 6 + ⊞ 30, once for lr, again
+# for momentum and weight decay).
+OPS_PER_MAC = 23
+OPS_BOXPLUS = 30
+OPS_FWD_EPILOGUE = OPS_BOXPLUS + 13
+OPS_SGD_TERM = 6 + OPS_BOXPLUS
 
 SEED = 0
 BATCH = 5
@@ -243,6 +248,7 @@ def compare_kernels(torch, device):
                            spec=DELTA_DEFAULT)
         check("lns_matmul_dx", got, want, f"lut/{fmt.name}/batch500")
     compare_unfused_and_segmented(torch, device, rk, check)
+    compare_index_sweep(torch, device, rk, check)
     torch.cuda.synchronize()
     return worst, cases
 
@@ -303,6 +309,66 @@ def compare_unfused_and_segmented(torch, device, rk, check):
                 check("lns_boxsum", lns_boxsum(a.code.T, a.sign.T, **kw),
                       boxsum_plain(a.code.T, a.sign.T, **kw),
                       f"{spec.kind}/{fmt.name}/combine{e}")
+
+
+def sweep_operands(torch, fmt, swap, device):
+    """A (R, 2) and B (2, C) whose second ⊞ step meets every difference d
+    from 0 to code_max − min_nz, with equal and with opposite signs.
+    Output (r, c) folds the products min_nz + min(r·W + c mod W, D) and
+    min_nz, the first of sign 1 in the columns c ≥ W; ``swap`` folds them
+    in the other order."""
+    from repro_torch.core import LNSArray
+    lo, hi, w = fmt.min_nonzero_code, fmt.code_max, 256
+    rows = (hi - lo) // w + 1
+    a_c = torch.full((rows, 2), lo, dtype=torch.int32)
+    a_c[:, 0] = torch.clamp(lo + torch.arange(rows) * w, max=hi)
+    b_c = torch.zeros((2, 2 * w), dtype=torch.int32)
+    b_c[0] = torch.arange(2 * w) % w
+    a_s = torch.zeros((rows, 2), dtype=torch.int8)
+    b_s = torch.zeros((2, 2 * w), dtype=torch.int8)
+    b_s[0, w:] = 1
+    if swap:
+        a_c, a_s, b_c, b_s = a_c.flip(1), a_s.flip(1), b_c.flip(0), b_s.flip(0)
+    return (LNSArray(a_c.contiguous().to(device), a_s.contiguous().to(device)),
+            LNSArray(b_c.contiguous().to(device), b_s.contiguous().to(device)))
+
+
+def compare_index_sweep(torch, device, rk, check):
+    """The Δ index on the card: the two-step sweep of every difference
+    through the plain forward, for tables whose step is a power of two
+    (the shift) and one whose step is not (the multiply-high), and a table
+    of the kernels' largest size; the ⊞-SGD and ⊞-reduce kernels once at
+    each table."""
+    from repro_torch.core import (DELTA_DEFAULT, DELTA_SOFTMAX, LNS12, LNS16,
+                                  DeltaSpec, LogSGDConfig, UpdateEpilogue)
+    from repro_torch.kernels import lns_matmul as K
+    from repro_torch.kernels.lns_boxsum import boxsum_plain, lns_boxsum
+    specs = (DELTA_DEFAULT, DELTA_SOFTMAX, DeltaSpec("lut", 9.0, 0.375),
+             DeltaSpec("lut", 16.0, 1.0 / 64.0))
+    for spec in specs:
+        for fmt in (LNS16, LNS12):
+            kw = dict(fmt=fmt, spec=spec)
+            name = f"lut{spec.table_size}/r{spec.r}/{fmt.name}"
+            for swap in (False, True):
+                a, b = sweep_operands(torch, fmt, swap, device)
+                check("lns_matmul",
+                      K.lns_matmul(a.code, a.sign, b.code, b.sign, **kw),
+                      K.mac_plain(a.code, a.sign, b.code, b.sign,
+                                  a_contract_axis=1, b_contract_axis=0, **kw),
+                      f"{name}/sweep{'-swapped' if swap else ''}")
+            ep = UpdateEpilogue.from_sgd(
+                LogSGDConfig(lr=0.01, weight_decay=0.01, momentum=0.9), fmt)
+            w, g, m = (operands(torch, rk, (100,), scale=s, zero_frac=0.1,
+                                fmt=fmt, device=device)
+                       for s in (0.1, 0.1, 0.01))
+            uk = dict(epilogue=ep, m_code=m.code, m_sign=m.sign, **kw)
+            check("lns_fused_update",
+                  K.lns_fused_update(w.code, w.sign, g.code, g.sign, **uk),
+                  K.update_plain(w.code, w.sign, g.code, g.sign, **uk), name)
+            p = operands(torch, rk, (5, 1000), scale=0.1, zero_frac=0.1,
+                         fmt=fmt, device=device)
+            check("lns_boxsum", lns_boxsum(p.code.T, p.sign.T, **kw),
+                  boxsum_plain(p.code.T, p.sign.T, **kw), name)
 
 
 # ------------------------------------------------------------- phase 4 --

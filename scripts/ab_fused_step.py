@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the fused forward ⊞-MAC kernel and the fused train step of two
-checkouts of the port on one CUDA card, interleaved.
+"""Time the forward ⊞-MAC kernel and the fused train step of two checkouts
+of the port on one CUDA card, interleaved.
 
     python3 scripts/ab_fused_step.py --roots OLD NEW NEW OLD [--out FILE]
 
@@ -11,12 +11,20 @@ call shows as a difference between the two runs of one root.  A run
 measures, at the paper MLP's shapes (784–100–10, batch 5, lns16, LUT Δ,
 weight decay 0.01):
 
-* ``mac_kernel`` with the forward epilogue, as the fused step launches it
-  for the hidden and the output layer: ms per launch on the card alone
-  (CUDA events around 200 launches queued behind a spin kernel) and ms
-  per call with the wrapper;
+* ``mac_kernel`` as the two forward launches take it, for the hidden and
+  the output layer: with the forward epilogue (``lns_matmul_fused``, as the
+  fused step launches it) and with the epilogue off (``lns_matmul``, as the
+  unfused step does): ms per launch on the card alone (CUDA events around
+  200 launches queued behind a spin kernel) and ms per call with the
+  wrapper;
+* the cycles of one ⊞-MAC step at 1.98 GHz: the plain forward's time at a
+  contraction of 2 × 784 less its time at 784, over 784 steps;
 * the fused train step: ms per step on the host clock over 100 steps, three
-  times.
+  times;
+* the build: ``ptxas``' line (registers, spills) for every ``mac_kernel``
+  instantiation, and from ``cuobjdump -sass`` the inner loop of
+  ``mac_kernel<kLut>`` that holds the most instructions: its address
+  range, its instruction count and its count of each opcode.
 
 It prints one JSON line per run and a table; ``--out`` also writes the
 runs to a JSON file.  The runs' output codes of the kernel are hashed, so
@@ -25,14 +33,18 @@ that the table shows whether the checkouts computed the same.
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED, BATCH = 0, 5
+CLOCK_HZ = 1.98e9  # the H100 SXM's boost clock
 
 
 def nvidia_smi_line() -> str:
@@ -80,6 +92,61 @@ def time_device(torch, fn, reps, host_ms):
     return start.elapsed_time(end) / reps
 
 
+def ptxas_lines(report: str) -> list:
+    """(kernel, usage) of every ``mac_kernel`` instantiation in ptxas' -v
+    report: each "Compiling entry function" line is followed by its
+    "Used N registers" line."""
+    out, name = [], None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        elif name and "Used" in ln and "registers" in ln:
+            if "mac_kernel" in name:
+                out.append(f"{name}: {ln.split(':', 1)[1].strip()}")
+            name = None
+    return out
+
+
+def sass_functions(text: str) -> dict:
+    """{mangled name: [(address, instruction)]} of a cuobjdump -sass
+    listing."""
+    out = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        name = block.split("\n", 1)[0].strip()
+        out[name] = [(int(a, 16), t.strip()) for a, t in
+                     re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+    return out
+
+
+def inner_loop(ins: list) -> dict:
+    """The innermost loop (a backward branch whose range holds no other)
+    with the most instructions: its range, length and opcode counts."""
+    back = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b(?:[^,]*,)?\s*0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            back.append((int(m.group(1), 16), addr))
+    inner = [(lo, hi) for lo, hi in back
+             if not any(lo <= l2 and h2 < hi for l2, h2 in back)]
+    lo, hi = max(inner, key=lambda x: x[1] - x[0])
+    body = [t for a, t in ins if lo <= a <= hi]
+    ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+                              for t in body)
+    return dict(range=f"{lo:#x}-{hi:#x}", instructions=len(body),
+                opcodes=dict(ops.most_common()))
+
+
+def lut_loop(build) -> dict:
+    """The inner loop of ``mac_kernel<kLut>`` in the built library."""
+    lib, _ = build._build(build.CSRC / "lns_mac.cu")
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    name = next(n for n in sass_functions(text) if "mac_kernelILi0E" in n)
+    return dict(function=name, **inner_loop(sass_functions(text)[name]))
+
+
 def run_one(root: str) -> dict:
     """Measure the checkout at ``root`` in this process."""
     root = os.path.abspath(root)
@@ -97,8 +164,8 @@ def run_one(root: str) -> dict:
     build.load_library()
     out = dict(root=root, card=nvidia_smi_line(),
                build_s=time.time() - t0,
-               ptxas=[ln.strip() for ln in build.build_report().splitlines()
-                      if "registers" in ln])
+               ptxas=ptxas_lines(build.build_report()),
+               lut_loop=lut_loop(build))
     fmt, spec, dev = LNS16, DELTA_DEFAULT, torch.device("cuda")
     rk = torch.Generator().manual_seed(SEED + 1)
 
@@ -108,25 +175,32 @@ def run_one(root: str) -> dict:
         return encode(v, fmt).to(dev)
 
     beta = beta_code(0.01, fmt)
+    hidden_ep = K.FwdEpilogue(bias=True, llrelu_beta=beta, emit_z_sign=True)
+    out_ep = K.FwdEpilogue(bias=True)
     digest = hashlib.sha256()
-    for (m, k, n), name, ep in (
-            ((BATCH, 784, 100), "hidden",
-             K.FwdEpilogue(bias=True, llrelu_beta=beta, emit_z_sign=True)),
-            ((BATCH, 100, 10), "out", K.FwdEpilogue(bias=True))):
+    # (shape, name, launches as (key prefix, forward epilogue or None)).
+    for (m, k, n), name, runs in (
+            ((BATCH, 784, 100), "hidden", (("", hidden_ep), ("plain_", None))),
+            ((BATCH, 100, 10), "out", (("", out_ep), ("plain_", None))),
+            ((BATCH, 2 * 784, 100), "hidden2x", (("plain_", None),))):
         x, w, b = (operand((m, k), 1.0, 0.5), operand((k, n), 0.05, 0.02),
                    operand((n,), 0.1, 0.2))
+        for key, ep in runs:
+            kw = {} if ep is None else dict(
+                fwd_epilogue=ep, bias_code=b.code, bias_sign=b.sign)
 
-        def launch(x=x, w=w, b=b, ep=ep):
-            return K.mac_cuda(x.code, x.sign, w.code, w.sign,
-                              a_contract_axis=1, b_contract_axis=0, fmt=fmt,
-                              spec=spec, fwd_epilogue=ep, bias_code=b.code,
-                              bias_sign=b.sign)
-        for plane in launch():
-            digest.update(plane.cpu().numpy().tobytes())
-        host_ms = time_host(torch, launch, 200)
-        out[f"{name}_ms"] = time_device(torch, launch, 200, host_ms)
-        out[f"{name}_call_ms"] = host_ms
+            def launch(x=x, w=w, kw=kw):
+                return K.mac_cuda(x.code, x.sign, w.code, w.sign,
+                                  a_contract_axis=1, b_contract_axis=0,
+                                  fmt=fmt, spec=spec, **kw)
+            for plane in launch():
+                digest.update(plane.cpu().numpy().tobytes())
+            host_ms = time_host(torch, launch, 200)
+            out[f"{key}{name}_ms"] = time_device(torch, launch, 200, host_ms)
+            out[f"{key}{name}_call_ms"] = host_ms
     out["kernel_out_sha256"] = digest.hexdigest()[:16]
+    out["step_cycles"] = ((out["plain_hidden2x_ms"] - out["plain_hidden_ms"])
+                          * 1e-3 / 784 * CLOCK_HZ)
 
     model = make_mlp("lns", MLPConfig(spec="lns16-train-pallas",
                                       weight_decay=0.01), "cuda")
@@ -171,12 +245,23 @@ def main() -> int:
             return res.returncode
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    print(f"{'root':40s} {'hidden ms':>10s} {'out ms':>9s} "
-          f"{'step ms (3 x 100 steps)':>30s}  out hash")
+    print(f"{'root':24s} {'fused hid':>9s} {'plain hid':>9s} "
+          f"{'fused out':>9s} {'plain out':>9s} {'cyc/step':>8s} "
+          f"{'loop ins':>8s} {'step ms (3 x 100 steps)':>24s}  out hash")
     for r in runs:
         steps = " ".join(f"{s:.3f}" for s in r["step_ms"])
-        print(f"{r['root'][-40:]:40s} {r['hidden_ms']:10.5f} "
-              f"{r['out_ms']:9.5f} {steps:>30s}  {r['kernel_out_sha256']}")
+        print(f"{r['root'][-24:]:24s} {r['hidden_ms']:9.5f} "
+              f"{r['plain_hidden_ms']:9.5f} {r['out_ms']:9.5f} "
+              f"{r['plain_out_ms']:9.5f} {r['step_cycles']:8.1f} "
+              f"{r['lut_loop']['instructions']:8d} {steps:>24s}  "
+              f"{r['kernel_out_sha256']}")
+    for r in runs[:2] if len(runs) > 1 else runs:
+        print(r["root"])
+        for ln in r["ptxas"]:
+            print(f"  ptxas {ln}")
+        loop = r["lut_loop"]
+        print(f"  LUT loop {loop['range']}: {loop['instructions']} "
+              f"instructions; {json.dumps(loop['opcodes'])}")
     print(runs[0]["card"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -7,8 +7,10 @@ lns_matmul/lns_matmul.py``) op for op on int32 code / int8 sign planes;
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core import f32
@@ -99,17 +101,56 @@ def checked(t, dtype, shape, what, device):
     return t.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def lut_index_args(r_code: int, n_tab: int) -> tuple:
+    """``(half, lim, mul, shift)``: how the kernels form the LUT index
+    ``(d + r_code // 2) // r_code`` of a difference ``d >= 0`` without a
+    divide.  ``x = min(d + half, lim)``, then ``x >> shift`` where
+    ``r_code`` is a power of two (``mul = 0``), else the multiply-high
+    ``(x * mul) >> (32 + shift)`` with ``mul = ceil(2^(32+shift) /
+    r_code)`` and ``shift = floor(log2 r_code)`` (Granlund–Montgomery).
+    ``lim = n_tab * r_code`` sends every ``d`` past the table to index
+    ``n_tab``.  The multiplier is checked against the divide for every
+    ``x`` the kernels can form."""
+    half, lim = r_code // 2, n_tab * r_code
+    if lim >= 1 << 30:
+        raise ValueError(f"Δ table of {n_tab} entries of step {r_code} "
+                         f"spans {lim} codes; the kernels take < 2^30")
+    shift = r_code.bit_length() - 1
+    if r_code == 1 << shift:
+        return half, lim, 0, shift
+    mul = -(-(1 << (32 + shift)) // r_code)
+    x = np.arange(lim + 1, dtype=np.uint64)
+    if not np.array_equal((x * np.uint64(mul)) >> np.uint64(32 + shift),
+                          x // np.uint64(r_code)):
+        raise AssertionError(f"no exact multiply-high for step {r_code}")
+    return half, lim, mul, shift
+
+
+@functools.lru_cache(maxsize=None)
+def lut_pairs(spec: DeltaSpec, fmt: LNSFormat, device) -> torch.Tensor:
+    """The kernels' Δ table on ``device``: (n_tab + 1, 2) int32 rows
+    (Δ+, Δ−), the last row (0, 0), the Δ past the table."""
+    tp, tm = cached_engine(spec, fmt).tables(device)
+    pairs = torch.stack([tp, tm], 1)
+    return torch.cat([pairs, pairs.new_zeros((1, 2))]).contiguous()
+
+
 def lns_args(fmt: LNSFormat, spec: DeltaSpec, device) -> build.LnsArgs:
-    """The format / Δ block of a launch; LUTs must stay alive (they are
-    held by the engine's per-device cache)."""
+    """The format / Δ block of a launch; the table stays alive in
+    :func:`lut_pairs`' cache."""
     eng = cached_engine(spec, fmt)
-    tp = tm = None
-    n_tab = 0
-    if spec.kind == "lut":
-        tp, tm = eng.tables(device)
-        n_tab = spec.table_size
-    return build.LnsArgs(
+    args = build.LnsArgs(
         qf=fmt.qf, code_max=fmt.code_max, min_nz=fmt.min_nonzero_code,
         zero_code=fmt.zero_code, delta_kind=DELTA_KIND[spec.kind],
-        n_tab=n_tab, r_code=eng.r_code, underflow=eng.underflow,
-        tab_plus=ptr(tp), tab_minus=ptr(tm))
+        underflow=eng.underflow)
+    if spec.kind == "lut":
+        n_max = build.load_library().lns_max_table()
+        if not 1 <= spec.table_size <= n_max:
+            raise ValueError(f"Δ table of {spec.table_size} entries; the "
+                             f"kernels take 1 to {n_max}")
+        args.n_tab = spec.table_size
+        (args.idx_half, args.idx_lim, args.idx_mul,
+         args.idx_shift) = lut_index_args(eng.r_code, spec.table_size)
+        args.tab = ptr(lut_pairs(spec, fmt, torch.device(device)))
+    return args

@@ -29,8 +29,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 class LnsArgs(ctypes.Structure):
     _fields_ = [("qf", _I), ("code_max", _I), ("min_nz", _I),
                 ("zero_code", _I), ("delta_kind", _I), ("n_tab", _I),
-                ("r_code", _I), ("underflow", _I), ("tab_plus", _P),
-                ("tab_minus", _P)]
+                ("underflow", _I), ("idx_half", _I), ("idx_lim", _I),
+                ("idx_mul", _I), ("idx_shift", _I), ("tab", _P)]
 
 
 class SgdArgs(ctypes.Structure):

@@ -19,46 +19,62 @@
 //                         lns_boxsum_pallas (:69).
 //
 // What bounds it on an H100: there is no multiply, so no tensor core can
-// help.  Each ⊞-MAC step is ~46 dependent int32 ALU operations plus one
-// Δ-table gather, and the steps of one output element form a serial
-// chain: the contraction is walked in ascending order because ⊞ is only
+// help.  The steps of one output element form a serial chain of ⊞: the
+// contraction is walked in ascending order because ⊞ is only
 // approximately associative and that order is the semantics.  At the
-// training step's batch of 5 the grid is a handful of blocks and the time
-// is the latency of that chain plus the launch; at large batch it is
-// int32 instruction throughput.  The design therefore
-//   * gives every output element one thread, which walks its contraction
+// training step's batch of 5 the grid is a handful of warps and the time
+// is the latency of one ⊞ step's dependent path times the contraction
+// length, plus the launch; at large batch it is int32 instruction
+// throughput.  The design therefore
+//   * gives every output element one thread and every (row, 32 columns)
+//     tile one warp, 4 warps a block, so that at batch 5 each live warp
+//     has an SM sub-partition of its own; a thread walks its contraction
 //     serially (no split-K, no tree, no atomics);
-//   * stages chunks of both operands in shared memory with coalesced
-//     loads, reading transposed operands through strides (no transpose is
-//     materialised), and masks ragged edges with the zero code, the ⊞
-//     identity;
-//   * keeps the Δ LUT (20 to 1024 entries) in shared memory, copied once
-//     per block;
+//   * keeps only the ⊞ on the accumulator's dependent path (mac_step):
+//     the Δ index is a shift or a multiply-high by constants the host
+//     works out (no divide), the Δ table is one __shared__ array of
+//     (Δ+, Δ−) pairs with a zero pair past its end (no branch: the sign
+//     relation is an address offset, "past the table" a clamp), and every
+//     format and engine constant is read once, before the loop;
+//   * stages tiles of 32 steps of both operands in shared memory, two
+//     buffers: while the warps walk one tile, the next tile's global loads
+//     are in flight, and each step's product is taken two steps before
+//     the ⊞ that needs it (one compare finds a zero product: zero codes
+//     are staged far below every code); transposed operands are read
+//     through strides (no transpose is materialised) and ragged edges
+//     read as the zero code, the ⊞ identity;
 //   * applies the epilogue (bias ⊞ / llReLU / requantize, or the ⊞-SGD
 //     update) to the accumulator in registers, so neither the
 //     pre-activation nor the weight gradient is ever stored.
 //
-// Every device function below mirrors a function of the Pallas source op
-// for op; the Python wrappers (kernels/lns_matmul/*.py) hold the plain
-// PyTorch versions the kernels are checked against bit for bit.
+// Every device function below mirrors a function of the Pallas source;
+// mac_step is _boxplus_codes (lns_matmul.py:93) rearranged for a product
+// that is known ahead (see its comment).  The Python wrappers
+// (kernels/lns_matmul/*.py) hold the plain PyTorch versions the kernels
+// are checked against bit for bit.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // into a shared library with a plain C interface (see kernels/build.py).
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileR = 8;    // output rows per block
-constexpr int kTileC = 32;   // output columns per block (one warp)
-constexpr int kTileK = 32;   // contraction chunk staged in shared memory
-constexpr int kThreads = kTileR * kTileC;
+constexpr int kWarps = 4;     // output rows per block, one warp each
+constexpr int kTileC = 32;    // output columns per block (one warp)
+constexpr int kThreads = kWarps * kTileC;
+constexpr int kTileK = 32;    // contraction steps staged and unrolled at once
+constexpr int kStageB = kTileK * kTileC / kThreads;  // B elements a thread
+constexpr int kAhead = 2;     // steps a product is taken before its ⊞
 constexpr int kMaxTab = 1024;
 constexpr int kUpdateThreads = 256;
 constexpr int kBoxsumThreads = 256;
 
-enum DeltaKind : int { kLut = 0, kBitshift = 1, kExact = 2 };
+// kLutMul is the LUT whose step is not a power of two: the launchers pick
+// it from the index constants; the host passes kLut for both.
+enum DeltaKind : int { kLut = 0, kBitshift = 1, kExact = 2, kLutMul = 3 };
 enum Epilogue : int { kEpiNone = 0, kEpiFwd = 1, kEpiUpdate = 2 };
 
 }  // namespace
@@ -68,9 +84,16 @@ enum Epilogue : int { kEpiNone = 0, kEpiFwd = 1, kEpiUpdate = 2 };
 // plain list of c_int64 / c_void_p fields in the same order.
 struct LnsArgs {
   int64_t qf, code_max, min_nz, zero_code;
-  int64_t delta_kind, n_tab, r_code, underflow;
-  const int32_t* tab_plus;
-  const int32_t* tab_minus;
+  int64_t delta_kind, n_tab, underflow;
+  // The LUT index of a difference d >= 0, (d + r/2) // r for the table
+  // step r (kernels/_common.py: lut_index_args):
+  //   x = min(d + idx_half, idx_lim);  idx = x >> idx_shift, or
+  //   idx = __umulhi(x, idx_mul) >> idx_shift where idx_mul != 0.
+  // idx_lim = n_tab * r, so that every d past the table lands on n_tab.
+  int64_t idx_half, idx_lim, idx_mul, idx_shift;
+  // n_tab + 1 (Δ+, Δ−) pairs: Δ−(0) is the underflow sentinel and the
+  // last pair is (0, 0), the Δ past the table.
+  const int32_t* tab;
 };
 
 struct SgdArgs {
@@ -140,46 +163,116 @@ struct BoxsumParams {
   int8_t* out_sign;
 };
 
-static_assert(sizeof(LnsArgs) == 10 * 8, "LnsArgs layout");
+static_assert(sizeof(LnsArgs) == 12 * 8, "LnsArgs layout");
 static_assert(sizeof(SgdArgs) == 5 * 8, "SgdArgs layout");
 
 namespace {
 
-// The format and Δ engine of one launch, in registers.  ``tp``/``tm``
-// point at the Δ tables (shared memory in the MAC kernel, global in the
-// update kernel).
+// The Δ table of the launch, copied once per block by every kernel that
+// takes a LUT: (Δ+, Δ−) of entry i at bytes 8i and 8i + 4.
+__shared__ int2 s_tab[kMaxTab + 1];
+
+// The format and Δ engine of one launch, in registers; ``tab`` is the
+// shared-memory address of s_tab.
 struct Lns {
-  int qf, code_max, min_nz, zero, n_tab, r_code, underflow;
+  int qf, code_max, min_nz, zero, underflow;
+  int half, lim, shift;
+  unsigned mul, tab;
   float scale;
-  const int32_t* tp;
-  const int32_t* tm;
 };
 
-__device__ __forceinline__ Lns make_lns(const LnsArgs& a, const int32_t* tp,
-                                        const int32_t* tm) {
+__device__ __forceinline__ Lns make_lns(const LnsArgs& a) {
   Lns k;
   k.qf = (int)a.qf;
   k.code_max = (int)a.code_max;
   k.min_nz = (int)a.min_nz;
   k.zero = (int)a.zero_code;
-  k.n_tab = (int)a.n_tab;
-  k.r_code = (int)a.r_code;
   k.underflow = (int)a.underflow;
+  k.half = (int)a.idx_half;
+  k.lim = (int)a.idx_lim;
+  k.shift = (int)a.idx_shift;
+  k.mul = (unsigned)a.idx_mul;
+  k.tab = (unsigned)__cvta_generic_to_shared(s_tab);
   k.scale = (float)(1 << a.qf);
-  k.tp = tp;
-  k.tm = tm;
   return k;
 }
 
+// Shared-memory access by 32-bit shared address.  volatile keeps each
+// access on its side of the barriers around it.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ int lds(unsigned addr) {
+  int v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ int2 lds2(unsigned addr) {
+  int2 v;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts2(unsigned addr, int2 v) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};" ::"r"(addr), "r"(v.x),
+               "r"(v.y));
+}
+
+// The constants of mac_step, passed through shared memory so that the
+// loop holds them in registers: ptxas rematerialises a loop-invariant
+// kernel parameter inside the loop (an LDC, or the table's address
+// rebuilt from SR_CgaCtaId), but cannot reload a value read from shared
+// memory, which the loop writes.
+constexpr int kPinned = 8;
+
+__device__ __forceinline__ void pin_store(const Lns& k, int* s) {
+  s[0] = k.code_max;
+  s[1] = k.min_nz;
+  s[2] = k.zero;
+  s[3] = k.half;
+  s[4] = k.lim;
+  s[5] = k.shift;
+  s[6] = (int)k.mul;
+  s[7] = (int)k.tab;
+}
+
+__device__ __forceinline__ void pin_load(Lns& k, const int* s) {
+  k.code_max = s[0];
+  k.min_nz = s[1];
+  k.zero = s[2];
+  k.half = s[3];
+  k.lim = s[4];
+  k.shift = s[5];
+  k.mul = (unsigned)s[6];
+  k.tab = (unsigned)s[7];
+}
+
+__host__ __device__ constexpr bool is_lut(int kind) {
+  return kind == kLut || kind == kLutMul;
+}
+
+// Copies the launch's table into s_tab; the caller synchronises.
+template <int KIND>
+__device__ __forceinline__ void load_table(const LnsArgs& a, int tid,
+                                           int nthreads) {
+  if (!is_lut(KIND)) return;
+  const int2* tab = reinterpret_cast<const int2*>(a.tab);
+  for (int i = tid; i <= (int)a.n_tab; i += nthreads) s_tab[i] = tab[i];
+}
+
 // _delta_from_tables (lns_matmul.py:60): nearest-sample LUT, Δ := 0 past
-// the table, Δ-(0) = underflow sentinel.  d >= 0.
-__device__ __forceinline__ int delta_lut(int d, bool same, const Lns& k) {
-  int idx = (d + k.r_code / 2) / k.r_code;
-  bool oob = idx >= k.n_tab;
-  int idx_c = min(max(idx, 0), k.n_tab - 1);
-  if (same) return oob ? 0 : k.tp[idx_c];
-  if (d == 0) return k.underflow;
-  return oob ? 0 : k.tm[idx_c];
+// the table, Δ-(0) = underflow sentinel.  d >= 0; opp4 is 0 for operands
+// of the same sign and 4 (the byte offset of Δ−) for opposite signs.
+template <int KIND>
+__device__ __forceinline__ int delta_lut(int d, int opp4, const Lns& k) {
+  const unsigned x = (unsigned)min(d + k.half, k.lim);
+  const unsigned idx =
+      KIND == kLutMul ? __umulhi(x, k.mul) >> k.shift : x >> k.shift;
+  return lds(k.tab + (idx << 3) + opp4);
 }
 
 // _delta_bitshift (lns_matmul.py:84): eq. (9).  d_int is capped at 30 so
@@ -223,10 +316,10 @@ __device__ __forceinline__ int delta_exact(int d, bool same, const Lns& k) {
 }
 
 template <int KIND>
-__device__ __forceinline__ int delta(int d, bool same, const Lns& k) {
-  if (KIND == kLut) return delta_lut(d, same, k);
-  if (KIND == kBitshift) return delta_bitshift(d, same, k);
-  return delta_exact(d, same, k);
+__device__ __forceinline__ int delta(int d, int opp4, const Lns& k) {
+  if (is_lut(KIND)) return delta_lut<KIND>(d, opp4, k);
+  if (KIND == kBitshift) return delta_bitshift(d, opp4 == 0, k);
+  return delta_exact(d, opp4 == 0, k);
 }
 
 // _boxplus_codes (lns_matmul.py:93): ⊞ on (code, sign) pairs.
@@ -238,7 +331,7 @@ __device__ __forceinline__ void boxplus(int ac, int as, int bc, int bs,
   int m = max(ac, bc);
   int d = abs(ac - bc);
   bool same = as == bs;
-  int code = min(m + delta<KIND>(d, same, k), k.code_max);
+  int code = min(m + delta<KIND>(d, same ? 0 : 4, k), k.code_max);
   if (code < k.min_nz) code = k.zero;
   if (!same && d == 0) code = k.zero;
   int sign = (same || ac > bc) ? as : bs;
@@ -251,6 +344,57 @@ __device__ __forceinline__ void boxplus(int ac, int as, int bc, int bs,
   }
   oc = code;
   os = code == k.zero ? 0 : sign;
+}
+
+// An operand's zero code as it is staged for the chain: far enough below
+// every code that its sum with any staged code is below min_nz, so that
+// the product's one test (stage_product) finds it.
+__device__ __forceinline__ int staged_zero(const Lns& k) {
+  return k.zero - (1 << 25);
+}
+
+// Where a zero product enters the MAC chain: far enough below every code
+// that its difference from any accumulator indexes past the Δ table (the
+// host keeps idx_lim below 2^30) and gives Δ = 0 for the bit-shift and
+// exact engines.
+__device__ __forceinline__ int zero_product(const Lns& k) {
+  return k.zero - (1 << 30);
+}
+
+// The product step of _mac_kernel (lns_matmul.py:330-335) on two staged
+// operands (code with staged_zero() for the zero code, sign · 4): the
+// code, or zero_product() where the reference gives the zero code (an
+// operand is zero, or the sum underflows); the sign · 4.
+__device__ __forceinline__ void stage_product(int2 a, int2 b, const Lns& k,
+                                              int& pc, int& ps4) {
+  const int sum = min(a.x + b.x, k.code_max);
+  pc = sum < k.min_nz ? zero_product(k) : sum;
+  ps4 = a.y ^ b.y;
+}
+
+// One ⊞ of a product (pc, ps4) from stage_product() into the accumulator
+// (acc, acc_s4): _boxplus_codes with its cases folded into the data.
+//   * A zero product is zero_product(): Δ = 0 and max() keep the
+//     accumulator, and acc > pc keeps its sign.
+//   * An exact cancellation (opposite signs, d = 0) reads Δ−(0), the
+//     underflow sentinel, and flushes through the max() below.
+//   * code < min_nz → zero is max(code, zero): zero = min_nz − 1.
+//   * A zero accumulator takes the product: m = max(acc, pc) is pc, and
+//     acc > pc fails, so the sign is the product's.
+//   * With equal signs either sign is the result's, so the sign is one
+//     compare.  The sign of a zero accumulator is not kept at 0 on the
+//     chain (no step reads it: a zero accumulator takes the product's);
+//     the flush clears it.
+// On the dependent path: sub, abs, add-min, shift (or mul-hi, shift),
+// shift-add, LDS, add-min, max, select.
+template <int KIND>
+__device__ __forceinline__ void mac_step(int& acc, int& acc_s4, int pc,
+                                         int ps4, const Lns& k) {
+  const int m = max(acc, pc);
+  const int dl = delta<KIND>(abs(acc - pc), acc_s4 ^ ps4, k);
+  const int v = max(min(m + dl, k.code_max), k.zero);
+  acc_s4 = acc > pc ? acc_s4 : ps4;
+  acc = acc == k.zero ? m : v;
 }
 
 // _scalar_boxdot_codes (lns_matmul.py:199): ⊡ by a positive nonzero
@@ -289,91 +433,141 @@ __device__ __forceinline__ void sgd_update(int& wc, int& ws, int& mc,
 
 // _mac_kernel (lns_matmul.py:236) with the epilogues of :165 and :214, and
 // its partial flush (:300, :343): grid z walks contraction segment z alone
-// into its own output slot.
+// into its own output slot.  Warp w of block (x, y, z) holds output row
+// y * kWarps + w, lane l column x * kTileC + l.
+//
+// The block stages tiles of kTileK steps of A's kWarps rows and B's kTileC
+// columns in two shared buffers: while the warps walk one tile, each
+// thread holds its share of the next tile in registers, loaded from global
+// memory before the walk and stored to the other buffer after it; one
+// barrier a tile.
 template <int KIND>
 __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
-  __shared__ int32_t s_tp[kMaxTab];
-  __shared__ int32_t s_tm[kMaxTab];
-  __shared__ int32_t s_ac[kTileR][kTileK + 1];
-  __shared__ int8_t s_as[kTileR][kTileK + 1];
-  __shared__ int32_t s_bc[kTileK][kTileC + 1];
-  __shared__ int8_t s_bs[kTileK][kTileC + 1];
-
+  __shared__ int2 s_a[2][kWarps][kTileK];
+  __shared__ int2 s_b[2][kTileK][kTileC + 1];
+  __shared__ int s_pin[kPinned];
   const int tid = threadIdx.x;
-  const int tr = tid / kTileC;
-  const int tc = tid % kTileC;
-  const int64_t r0 = (int64_t)blockIdx.y * kTileR;
+  const int w = tid / kTileC, lane = tid % kTileC;
+  load_table<KIND>(p.lns, tid, kThreads);
+  Lns k = make_lns(p.lns);
+  if (tid == 0) pin_store(k, s_pin);
+  const int64_t r0 = (int64_t)blockIdx.y * kWarps;
   const int64_t c0 = (int64_t)blockIdx.x * kTileC;
-  const int64_t r = r0 + tr;
-  const int64_t c = c0 + tc;
-
-  if (KIND == kLut) {
-    for (int i = tid; i < p.lns.n_tab; i += kThreads) {
-      s_tp[i] = p.lns.tab_plus[i];
-      s_tm[i] = p.lns.tab_minus[i];
-    }
-  }
-  const Lns k = make_lns(p.lns, s_tp, s_tm);
-
-  // The loop walks the segment's own steps; t_lo moves only the global
-  // reads, so that S = 1 runs the loop of the unsegmented kernel.
   const int64_t t_lo = (int64_t)blockIdx.z * p.CT;
-  int acc_c = k.zero;
-  int acc_s = 0;
-  for (int64_t t0 = 0; t0 < p.CT; t0 += kTileK) {
-    // Stage A[r0:r0+8, t0:t0+32]: one element a thread, the unit-stride
-    // axis fastest so that neighbouring threads read neighbouring words.
-    {
-      int lr, lt;
-      if (p.a_st == 1) {
-        lr = tid / kTileK;
-        lt = tid % kTileK;
-      } else {
-        lt = tid / kTileR;
-        lr = tid % kTileR;
-      }
-      int64_t gr = r0 + lr, gt = t0 + lt;
-      bool in = gr < p.R && gt < p.CT;
-      int64_t off = gr * p.a_sr + (t_lo + gt) * p.a_st;
-      s_ac[lr][lt] = in ? p.a_code[off] : k.zero;
-      s_as[lr][lt] = in ? p.a_sign[off] : (int8_t)0;
-    }
-    // Stage B[t0:t0+32, c0:c0+32]: four elements a thread.
-    for (int q = 0; q < (kTileK * kTileC) / kThreads; ++q) {
-      int l = tid + q * kThreads;
-      int lt, lc;
-      if (p.b_sc == 1) {
-        lt = l / kTileC;
-        lc = l % kTileC;
-      } else {
-        lc = l / kTileK;
-        lt = l % kTileK;
-      }
-      int64_t gt = t0 + lt, gc = c0 + lc;
-      bool in = gt < p.CT && gc < p.C;
-      int64_t off = (t_lo + gt) * p.b_st + gc * p.b_sc;
-      s_bc[lt][lc] = in ? p.b_code[off] : k.zero;
-      s_bs[lt][lc] = in ? p.b_sign[off] : (int8_t)0;
-    }
-    __syncthreads();
-    const int64_t rem = p.CT - t0;
-    const int nt = rem < kTileK ? (int)rem : kTileK;
-    for (int i = 0; i < nt; ++i) {
-      // The product step (lns_matmul.py:330-335), then ⊞ into the
-      // accumulator, in ascending contraction order.
-      int a_c = s_ac[tr][i], b_c = s_bc[i][tc];
-      bool pz = a_c == k.zero || b_c == k.zero;
-      int pc = min(a_c + b_c, k.code_max);
-      if (pc < k.min_nz) pc = k.zero;
-      if (pz) pc = k.zero;
-      int ps = pz ? 0 : (s_as[tr][i] ^ s_bs[i][tc]);
-      boxplus<KIND>(acc_c, acc_s, pc, ps, k, acc_c, acc_s);
-    }
-    __syncthreads();
+  const int ct = (int)p.CT;
+
+  // This thread's share of a tile, the operands' unit-stride axis fastest
+  // across the threads: A's element (a_lr, a_lt) and B's elements (lt, lc)
+  // for q < kStageB.  An element is read where its step is below the steps
+  // left; a row or column past the edge gets a step that never is
+  // (INT_MAX), and reads as the zero code, the ⊞ identity.
+  const bool a_tfast = p.a_st == 1;
+  const int a_lt = a_tfast ? tid % kTileK : tid / kWarps;
+  const int a_lr = a_tfast ? tid / kTileK : tid % kWarps;
+  const int a_at = r0 + a_lr < p.R ? a_lt : INT_MAX;
+  const unsigned a_sx = (a_lr * kTileK + a_lt) * 8;
+  const bool b_cfast = p.b_st != 1;
+  int b_at[kStageB], b_off[kStageB];
+  unsigned b_sx[kStageB];
+#pragma unroll
+  for (int q = 0; q < kStageB; ++q) {
+    const int e = tid + q * kThreads;
+    const int lt = b_cfast ? e / kTileC : e % kTileK;
+    const int lc = b_cfast ? e % kTileC : e / kTileK;
+    b_at[q] = c0 + lc < p.C ? lt : INT_MAX;
+    b_off[q] = lt * (int)p.b_st + lc * (int)p.b_sc;
+    b_sx[q] = (lt * (kTileC + 1) + lc) * 8;
   }
+  // Loop-carried, so that they stay in registers: the operands at the next
+  // tile to fetch, and the shared addresses of the buffer being filled and
+  // of the one being read.
+  const int64_t a_org = (r0 + a_lr) * p.a_sr + (t_lo + a_lt) * p.a_st;
+  const int64_t b_org = t_lo * p.b_st + c0 * p.b_sc;
+  const int32_t* a_code = p.a_code + a_org;
+  const int8_t* a_sign = p.a_sign + a_org;
+  const int32_t* b_code = p.b_code + b_org;
+  const int8_t* b_sign = p.b_sign + b_org;
+  const int64_t a_tile = kTileK * p.a_st, b_tile = kTileK * p.b_st;
+  unsigned fill_a = smem_addr(s_a[0]), fill_b = smem_addr(s_b[0]);
+  unsigned read_a = smem_addr(s_a[1]), read_b = smem_addr(s_b[1]);
+  // This thread's operands of step i in a buffer: A's row w, B's column.
+  const unsigned ra = w * kTileK * 8, rb = lane * 8;
+  constexpr unsigned kRowB = (kTileC + 1) * 8;
+
+  int ac, as, bc[kStageB], bs[kStageB];
+  // Loads the thread's share of the tile `left` steps before the end, and
+  // moves the operands on by a tile.
+  auto fetch = [&](int left) {
+    ac = a_at < left ? __ldg(a_code) : k.zero;
+    as = a_at < left ? (int)__ldg(a_sign) : 0;
+#pragma unroll
+    for (int q = 0; q < kStageB; ++q) {
+      bc[q] = b_at[q] < left ? __ldg(b_code + b_off[q]) : k.zero;
+      bs[q] = b_at[q] < left ? (int)__ldg(b_sign + b_off[q]) : 0;
+    }
+    a_code += a_tile;
+    a_sign += a_tile;
+    b_code += b_tile;
+    b_sign += b_tile;
+  };
+  // Stores it to the buffer being filled as stage_product takes it.
+  auto store = [&]() {
+    sts2(fill_a + a_sx,
+         make_int2(ac == k.zero ? staged_zero(k) : ac, as << 2));
+#pragma unroll
+    for (int q = 0; q < kStageB; ++q)
+      sts2(fill_b + b_sx[q],
+           make_int2(bc[q] == k.zero ? staged_zero(k) : bc[q], bs[q] << 2));
+  };
+  auto swap_buffers = [&]() {
+    const unsigned ta = fill_a, tb = fill_b;
+    fill_a = read_a;
+    fill_b = read_b;
+    read_a = ta;
+    read_b = tb;
+  };
+
+  // The product of step i of the tile in the read buffer.
+  auto product = [&](int i, int& pc, int& ps4) {
+    stage_product(lds2(read_a + ra + i * 8), lds2(read_b + rb + i * kRowB),
+                  k, pc, ps4);
+  };
+
+  fetch(ct);
+  store();
+  __syncthreads();
+  pin_load(k, s_pin);
+  swap_buffers();
+  int acc = k.zero, acc_s4 = 0;
+  // Whole tiles: the chain of kTileK steps unrolled, each step's product
+  // taken kAhead steps before the ⊞ that needs it, the next tile in
+  // flight.
+  const int t_main = ct - ct % kTileK;
+  for (int t = 0; t < t_main; t += kTileK) {
+    fetch(ct - t - kTileK);
+    int pc[kTileK], ps4[kTileK];
+#pragma unroll
+    for (int i = 0; i < kTileK + kAhead; ++i) {
+      if (i < kTileK) product(i, pc[i], ps4[i]);
+      if (i >= kAhead)
+        mac_step<KIND>(acc, acc_s4, pc[i - kAhead], ps4[i - kAhead], k);
+    }
+    store();
+    __syncthreads();
+    swap_buffers();
+  }
+  // The last CT % kTileK steps, staged by the last fetch.
+  for (int i = 0; i < ct - t_main; ++i) {
+    int pc, ps4;
+    product(i, pc, ps4);
+    mac_step<KIND>(acc, acc_s4, pc, ps4, k);
+  }
+
+  const int64_t r = r0 + w, c = c0 + lane;
   if (r >= p.R || c >= p.C) return;
-  const int64_t o = (int64_t)blockIdx.z * p.R * p.C + r * p.C + c;
-  int code = acc_c, sign = acc_s;
+  const int64_t o_at = (int64_t)blockIdx.z * p.R * p.C + r * p.C + c;
+  int code = acc;
+  int sign = code == k.zero ? 0 : acc_s4 >> 2;
 
   if (p.epilogue == kEpiFwd) {
     // _apply_fwd_epilogue (lns_matmul.py:165): bias ⊞ → llReLU →
@@ -399,33 +593,35 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
       code = is_zero ? (int)p.dst_zero : conv;
       if (is_zero) sign = 0;
     }
-    if (p.z_sign_out != nullptr) p.z_sign_out[o] = (int8_t)z_sign;
+    if (p.z_sign_out != nullptr) p.z_sign_out[o_at] = (int8_t)z_sign;
   } else if (p.epilogue == kEpiUpdate) {
-    int wc = p.w_code[o], ws = p.w_sign[o];
+    int wc = p.w_code[o_at], ws = p.w_sign[o_at];
     int mc = 0, ms = 0;
     if (p.sgd.mom_on) {
-      mc = p.m_code[o];
-      ms = p.m_sign[o];
+      mc = p.m_code[o_at];
+      ms = p.m_sign[o_at];
     }
     sgd_update<KIND>(wc, ws, mc, ms, code, sign, p.sgd, k);
     code = wc;
     sign = ws;
     if (p.sgd.mom_on) {
-      p.m_code_out[o] = mc;
-      p.m_sign_out[o] = (int8_t)ms;
+      p.m_code_out[o_at] = mc;
+      p.m_sign_out[o_at] = (int8_t)ms;
     }
   }
-  p.out_code[o] = code;
-  p.out_sign[o] = (int8_t)sign;
+  p.out_code[o_at] = code;
+  p.out_sign[o_at] = (int8_t)sign;
 }
 
 // _update_kernel (update.py:35): the ⊞-SGD, one thread per element.
 template <int KIND>
 __global__ void __launch_bounds__(kUpdateThreads)
     update_kernel(const UpdateParams p) {
+  load_table<KIND>(p.lns, threadIdx.x, kUpdateThreads);
+  __syncthreads();
   const int64_t i = (int64_t)blockIdx.x * kUpdateThreads + threadIdx.x;
   if (i >= p.n) return;
-  const Lns k = make_lns(p.lns, p.lns.tab_plus, p.lns.tab_minus);
+  const Lns k = make_lns(p.lns);
   int wc = p.w_code[i], ws = p.w_sign[i];
   int mc = 0, ms = 0;
   if (p.sgd.mom_on) {
@@ -443,27 +639,20 @@ __global__ void __launch_bounds__(kUpdateThreads)
 
 // _kernel (lns_boxsum.py:28): one thread per row folds the row's steps
 // in ascending order into one accumulator.  The row's steps are a serial
-// chain of ⊞ (~36 int32 operations each) and every element is read once,
+// chain of ⊞ (~30 int32 operations each) and every element is read once,
 // so at the data-parallel combine's shapes (up to 78400 rows of 5 steps:
-// 2.4 MB and 14 M operations, about a microsecond either way) the launch
+// 2.4 MB and 12 M operations, about a microsecond either way) the launch
 // dominates.  Rows and steps are read through strides: the combine passes
 // its (S, E) partials in place, where a warp's 32 rows are 32 neighbouring
 // words at every step.
 template <int KIND>
 __global__ void __launch_bounds__(kBoxsumThreads)
     boxsum_kernel(const BoxsumParams p) {
-  __shared__ int32_t s_tp[kMaxTab];
-  __shared__ int32_t s_tm[kMaxTab];
-  if (KIND == kLut) {
-    for (int i = threadIdx.x; i < p.lns.n_tab; i += kBoxsumThreads) {
-      s_tp[i] = p.lns.tab_plus[i];
-      s_tm[i] = p.lns.tab_minus[i];
-    }
-    __syncthreads();
-  }
+  load_table<KIND>(p.lns, threadIdx.x, kBoxsumThreads);
+  __syncthreads();
   const int64_t i = (int64_t)blockIdx.x * kBoxsumThreads + threadIdx.x;
   if (i >= p.rows) return;
-  const Lns k = make_lns(p.lns, s_tp, s_tm);
+  const Lns k = make_lns(p.lns);
   const int32_t* code = p.code + i * p.row_stride;
   const int8_t* sign = p.sign + i * p.row_stride;
   int acc_c = k.zero;
@@ -476,7 +665,35 @@ __global__ void __launch_bounds__(kBoxsumThreads)
   p.out_sign[i] = (int8_t)acc_s;
 }
 
+// The kernel instantiation a launch takes, or -1 for arguments the kernels
+// do not take: a LUT of 1 to kMaxTab entries, and zero = min_nz − 1 (the
+// flush of mac_step).
+int launch_kind(const LnsArgs& a) {
+  if (a.zero_code != a.min_nz - 1) return -1;
+  switch (a.delta_kind) {
+    case kLut:
+      if (a.n_tab < 1 || a.n_tab > kMaxTab || a.tab == nullptr) return -1;
+      return a.idx_mul != 0 ? kLutMul : kLut;
+    case kBitshift:
+    case kExact:
+      return (int)a.delta_kind;
+    default:
+      return -1;
+  }
+}
+
 }  // namespace
+
+#define LNS_DISPATCH(KERNEL, KIND, GRID, THREADS, STREAM, P)               \
+  switch (KIND) {                                                          \
+    case kLut: KERNEL<kLut><<<GRID, THREADS, 0, STREAM>>>(P); break;       \
+    case kLutMul: KERNEL<kLutMul><<<GRID, THREADS, 0, STREAM>>>(P); break; \
+    case kBitshift:                                                        \
+      KERNEL<kBitshift><<<GRID, THREADS, 0, STREAM>>>(P);                  \
+      break;                                                               \
+    case kExact: KERNEL<kExact><<<GRID, THREADS, 0, STREAM>>>(P); break;   \
+    default: return (int)cudaErrorInvalidValue;                            \
+  }
 
 extern "C" {
 
@@ -490,52 +707,33 @@ const char* lns_error_string(int err) {
 
 // Enqueues one ⊞-MAC launch on ``stream``; returns cudaGetLastError().
 int lns_mac_launch(const MacParams* p, void* stream) {
-  if (p->lns.n_tab > kMaxTab) return (int)cudaErrorInvalidValue;
-  // Segments take no epilogue; the grid z extent holds at most 65535.
-  if (p->S < 1 || p->S > 65535 || (p->S > 1 && p->epilogue != kEpiNone))
+  // Segments take no epilogue; the grid z extent holds at most 65535; a
+  // tile's offsets and the steps are int32.
+  if (p->S < 1 || p->S > 65535 || (p->S > 1 && p->epilogue != kEpiNone) ||
+      p->CT >= INT_MAX - kTileK || p->a_st < 0 || p->a_st >= (1 << 26) ||
+      p->b_st < 0 || p->b_st >= (1 << 26) || p->b_sc < 0 ||
+      p->b_sc >= (1 << 26))
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((p->C + kTileC - 1) / kTileC),
-            (unsigned)((p->R + kTileR - 1) / kTileR), (unsigned)p->S);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (p->lns.delta_kind) {
-    case kLut: mac_kernel<kLut><<<grid, kThreads, 0, s>>>(*p); break;
-    case kBitshift: mac_kernel<kBitshift><<<grid, kThreads, 0, s>>>(*p); break;
-    case kExact: mac_kernel<kExact><<<grid, kThreads, 0, s>>>(*p); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+            (unsigned)((p->R + kWarps - 1) / kWarps), (unsigned)p->S);
+  LNS_DISPATCH(mac_kernel, launch_kind(p->lns), grid, kThreads,
+               (cudaStream_t)stream, *p);
   return (int)cudaGetLastError();
 }
 
 // Enqueues one elementwise ⊞-SGD launch; returns cudaGetLastError().
 int lns_update_launch(const UpdateParams* p, void* stream) {
   dim3 grid((unsigned)((p->n + kUpdateThreads - 1) / kUpdateThreads));
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (p->lns.delta_kind) {
-    case kLut: update_kernel<kLut><<<grid, kUpdateThreads, 0, s>>>(*p); break;
-    case kBitshift:
-      update_kernel<kBitshift><<<grid, kUpdateThreads, 0, s>>>(*p);
-      break;
-    case kExact: update_kernel<kExact><<<grid, kUpdateThreads, 0, s>>>(*p); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  LNS_DISPATCH(update_kernel, launch_kind(p->lns), grid, kUpdateThreads,
+               (cudaStream_t)stream, *p);
   return (int)cudaGetLastError();
 }
 
 // Enqueues one ⊞-reduce launch; returns cudaGetLastError().
 int lns_boxsum_launch(const BoxsumParams* p, void* stream) {
-  if (p->lns.n_tab > kMaxTab) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((p->rows + kBoxsumThreads - 1) / kBoxsumThreads));
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (p->lns.delta_kind) {
-    case kLut: boxsum_kernel<kLut><<<grid, kBoxsumThreads, 0, s>>>(*p); break;
-    case kBitshift:
-      boxsum_kernel<kBitshift><<<grid, kBoxsumThreads, 0, s>>>(*p);
-      break;
-    case kExact:
-      boxsum_kernel<kExact><<<grid, kBoxsumThreads, 0, s>>>(*p);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  LNS_DISPATCH(boxsum_kernel, launch_kind(p->lns), grid, kBoxsumThreads,
+               (cudaStream_t)stream, *p);
   return (int)cudaGetLastError();
 }
 

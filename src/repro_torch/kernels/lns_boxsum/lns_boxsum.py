@@ -50,9 +50,6 @@ def boxsum_cuda(code, sign, *, fmt: LNSFormat, spec: DeltaSpec):
     :func:`boxsum_plain`."""
     _check(code, sign)
     lib = build.load_library()
-    if spec.kind == "lut" and spec.table_size > lib.lns_max_table():
-        raise ValueError(f"Δ table of {spec.table_size} entries exceeds the "
-                         f"kernel's {lib.lns_max_table()}")
     dev = code.device
     if sign.device != dev:
         raise ValueError(f"sign is on {sign.device}; this launch runs on "

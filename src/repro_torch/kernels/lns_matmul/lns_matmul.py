@@ -214,9 +214,6 @@ def mac_cuda(a_code, a_sign, b_code, b_sign, *, a_contract_axis: int,
     """Launch ``mac_kernel`` on the current stream; same arguments and
     outputs as :func:`mac_plain`."""
     lib = build.load_library()
-    if spec.kind == "lut" and spec.table_size > lib.lns_max_table():
-        raise ValueError(f"Δ table of {spec.table_size} entries exceeds the "
-                         f"kernel's {lib.lns_max_table()}")
     dev = a_code.device
     r, ct = a_code.shape[1 - a_contract_axis], a_code.shape[a_contract_axis]
     c = b_code.shape[1 - b_contract_axis]

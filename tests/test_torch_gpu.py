@@ -169,6 +169,44 @@ def test_plain_and_segment_kernels_equal_plain_on_card(cuda, kind, fmt_name):
     torch.cuda.synchronize()
 
 
+SWEEP_SPECS = {"lut20": T.DELTA_DEFAULT, "lut640": T.DELTA_SOFTMAX,
+               "r0.375": T.DeltaSpec(kind="lut", d_max=9.0, r=0.375),
+               "lut1024": T.DeltaSpec(kind="lut", d_max=16.0, r=1.0 / 64.0)}
+
+
+def _sweep_operands(fmt, swap, device):
+    """A (R, 2) and B (2, C) whose second ⊞ step meets every difference d
+    from 0 to code_max − min_nz, with equal signs (columns c < W) and
+    opposite signs (c ≥ W); ``swap`` folds the two products in the other
+    order."""
+    lo, hi, w = fmt.min_nonzero_code, fmt.code_max, 256
+    rows = (hi - lo) // w + 1
+    a_c = torch.full((rows, 2), lo, dtype=torch.int32)
+    a_c[:, 0] = torch.clamp(lo + torch.arange(rows) * w, max=hi)
+    b_c = torch.zeros((2, 2 * w), dtype=torch.int32)
+    b_c[0] = torch.arange(2 * w) % w
+    a_s = torch.zeros((rows, 2), dtype=torch.int8)
+    b_s = torch.zeros((2, 2 * w), dtype=torch.int8)
+    b_s[0, w:] = 1
+    if swap:
+        a_c, a_s, b_c, b_s = a_c.flip(1), a_s.flip(1), b_c.flip(0), b_s.flip(0)
+    return [t.contiguous().to(device) for t in (a_c, a_s, b_c, b_s)]
+
+
+@pytest.mark.parametrize("spec_name", list(SWEEP_SPECS))
+@pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
+def test_delta_index_sweep_on_card(cuda, spec_name, fmt_name):
+    """The kernel's Δ index (a shift, or a multiply-high where the LUT
+    step is not a power of two) over every difference of the format."""
+    fmt, spec = T.FORMATS[fmt_name], SWEEP_SPECS[spec_name]
+    for swap in (False, True):
+        a_c, a_s, b_c, b_s = _sweep_operands(fmt, swap, cuda)
+        _same(TK.lns_matmul(a_c, a_s, b_c, b_s, fmt=fmt, spec=spec),
+              TK.mac_plain(a_c, a_s, b_c, b_s, a_contract_axis=1,
+                           b_contract_axis=0, fmt=fmt, spec=spec))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("kind", list(DELTA))
 @pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
 def test_boxsum_kernel_equals_plain_on_card(cuda, kind, fmt_name):

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no script of ``scripts/`` imports JAX or the JAX
+package ``repro``."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

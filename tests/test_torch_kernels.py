@@ -566,3 +566,86 @@ def test_dispatcher_products_match_reference_emulate(kind):
             ("matmul_dw_partials", tbe.matmul_dw_partials(tx, td, 3),
              jbe.matmul_dw_partials(jx, jd, 3))):
         _eq([got.code, got.sign], [want.code, want.sign], name)
+
+
+# ------------------------------------------- LUT steps and the Δ index --
+
+LUT_STEPS = {"r0.375": (9.0, 0.375), "lut640": (10.0, 1.0 / 64.0)}
+
+
+def _index_edge_operands(fmt, spec, swap):
+    """A (R, 2) and B (2, 2) whose second ⊞ step meets chosen differences
+    d with equal (column 0) and opposite (column 1) signs: d = 0, d in
+    [1, r_code/2), around every index boundary of the first entries and
+    the table's end, past the end, and the format's widest d."""
+    f = J.FORMATS[fmt]
+    r = int(round(spec[1] * f.scale))
+    n = int(round(spec[0] / spec[1]))
+    lo, hi = f.min_nonzero_code, f.code_max
+    ds = {0, 1, max(r // 2 - 1, 0), r // 2, r // 2 + 1, r, r + r // 2,
+          n * r - r // 2 - 1, n * r - r // 2, n * r - r // 2 + 1, n * r,
+          n * r + 7, hi - lo}
+    ds = sorted(d for d in ds if 0 <= d <= hi - lo)
+    a_c = np.array([[lo + d, lo] for d in ds], np.int32)
+    a_s = np.zeros_like(a_c, dtype=np.int8)
+    b_c = np.zeros((2, 2), np.int32)
+    b_s = np.array([[0, 1], [0, 0]], np.int8)
+    if swap:
+        a_c, a_s, b_c, b_s = a_c[:, ::-1], a_s[:, ::-1], b_c[::-1], b_s[::-1]
+    return ((np.ascontiguousarray(a_c), np.ascontiguousarray(a_s)),
+            (np.ascontiguousarray(b_c), np.ascontiguousarray(b_s)))
+
+
+@pytest.mark.parametrize("step", list(LUT_STEPS))
+@pytest.mark.parametrize("fmt", ["lns16", "lns12"])
+def test_lut_steps_plain_vs_reference(step, fmt):
+    """mac_plain against the JAX emulate oracle for a LUT step that is not
+    a power of two (r = 0.375: r_code 384 in lns16, 24 in lns12) and for
+    lut640: products past the table's end and into [1, r_code/2), in both
+    orders and sign relations, then a random product with zeros."""
+    d_max, r = LUT_STEPS[step]
+    js = J.DeltaSpec(kind="lut", d_max=d_max, r=r)
+    ts = T.DeltaSpec(kind="lut", d_max=d_max, r=r)
+    cases = [_index_edge_operands(fmt, (d_max, r), swap)
+             for swap in (False, True)]
+    rng = np.random.default_rng(31)
+    cases.append((_operand(rng, (6, 29), fmt, scale=2.0, zero_frac=0.3),
+                  _operand(rng, (29, 7), fmt, scale=0.5, zero_frac=0.1)))
+    for x, w in cases:
+        want = _jax_fwd_ref(*x, *w, fmt=J.FORMATS[fmt], spec=js)
+        _eq(TK.lns_matmul(*_t(x), *_t(w), fmt=T.FORMATS[fmt], spec=ts), want,
+            f"{step}/{fmt}")
+
+
+@pytest.mark.parametrize("fmt", ["lns16", "lns12", "lns21"])
+@pytest.mark.parametrize("d_max,r", [(10.0, 0.5), (10.0, 1.0 / 64.0),
+                                     (9.0, 0.375), (16.0, 1.0 / 64.0),
+                                     (3.0, 0.75), (5.0, 5.0 / 64.0)])
+def test_lut_index_args_equal_the_divide(fmt, d_max, r):
+    """The kernels' Δ index, min(d + half, lim) then a shift or a
+    multiply-high, equals the reference's (d + r_code // 2) // r_code
+    clamped to n_tab for every difference of the format and beyond; the
+    kernels' table is the engine's (Δ+, Δ−) pairs and a zero pair."""
+    from repro_torch.kernels import _common
+    f = T.FORMATS[fmt]
+    spec = T.DeltaSpec(kind="lut", d_max=d_max, r=r)
+    eng = T.cached_engine(spec, f)
+    n = spec.table_size
+    half, lim, mul, shift = _common.lut_index_args(eng.r_code, n)
+    d = np.arange(0, 2 * (f.code_max - f.min_nonzero_code) + 3,
+                  dtype=np.uint64)
+    x = np.minimum(d + np.uint64(half), np.uint64(lim))
+    if mul:
+        assert 0 < mul < 1 << 32
+        idx = (x * np.uint64(mul)) >> np.uint64(32 + shift)
+    else:
+        assert eng.r_code == 1 << shift
+        idx = x >> np.uint64(shift)
+    want = np.minimum((d + np.uint64(eng.r_code // 2))
+                      // np.uint64(eng.r_code), np.uint64(n))
+    np.testing.assert_array_equal(idx, want)
+    pairs = _common.lut_pairs(spec, f, torch.device("cpu"))
+    tp, tm = eng.tables("cpu")
+    assert pairs.shape == (n + 1, 2) and pairs.dtype == torch.int32
+    assert torch.equal(pairs[:n, 0], tp) and torch.equal(pairs[:n, 1], tm)
+    assert pairs[n].tolist() == [0, 0] and int(tm[0]) == eng.underflow
