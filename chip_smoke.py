@@ -14,10 +14,14 @@ the result line:
    predict shape (batch 500) and at ragged shapes, over the Δ kinds
    (lut / bitshift / exact), the formats (lns16 / lns12), the epilogues,
    the segment counts S ∈ {1, 2, 4, 5, 8} of the segment-partial dW and
-   the reduce lengths K ∈ {1, 5, 37, 128} of the ⊞-reduce; and the Δ-index
-   sweep: a two-step contraction whose second ⊞ meets every difference of
-   the format with both sign relations, for LUT steps that are powers of
-   two and one that is not, and for a table of the kernels' largest size;
+   the reduce lengths K ∈ {1, 5, 37, 128} of the ⊞-reduce; both forms of
+   the ⊞-MAC on each side of the library's threshold T (CT ∈ {1, T,
+   T + 1}) for C ∈ {1, 10, 33, 100}, and the ⊞-SGD at n ∈ {1, 10, 100,
+   257, 1000, 78400}; and the Δ-index sweep: a two-step contraction whose
+   second ⊞ meets every difference of the format with both sign
+   relations, for LUT steps that are powers of two and one that is not,
+   and for a table of the kernels' largest size, through the short form
+   and again, after T + 1 zero-code steps, through the tiled form;
 4. hold ``encode`` (all 256 pixel values) and ``lns_value_to_code`` (every
    lns16 / lns12 code) on the card against the CPU lane, and count how
    many exact-Δ codes the card and the CPU round differently;
@@ -33,8 +37,9 @@ the result line:
    ``run_device_count_invariance_check((1,))`` trains the small MLP with
    momentum in one NCCL rank of its own process and holds its codes to
    ``reference_train_step`` on the card;
-6. times: ms per train step of each path, and each kernel and its plain
-   version by CUDA events at the launches of the path that runs it.
+6. times: ms per train step of each path, the launch floor (an empty
+   kernel), and each kernel and its plain version by CUDA events at the
+   launches of the path that runs it.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Runs in well under the 1200 s limit
@@ -248,6 +253,7 @@ def compare_kernels(torch, device):
                            spec=DELTA_DEFAULT)
         check("lns_matmul_dx", got, want, f"lut/{fmt.name}/batch500")
     compare_unfused_and_segmented(torch, device, rk, check)
+    compare_forms(torch, device, rk, check)
     compare_index_sweep(torch, device, rk, check)
     torch.cuda.synchronize()
     return worst, cases
@@ -311,6 +317,116 @@ def compare_unfused_and_segmented(torch, device, rk, check):
                       f"{spec.kind}/{fmt.name}/combine{e}")
 
 
+def compare_forms(torch, device, rk, check):
+    """Both forms of the ⊞-MAC on each side of the library's threshold T
+    (CT ∈ {1, T, T + 1}) for C ∈ {1, 10, 33, 100} at a ragged R = 13: the
+    forward with no epilogue and with each forward epilogue, the dX, and
+    the dW-update with and without momentum; the segment partials at
+    S ∈ {1, 5} for batches 5 and 40; the ⊞-SGD at n ∈ {1, 10, 100, 257,
+    1000, 78400}, with and without momentum."""
+    from repro_torch.core import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT,
+                                  LNS12, LNS16, LogSGDConfig, UpdateEpilogue,
+                                  beta_code)
+    from repro_torch.kernels import build
+    from repro_torch.kernels import lns_matmul as K
+    t_short = build.load_library().lns_short_steps()
+    r = 13
+    for spec in (DELTA_DEFAULT, DELTA_BITSHIFT, DELTA_EXACT):
+        for fmt, other in ((LNS16, LNS12), (LNS12, LNS16)):
+            kw = dict(fmt=fmt, spec=spec)
+            beta = beta_code(0.01, fmt)
+            fwd_eps = {
+                "bias": K.FwdEpilogue(bias=True),
+                "hidden": K.FwdEpilogue(bias=True, llrelu_beta=beta,
+                                        emit_z_sign=True),
+                "hidden+dst": K.FwdEpilogue(bias=True, llrelu_beta=beta,
+                                            dst_fmt=other, emit_z_sign=True),
+            }
+            ups = {g: UpdateEpilogue.from_sgd(cfg, fmt) for g, cfg in (
+                ("decay", LogSGDConfig(lr=0.01, weight_decay=0.01)),
+                ("mom+decay", LogSGDConfig(lr=0.01, weight_decay=0.01,
+                                           momentum=0.9)))}
+            for ct in (1, t_short, t_short + 1):
+                for c in (1, 10, 33, 100):
+                    label = f"{spec.kind}/{fmt.name}/CT{ct}/C{c}"
+                    x, w, b = fwd_case(torch, rk, r, ct, c, fmt, device)
+                    fwd = dict(a_contract_axis=1, b_contract_axis=0, **kw)
+                    check("lns_matmul",
+                          K.lns_matmul(x.code, x.sign, w.code, w.sign, **kw),
+                          K.mac_plain(x.code, x.sign, w.code, w.sign, **fwd),
+                          f"{label}/none")
+                    for ename, ep in fwd_eps.items():
+                        bk = dict(bias_code=b.code, bias_sign=b.sign)
+                        check("lns_matmul_fused",
+                              K.lns_matmul_fused(x.code, x.sign, w.code,
+                                                 w.sign, epilogue=ep, **bk,
+                                                 **kw),
+                              K.mac_plain(x.code, x.sign, w.code, w.sign,
+                                          fwd_epilogue=ep, **bk, **fwd),
+                              f"{label}/{ename}")
+                    dy = operands(torch, rk, (r, ct), scale=0.1,
+                                  zero_frac=0.1, fmt=fmt, device=device)
+                    wt = operands(torch, rk, (c, ct), scale=0.05,
+                                  zero_frac=0.02, fmt=fmt, device=device)
+                    check("lns_matmul_dx",
+                          K.lns_matmul_dx(dy.code, dy.sign, wt.code, wt.sign,
+                                          **kw),
+                          K.mac_plain(dy.code, dy.sign, wt.code, wt.sign,
+                                      a_contract_axis=1, b_contract_axis=1,
+                                      **kw), label)
+                    xb = operands(torch, rk, (ct, r), scale=1.0,
+                                  zero_frac=0.5, fmt=fmt, device=device)
+                    db = operands(torch, rk, (ct, c), scale=0.1,
+                                  zero_frac=0.1, fmt=fmt, device=device)
+                    wr = operands(torch, rk, (r, c), scale=0.05,
+                                  zero_frac=0.02, fmt=fmt, device=device)
+                    mr = operands(torch, rk, (r, c), scale=0.01,
+                                  zero_frac=0.3, fmt=fmt, device=device)
+                    for gname, up in ups.items():
+                        mk = (dict(m_code=mr.code, m_sign=mr.sign)
+                              if up.has_momentum else {})
+                        wk = dict(w_code=wr.code, w_sign=wr.sign, **mk, **kw)
+                        check("lns_matmul_dw_update",
+                              K.lns_matmul_dw_update(
+                                  xb.code, xb.sign, db.code, db.sign,
+                                  epilogue=up, **wk),
+                              K.mac_plain(xb.code, xb.sign, db.code, db.sign,
+                                          a_contract_axis=0,
+                                          b_contract_axis=0,
+                                          update_epilogue=up, **wk),
+                              f"{label}/{gname}")
+            for batch in (5, 40):
+                for c in (1, 33, 100):
+                    x = operands(torch, rk, (batch, r), scale=1.0,
+                                 zero_frac=0.5, fmt=fmt, device=device)
+                    dy = operands(torch, rk, (batch, c), scale=0.1,
+                                  zero_frac=0.1, fmt=fmt, device=device)
+                    planes = (x.code, x.sign, dy.code, dy.sign)
+                    for seg in (1, 5):
+                        check("lns_matmul_dw_partials",
+                              K.lns_matmul_dw_partials(
+                                  *planes, num_segments=seg, **kw),
+                              K.mac_plain(*planes, a_contract_axis=0,
+                                          b_contract_axis=0, segments=seg,
+                                          **kw),
+                              f"{spec.kind}/{fmt.name}/B{batch}/C{c}/S{seg}")
+            for gname, up in ups.items():
+                for n in (1, 10, 100, 257, 1000, 78400):
+                    w, g, m = (operands(torch, rk, (n,), scale=s,
+                                        zero_frac=z, fmt=fmt, device=device)
+                               for s, z in ((0.1, 0.2), (0.1, 0.1),
+                                            (0.01, 0.3)))
+                    uk = dict(epilogue=up, **kw, **(
+                        dict(m_code=m.code, m_sign=m.sign)
+                        if up.has_momentum else {}))
+                    check("lns_fused_update",
+                          K.lns_fused_update(w.code, w.sign, g.code, g.sign,
+                                             **uk),
+                          K.update_plain(w.code, w.sign, g.code, g.sign,
+                                         **uk),
+                          f"{spec.kind}/{fmt.name}/n{n}/{gname}")
+
+
 def sweep_operands(torch, fmt, swap, device):
     """A (R, 2) and B (2, C) whose second ⊞ step meets every difference d
     from 0 to code_max − min_nz, with equal and with opposite signs.
@@ -338,11 +454,15 @@ def compare_index_sweep(torch, device, rk, check):
     through the plain forward, for tables whose step is a power of two
     (the shift) and one whose step is not (the multiply-high), and a table
     of the kernels' largest size; the ⊞-SGD and ⊞-reduce kernels once at
-    each table."""
+    each table.  The two-step sweep takes the short form; the same sweep
+    after T + 1 zero-code steps takes the tiled form (a zero accumulator
+    takes the first product, so the codes are the same)."""
     from repro_torch.core import (DELTA_DEFAULT, DELTA_SOFTMAX, LNS12, LNS16,
                                   DeltaSpec, LogSGDConfig, UpdateEpilogue)
+    from repro_torch.kernels import build
     from repro_torch.kernels import lns_matmul as K
     from repro_torch.kernels.lns_boxsum import boxsum_plain, lns_boxsum
+    pad = build.load_library().lns_short_steps() + 1
     specs = (DELTA_DEFAULT, DELTA_SOFTMAX, DeltaSpec("lut", 9.0, 0.375),
              DeltaSpec("lut", 16.0, 1.0 / 64.0))
     for spec in specs:
@@ -351,11 +471,27 @@ def compare_index_sweep(torch, device, rk, check):
             name = f"lut{spec.table_size}/r{spec.r}/{fmt.name}"
             for swap in (False, True):
                 a, b = sweep_operands(torch, fmt, swap, device)
-                check("lns_matmul",
-                      K.lns_matmul(a.code, a.sign, b.code, b.sign, **kw),
+                label = f"{name}/sweep{'-swapped' if swap else ''}"
+                short = K.lns_matmul(a.code, a.sign, b.code, b.sign, **kw)
+                check("lns_matmul", short,
                       K.mac_plain(a.code, a.sign, b.code, b.sign,
                                   a_contract_axis=1, b_contract_axis=0, **kw),
-                      f"{name}/sweep{'-swapped' if swap else ''}")
+                      label)
+                a_c = torch.cat([torch.full((a.code.shape[0], pad),
+                                            fmt.zero_code, dtype=torch.int32,
+                                            device=device), a.code], 1)
+                a_s = torch.cat([a.sign.new_zeros((a.sign.shape[0], pad)),
+                                 a.sign], 1)
+                b_c = torch.cat([b.code.new_zeros((pad, b.code.shape[1])),
+                                 b.code])
+                b_s = torch.cat([b.sign.new_zeros((pad, b.sign.shape[1])),
+                                 b.sign])
+                tiled = K.lns_matmul(a_c, a_s, b_c, b_s, **kw)
+                check("lns_matmul", tiled,
+                      K.mac_plain(a_c, a_s, b_c, b_s, a_contract_axis=1,
+                                  b_contract_axis=0, **kw),
+                      f"{label}/tiled")
+                check("lns_matmul", tiled, short, f"{label}/tiled=short")
             ep = UpdateEpilogue.from_sgd(
                 LogSGDConfig(lr=0.01, weight_decay=0.01, momentum=0.9), fmt)
             w, g, m = (operands(torch, rk, (100,), scale=s, zero_frac=0.1,
@@ -769,6 +905,12 @@ def main() -> int:
         else:
             log("6 profile", f"{path}: torch.profiler saw no device time: "
                 "busy share not measured")
+    from repro_torch.kernels._common import launch_empty
+    host_ms = time_host(torch, lambda: launch_empty(device), 200)
+    floor_ms = time_device(torch, lambda: launch_empty(device), 200, host_ms)
+    log("6 times", f"launch floor (an empty kernel of one warp): "
+        f"{floor_ms:.5f} ms on the card ({host_ms:.5f} ms per call with the "
+        f"wrapper) on {card}")
     rows = {}
     for kname, label, kern, plain, nbytes, ops in step_launches(torch,
                                                                device):

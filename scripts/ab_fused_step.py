@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the forward ⊞-MAC kernel and the fused train step of two checkouts
-of the port on one CUDA card, interleaved.
+"""Time the ⊞-MAC and ⊞-SGD kernels and the fused train step of several
+checkouts of the port on one CUDA card, interleaved.
 
     python3 scripts/ab_fused_step.py --roots OLD NEW NEW OLD [--out FILE]
 
@@ -9,26 +9,36 @@ and its ``kernels/csrc/lns_mac.cu`` built); each runs in a process of its
 own, in the order given, so that a drift of the card or the host over the
 call shows as a difference between the two runs of one root.  A run
 measures, at the paper MLP's shapes (784–100–10, batch 5, lns16, LUT Δ,
-weight decay 0.01):
+weight decay 0.01), ms per launch on the card alone (CUDA events around
+200 launches queued behind a spin kernel) and ms per call with the
+wrapper, for:
 
-* ``mac_kernel`` as the two forward launches take it, for the hidden and
-  the output layer: with the forward epilogue (``lns_matmul_fused``, as the
-  fused step launches it) and with the epilogue off (``lns_matmul``, as the
-  unfused step does): ms per launch on the card alone (CUDA events around
-  200 launches queued behind a spin kernel) and ms per call with the
-  wrapper;
+* the forward ⊞-MAC of the hidden and the output layer, with the forward
+  epilogue (``hidden``, ``out``: ``lns_matmul_fused``, as the fused step
+  launches it) and with the epilogue off (``plain_hidden``,
+  ``plain_out``: ``lns_matmul``, as the unfused step does);
+* the launches of the contractions over the batch: the dW-update of w1
+  and w2 (``dwu_w1``, ``dwu_w2``), the plain dW (``dw_w1``, ``dw_w2``),
+  the w1 partials at S = 5 (``part_w1``) and the dX (``dx``);
+* the elementwise ⊞-SGD at n = 10, 100 and 78400 (``upd10``, ``upd100``,
+  ``upd78400``);
+* the plain dW at batches of 8 to 32 (``dw_w1_b8`` ... ``dw_w2_b32``), on
+  each side of the short form's threshold, where a checkout has one;
+* the launch floor, an empty kernel (``floor``), where the checkout's
+  library has one;
 * the cycles of one ⊞-MAC step at 1.98 GHz: the plain forward's time at a
   contraction of 2 × 784 less its time at 784, over 784 steps;
-* the fused train step: ms per step on the host clock over 100 steps, three
-  times;
-* the build: ``ptxas``' line (registers, spills) for every ``mac_kernel``
-  instantiation, and from ``cuobjdump -sass`` the inner loop of
-  ``mac_kernel<kLut>`` that holds the most instructions: its address
-  range, its instruction count and its count of each opcode.
+* the fused train step: ms per step on the host clock over 100 steps,
+  three times;
+* the build: ``ptxas``' lines (registers, spills) for every instantiation
+  of ``mac_kernel``, ``mac_short_kernel`` and ``update_kernel``, and from
+  ``cuobjdump -sass`` the inner loop of ``mac_kernel<kLut>`` that holds the
+  most instructions: its address range, its instruction count and its
+  count of each opcode.
 
 It prints one JSON line per run and a table; ``--out`` also writes the
-runs to a JSON file.  The runs' output codes of the kernel are hashed, so
-that the table shows whether the checkouts computed the same.
+runs to a JSON file.  The output codes of every kernel launch are hashed,
+so that the table shows whether the checkouts computed the same.
 """
 from __future__ import annotations
 
@@ -92,18 +102,23 @@ def time_device(torch, fn, reps, host_ms):
     return start.elapsed_time(end) / reps
 
 
+KERNELS = ("mac_kernel", "mac_short_kernel", "update_kernel")
+
+
 def ptxas_lines(report: str) -> list:
-    """(kernel, usage) of every ``mac_kernel`` instantiation in ptxas' -v
-    report: each "Compiling entry function" line is followed by its
-    "Used N registers" line."""
-    out, name = [], None
+    """(kernel, usage) of every instantiation of ``KERNELS`` in ptxas' -v
+    report: each "Compiling entry function" line is followed by its spill
+    line and its "Used N registers" line."""
+    out, name, spill = [], None, ""
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1)
+            name, spill = m.group(1), ""
+        elif name and "spill" in ln:
+            spill = ln.strip()
         elif name and "Used" in ln and "registers" in ln:
-            if "mac_kernel" in name:
-                out.append(f"{name}: {ln.split(':', 1)[1].strip()}")
+            if any(re.search(rf"\d{k}I", name) for k in KERNELS):
+                out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
             name = None
     return out
 
@@ -153,7 +168,8 @@ def run_one(root: str) -> dict:
     sys.path.insert(0, os.path.join(root, "src"))
     os.chdir(root)
     import torch
-    from repro_torch.core import DELTA_DEFAULT, LNS16, beta_code, encode
+    from repro_torch.core import (DELTA_DEFAULT, LNS16, LogSGDConfig,
+                                  UpdateEpilogue, beta_code, encode)
     from repro_torch.kernels import build
     from repro_torch.kernels import lns_matmul as K
     from repro_torch.paper import datasets
@@ -177,8 +193,11 @@ def run_one(root: str) -> dict:
     beta = beta_code(0.01, fmt)
     hidden_ep = K.FwdEpilogue(bias=True, llrelu_beta=beta, emit_z_sign=True)
     out_ep = K.FwdEpilogue(bias=True)
+    up = UpdateEpilogue.from_sgd(LogSGDConfig(lr=0.01, weight_decay=0.01),
+                                 fmt)
     digest = hashlib.sha256()
-    # (shape, name, launches as (key prefix, forward epilogue or None)).
+    launches = {}  # label → launch
+    # The forward: (shape, name, launches as (key prefix, epilogue or None)).
     for (m, k, n), name, runs in (
             ((BATCH, 784, 100), "hidden", (("", hidden_ep), ("plain_", None))),
             ((BATCH, 100, 10), "out", (("", out_ep), ("plain_", None))),
@@ -188,18 +207,58 @@ def run_one(root: str) -> dict:
         for key, ep in runs:
             kw = {} if ep is None else dict(
                 fwd_epilogue=ep, bias_code=b.code, bias_sign=b.sign)
-
-            def launch(x=x, w=w, kw=kw):
-                return K.mac_cuda(x.code, x.sign, w.code, w.sign,
-                                  a_contract_axis=1, b_contract_axis=0,
-                                  fmt=fmt, spec=spec, **kw)
-            for plane in launch():
-                digest.update(plane.cpu().numpy().tobytes())
-            host_ms = time_host(torch, launch, 200)
-            out[f"{key}{name}_ms"] = time_device(torch, launch, 200, host_ms)
-            out[f"{key}{name}_call_ms"] = host_ms
+            launches[f"{key}{name}"] = (
+                lambda x=x, w=w, kw=kw: K.mac_cuda(
+                    x.code, x.sign, w.code, w.sign, a_contract_axis=1,
+                    b_contract_axis=0, fmt=fmt, spec=spec, **kw))
+    # The contractions over the batch: dW-update, dW, partials, dX.
+    dw = dict(a_contract_axis=0, b_contract_axis=0, fmt=fmt, spec=spec)
+    for (m, k, n), name in (((BATCH, 784, 100), "w1"),
+                            ((BATCH, 100, 10), "w2")):
+        x, d, w = (operand((m, k), 1.0, 0.5), operand((m, n), 0.1, 0.1),
+                   operand((k, n), 0.05, 0.02))
+        launches[f"dwu_{name}"] = (
+            lambda x=x, d=d, w=w: K.mac_cuda(
+                x.code, x.sign, d.code, d.sign, update_epilogue=up,
+                w_code=w.code, w_sign=w.sign, **dw))
+        launches[f"dw_{name}"] = (
+            lambda x=x, d=d: K.mac_cuda(x.code, x.sign, d.code, d.sign, **dw))
+        if name == "w1":
+            launches["part_w1"] = (
+                lambda x=x, d=d: K.mac_cuda(x.code, x.sign, d.code, d.sign,
+                                            segments=BATCH, **dw))
+        # Batches on each side of the short form's threshold.
+        for bt in (8, 12, 16, 20, 24, 32):
+            xb, db = operand((bt, k), 1.0, 0.5), operand((bt, n), 0.1, 0.1)
+            launches[f"dw_{name}_b{bt}"] = (
+                lambda x=xb, d=db: K.mac_cuda(x.code, x.sign, d.code, d.sign,
+                                              **dw))
+    dy, w2 = operand((BATCH, 10), 0.1, 0.1), operand((100, 10), 0.05, 0.02)
+    launches["dx"] = (lambda: K.mac_cuda(
+        dy.code, dy.sign, w2.code, w2.sign, a_contract_axis=1,
+        b_contract_axis=1, fmt=fmt, spec=spec))
+    for n in (10, 100, 78400):
+        w, g = operand((n,), 0.1, 0.2), operand((n,), 0.1, 0.1)
+        launches[f"upd{n}"] = (lambda w=w, g=g: K.update_cuda(
+            w.code, w.sign, g.code, g.sign, epilogue=up, fmt=fmt, spec=spec))
+    out["ms"], out["call_ms"] = {}, {}
+    for label, launch in launches.items():
+        for plane in launch():
+            digest.update(plane.cpu().numpy().tobytes())
+        host_ms = time_host(torch, launch, 200)
+        out["ms"][label] = time_device(torch, launch, 200, host_ms)
+        out["call_ms"][label] = host_ms
+    lib = build.load_library()
+    if hasattr(lib, "lns_empty_launch"):
+        from repro_torch.kernels._common import launch_empty
+        host_ms = time_host(torch, lambda: launch_empty(dev), 200)
+        out["ms"]["floor"] = time_device(torch, lambda: launch_empty(dev),
+                                         200, host_ms)
+    out["short_steps"] = (lib.lns_short_steps()
+                          if hasattr(lib, "lns_short_steps") else None)
     out["kernel_out_sha256"] = digest.hexdigest()[:16]
-    out["step_cycles"] = ((out["plain_hidden2x_ms"] - out["plain_hidden_ms"])
+    out["step_cycles"] = ((out["ms"]["plain_hidden2x"]
+                           - out["ms"]["plain_hidden"])
                           * 1e-3 / 784 * CLOCK_HZ)
 
     model = make_mlp("lns", MLPConfig(spec="lns16-train-pallas",
@@ -245,17 +304,26 @@ def main() -> int:
             return res.returncode
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    print(f"{'root':24s} {'fused hid':>9s} {'plain hid':>9s} "
-          f"{'fused out':>9s} {'plain out':>9s} {'cyc/step':>8s} "
-          f"{'loop ins':>8s} {'step ms (3 x 100 steps)':>24s}  out hash")
+    labels = list(runs[0]["ms"])
+    for r in runs[1:]:
+        labels += [k for k in r["ms"] if k not in labels]
+    print(f"{'ms on the card':16s} " + " ".join(
+        f"{r['root'][-12:]:>12s}" for r in runs))
+    for label in labels:
+        print(f"{label:16s} " + " ".join(
+            f"{r['ms'][label]:12.6f}" if label in r["ms"] else f"{'-':>12s}"
+            for r in runs))
+    for key, fmt in (("step_cycles", "{:12.1f}"),
+                     ("short_steps", "{!s:>12s}"),
+                     ("kernel_out_sha256", "{:>12s}")):
+        print(f"{key:16s} " + " ".join(fmt.format(r[key]) for r in runs))
+    print(f"{'step ms':16s} " + " ".join(
+        f"{min(r['step_ms']):12.3f}" for r in runs) + "  (least of 3)")
+    seen = set()
     for r in runs:
-        steps = " ".join(f"{s:.3f}" for s in r["step_ms"])
-        print(f"{r['root'][-24:]:24s} {r['hidden_ms']:9.5f} "
-              f"{r['plain_hidden_ms']:9.5f} {r['out_ms']:9.5f} "
-              f"{r['plain_out_ms']:9.5f} {r['step_cycles']:8.1f} "
-              f"{r['lut_loop']['instructions']:8d} {steps:>24s}  "
-              f"{r['kernel_out_sha256']}")
-    for r in runs[:2] if len(runs) > 1 else runs:
+        if r["root"] in seen:
+            continue
+        seen.add(r["root"])
         print(r["root"])
         for ln in r["ptxas"]:
             print(f"  ptxas {ln}")

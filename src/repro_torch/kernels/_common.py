@@ -1,5 +1,5 @@
 """What the kernel packages share: the lane rule, the launch-argument
-helpers and the plain ⊞ on (code, sign) planes.
+helpers, the plain ⊞ on (code, sign) planes and the launch floor.
 
 The plain helpers mirror the Pallas kernels' (``src/repro/kernels/
 lns_matmul/lns_matmul.py``) op for op on int32 code / int8 sign planes;
@@ -7,6 +7,7 @@ lns_matmul/lns_matmul.py``) op for op on int32 code / int8 sign planes;
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -154,3 +155,14 @@ def lns_args(fmt: LNSFormat, spec: DeltaSpec, device) -> build.LnsArgs:
          args.idx_shift) = lut_index_args(eng.r_code, spec.table_size)
         args.tab = ptr(lut_pairs(spec, fmt, torch.device(device)))
     return args
+
+
+def launch_empty(device) -> None:
+    """Enqueue the library's empty kernel (one warp that does nothing) on
+    ``device``'s current stream: the launch floor that the kernels' times
+    are read against."""
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lns_empty_launch(ctypes.c_void_p(stream))
+    build.check(lib, rc, "lns_empty_launch")

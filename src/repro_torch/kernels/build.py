@@ -102,7 +102,8 @@ def load_library() -> ctypes.CDLL:
     path, _ = _build(CSRC / "lns_mac.cu")
     lib = ctypes.CDLL(str(path))
     for name in ("lns_mac_params_size", "lns_update_params_size",
-                 "lns_boxsum_params_size", "lns_max_table"):
+                 "lns_boxsum_params_size", "lns_max_table",
+                 "lns_short_steps"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.lns_error_string.argtypes = [ctypes.c_int]
@@ -113,6 +114,8 @@ def load_library() -> ctypes.CDLL:
     lib.lns_update_launch.restype = ctypes.c_int
     lib.lns_boxsum_launch.argtypes = [ctypes.POINTER(BoxsumParams), _P]
     lib.lns_boxsum_launch.restype = ctypes.c_int
+    lib.lns_empty_launch.argtypes = [_P]
+    lib.lns_empty_launch.restype = ctypes.c_int
     if (lib.lns_mac_params_size() != ctypes.sizeof(MacParams)
             or lib.lns_update_params_size() != ctypes.sizeof(UpdateParams)
             or lib.lns_boxsum_params_size() != ctypes.sizeof(BoxsumParams)):

@@ -21,15 +21,36 @@
 // What bounds it on an H100: there is no multiply, so no tensor core can
 // help.  The steps of one output element form a serial chain of ⊞: the
 // contraction is walked in ascending order because ⊞ is only
-// approximately associative and that order is the semantics.  At the
-// training step's batch of 5 the grid is a handful of warps and the time
-// is the latency of one ⊞ step's dependent path times the contraction
-// length, plus the launch; at large batch it is int32 instruction
-// throughput.  The design therefore
-//   * gives every output element one thread and every (row, 32 columns)
-//     tile one warp, 4 warps a block, so that at batch 5 each live warp
-//     has an SM sub-partition of its own; a thread walks its contraction
-//     serially (no split-K, no tree, no atomics);
+// approximately associative and that order is the semantics.  Every form
+// below gives each output element one thread that walks its contraction
+// serially (no split-K, no tree, no atomics).  The ⊞-MAC has two forms,
+// chosen by the launcher from the steps per segment CT alone, against
+// kShortSteps (no argument, spec key or environment variable picks them):
+//   * CT > kShortSteps: mac_kernel, the tiled form, for the forward at
+//     K = 784 and K = 100 and every contraction over a batch of 500.  At
+//     batch 5 its grid is a handful of warps and the time is the latency
+//     of one ⊞ step's dependent path times the contraction length, plus
+//     the launch (the chain); at batch 500 it is int32 instruction
+//     throughput;
+//   * CT <= kShortSteps: mac_short_kernel, the short form, for the
+//     contractions over the batch of 5 (dW, dW-update, the segment
+//     partials at CT = 1) and the dX (CT = 10).  There are a few steps and
+//     many outputs: the time is the launch plus the latency of one round
+//     trip to device memory plus a short chain, and at batch 500 (were it
+//     taken) the bytes.  It maps one thread to each output of the
+//     flattened (segment, row, column) index, columns fastest, so that no
+//     lane idles on a narrow output and the segments are more outputs, not
+//     more blocks; each thread issues all its operand, weight, momentum
+//     and bias loads before it waits on any, and the block copies the Δ
+//     table to shared memory behind its one barrier only after that (no
+//     operand staging, no tile).
+// The elementwise ⊞-SGD (update_kernel) is bound the same way as the short
+// form: launch plus one round trip at the bias's 10 and 100 elements,
+// bytes at the segmented step's 78400; its loads go first, one element a
+// thread, then the table copy and barrier, and its block size follows n.
+// The tiled form's design:
+//   * every (row, 32 columns) tile is one warp, 4 warps a block, so that
+//     at batch 5 each live warp has an SM sub-partition of its own;
 //   * keeps only the ⊞ on the accumulator's dependent path (mac_step):
 //     the Δ index is a shift or a multiply-high by constants the host
 //     works out (no divide), the Δ table is one __shared__ array of
@@ -43,9 +64,10 @@
 //     are staged far below every code); transposed operands are read
 //     through strides (no transpose is materialised) and ragged edges
 //     read as the zero code, the ⊞ identity;
-//   * applies the epilogue (bias ⊞ / llReLU / requantize, or the ⊞-SGD
-//     update) to the accumulator in registers, so neither the
-//     pre-activation nor the weight gradient is ever stored.
+//   * both forms apply the epilogue (bias ⊞ / llReLU / requantize, or the
+//     ⊞-SGD update) to the accumulator in registers, through one flush
+//     function, so neither the pre-activation nor the weight gradient is
+//     ever stored.
 //
 // Every device function below mirrors a function of the Pallas source;
 // mac_step is _boxplus_codes (lns_matmul.py:93) rearranged for a product
@@ -69,13 +91,21 @@ constexpr int kTileK = 32;    // contraction steps staged and unrolled at once
 constexpr int kStageB = kTileK * kTileC / kThreads;  // B elements a thread
 constexpr int kAhead = 2;     // steps a product is taken before its ⊞
 constexpr int kMaxTab = 1024;
-constexpr int kUpdateThreads = 256;
+// The short form takes a launch of at most kShortSteps steps a segment,
+// set by measurement (scripts/ab_fused_step.py, the plain dW at batches
+// 8-32; PERF.md): the short form is faster than the tiled one at 12
+// steps and even with it at 16.
+constexpr int kShortSteps = 12;
+constexpr int kShortThreads = 128;
+constexpr int kUpdateThreads = 128;  // at most, a block of the ⊞-SGD
 constexpr int kBoxsumThreads = 256;
 
 // kLutMul is the LUT whose step is not a power of two: the launchers pick
 // it from the index constants; the host passes kLut for both.
 enum DeltaKind : int { kLut = 0, kBitshift = 1, kExact = 2, kLutMul = 3 };
-enum Epilogue : int { kEpiNone = 0, kEpiFwd = 1, kEpiUpdate = 2 };
+// kEpiAny: the epilogue is read from the launch's parameters.
+enum Epilogue : int { kEpiNone = 0, kEpiFwd = 1, kEpiUpdate = 2,
+                      kEpiAny = 3 };
 
 }  // namespace
 
@@ -431,6 +461,82 @@ __device__ __forceinline__ void sgd_update(int& wc, int& ws, int& mc,
   }
 }
 
+// The (R, C) data an epilogue reads beside the accumulator at output
+// o_at, column c: the bias (forward), or W and M (update).
+struct Resident {
+  int bias_c, bias_s;
+  int wc, ws, mc, ms;
+};
+
+template <int EPI>
+__device__ __forceinline__ Resident load_resident(const MacParams& p,
+                                                  int64_t o_at, int64_t c) {
+  const int epi = EPI == kEpiAny ? (int)p.epilogue : EPI;
+  Resident v{0, 0, 0, 0, 0, 0};
+  if (epi == kEpiFwd) {
+    if (p.bias_code != nullptr) {
+      v.bias_c = __ldg(p.bias_code + c);
+      v.bias_s = __ldg(p.bias_sign + c);
+    }
+  } else if (epi == kEpiUpdate) {
+    v.wc = __ldg(p.w_code + o_at);
+    v.ws = __ldg(p.w_sign + o_at);
+    if (p.sgd.mom_on) {
+      v.mc = __ldg(p.m_code + o_at);
+      v.ms = __ldg(p.m_sign + o_at);
+    }
+  }
+  return v;
+}
+
+// The flush of _mac_kernel (lns_matmul.py:300-318) for both forms: the
+// accumulator's sign cleared where it is zero, the epilogue EPI (or the
+// launch's, for kEpiAny), the stores at o_at.
+template <int KIND, int EPI>
+__device__ __forceinline__ void flush(const MacParams& p, const Lns& k,
+                                      int64_t o_at, int acc, int acc_s4,
+                                      const Resident& res) {
+  const int epi = EPI == kEpiAny ? (int)p.epilogue : EPI;
+  int code = acc;
+  int sign = code == k.zero ? 0 : acc_s4 >> 2;
+  if (epi == kEpiFwd) {
+    // _apply_fwd_epilogue (lns_matmul.py:165): bias ⊞ → llReLU →
+    // requantize; z_sign is the post-bias sign.
+    if (p.bias_code != nullptr)
+      boxplus<KIND>(code, sign, res.bias_c, res.bias_s, k, code, sign);
+    const int z_sign = sign;
+    if (p.llrelu_on) {
+      int shifted = code + (int)p.beta;
+      if (shifted < k.min_nz) shifted = k.zero;
+      int act = sign == 1 ? shifted : code;
+      code = code == k.zero ? k.zero : act;
+    }
+    if (p.dst_on) {
+      // Barrel shift onto the destination grid; narrowing rounds half up
+      // through an arithmetic right shift of the (possibly negative) code.
+      const int shift = (int)p.dst_qf - k.qf;
+      int conv = shift >= 0 ? code * (1 << shift)
+                            : (code + (1 << (-shift - 1))) >> (-shift);
+      const bool is_zero = code == k.zero || conv < (int)p.dst_min_nz;
+      conv = min(max(conv, (int)p.dst_min_nz), (int)p.dst_code_max);
+      code = is_zero ? (int)p.dst_zero : conv;
+      if (is_zero) sign = 0;
+    }
+    if (p.z_sign_out != nullptr) p.z_sign_out[o_at] = (int8_t)z_sign;
+  } else if (epi == kEpiUpdate) {
+    int wc = res.wc, ws = res.ws, mc = res.mc, ms = res.ms;
+    sgd_update<KIND>(wc, ws, mc, ms, code, sign, p.sgd, k);
+    code = wc;
+    sign = ws;
+    if (p.sgd.mom_on) {
+      p.m_code_out[o_at] = mc;
+      p.m_sign_out[o_at] = (int8_t)ms;
+    }
+  }
+  p.out_code[o_at] = code;
+  p.out_sign[o_at] = (int8_t)sign;
+}
+
 // _mac_kernel (lns_matmul.py:236) with the epilogues of :165 and :214, and
 // its partial flush (:300, :343): grid z walks contraction segment z alone
 // into its own output slot.  Warp w of block (x, y, z) holds output row
@@ -566,69 +672,114 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
   const int64_t r = r0 + w, c = c0 + lane;
   if (r >= p.R || c >= p.C) return;
   const int64_t o_at = (int64_t)blockIdx.z * p.R * p.C + r * p.C + c;
-  int code = acc;
-  int sign = code == k.zero ? 0 : acc_s4 >> 2;
-
-  if (p.epilogue == kEpiFwd) {
-    // _apply_fwd_epilogue (lns_matmul.py:165): bias ⊞ → llReLU →
-    // requantize; z_sign is the post-bias sign.
-    if (p.bias_code != nullptr)
-      boxplus<KIND>(code, sign, p.bias_code[c], p.bias_sign[c], k, code,
-                    sign);
-    const int z_sign = sign;
-    if (p.llrelu_on) {
-      int shifted = code + (int)p.beta;
-      if (shifted < k.min_nz) shifted = k.zero;
-      int act = sign == 1 ? shifted : code;
-      code = code == k.zero ? k.zero : act;
-    }
-    if (p.dst_on) {
-      // Barrel shift onto the destination grid; narrowing rounds half up
-      // through an arithmetic right shift of the (possibly negative) code.
-      const int shift = (int)p.dst_qf - k.qf;
-      int conv = shift >= 0 ? code * (1 << shift)
-                            : (code + (1 << (-shift - 1))) >> (-shift);
-      const bool is_zero = code == k.zero || conv < (int)p.dst_min_nz;
-      conv = min(max(conv, (int)p.dst_min_nz), (int)p.dst_code_max);
-      code = is_zero ? (int)p.dst_zero : conv;
-      if (is_zero) sign = 0;
-    }
-    if (p.z_sign_out != nullptr) p.z_sign_out[o_at] = (int8_t)z_sign;
-  } else if (p.epilogue == kEpiUpdate) {
-    int wc = p.w_code[o_at], ws = p.w_sign[o_at];
-    int mc = 0, ms = 0;
-    if (p.sgd.mom_on) {
-      mc = p.m_code[o_at];
-      ms = p.m_sign[o_at];
-    }
-    sgd_update<KIND>(wc, ws, mc, ms, code, sign, p.sgd, k);
-    code = wc;
-    sign = ws;
-    if (p.sgd.mom_on) {
-      p.m_code_out[o_at] = mc;
-      p.m_sign_out[o_at] = (int8_t)ms;
-    }
-  }
-  p.out_code[o_at] = code;
-  p.out_sign[o_at] = (int8_t)sign;
+  flush<KIND, kEpiAny>(p, k, o_at, acc, acc_s4,
+                       load_resident<kEpiAny>(p, o_at, c));
 }
 
-// _update_kernel (update.py:35): the ⊞-SGD, one thread per element.
+// The product step of _mac_kernel (lns_matmul.py:330-335) on two operands
+// as they are stored: the code, or zero_product() where the reference
+// gives the zero code (an operand is zero, or the sum underflows); the
+// sign · 4.
+__device__ __forceinline__ void raw_product(int ac, int as, int bc, int bs,
+                                            const Lns& k, int& pc,
+                                            int& ps4) {
+  const int sum = min(ac + bc, k.code_max);
+  pc = ac == k.zero || bc == k.zero || sum < k.min_nz ? zero_product(k)
+                                                      : sum;
+  ps4 = (as ^ bs) << 2;
+}
+
+// _mac_kernel (lns_matmul.py:236) in the short form, for CT <= kShortSteps
+// steps a segment: thread o holds output o of the flattened (segment z,
+// row r, column c) index, columns fastest, which is also where the output
+// is stored.  The thread issues the loads of its CT steps of A and B and
+// of the epilogue's resident data (bias, or W and M) straight from device
+// memory into registers; only then does the block copy the Δ table to
+// shared memory and meet its one barrier, and only where a Δ is read (a
+// LUT, and a second step or an epilogue).  It forms every product and
+// walks the chain serially in ascending order, with the same mac_step as
+// the tiled form.  The first step needs no Δ: a zero accumulator takes the
+// product (mac_step's case), or stays zero with sign 0 when the product
+// is zero.  Every step's work sits behind a uniform test of CT, so a
+// launch of 1 or 5 steps costs no more than its steps; one instantiation
+// per epilogue keeps each kernel's code to the one flush it runs.
+template <int KIND, int EPI>
+__global__ void __launch_bounds__(kShortThreads)
+    mac_short_kernel(const MacParams p) {
+  // A thread past the outputs reads output 0's operands and leaves after
+  // the barrier.
+  const unsigned at = blockIdx.x * kShortThreads + threadIdx.x;
+  const bool live = (int64_t)at < p.S * p.R * p.C;
+  const unsigned o = live ? at : 0;
+  const unsigned cols = (unsigned)p.C, rows = (unsigned)p.R;
+  const unsigned rz = o / cols, c = o - rz * cols;
+  const unsigned z = rz / rows, r = rz - z * rows;
+  const int ct = (int)p.CT;
+  const int64_t t0 = (int64_t)z * ct;
+  const int32_t* a_code = p.a_code + r * p.a_sr + t0 * p.a_st;
+  const int8_t* a_sign = p.a_sign + r * p.a_sr + t0 * p.a_st;
+  const int32_t* b_code = p.b_code + t0 * p.b_st + c * p.b_sc;
+  const int8_t* b_sign = p.b_sign + t0 * p.b_st + c * p.b_sc;
+  int ac[kShortSteps], as[kShortSteps], bc[kShortSteps], bs[kShortSteps];
+#pragma unroll
+  for (int i = 0; i < kShortSteps; ++i) {
+    if (i >= ct) break;
+    ac[i] = __ldg(a_code + i * p.a_st);
+    as[i] = __ldg(a_sign + i * p.a_st);
+    bc[i] = __ldg(b_code + i * p.b_st);
+    bs[i] = __ldg(b_sign + i * p.b_st);
+  }
+  const Resident res = load_resident<EPI>(p, o, c);
+  if (is_lut(KIND) && (ct > 1 || EPI != kEpiNone)) {
+    load_table<KIND>(p.lns, threadIdx.x, kShortThreads);
+    __syncthreads();
+  }
+  if (!live) return;
+  const Lns k = make_lns(p.lns);
+  int pc[kShortSteps], ps4[kShortSteps];
+#pragma unroll
+  for (int i = 0; i < kShortSteps; ++i) {
+    if (i >= ct) break;
+    raw_product(ac[i], as[i], bc[i], bs[i], k, pc[i], ps4[i]);
+  }
+  int acc = k.zero, acc_s4 = 0;
+  if (ct > 0) {
+    acc = max(pc[0], k.zero);
+    acc_s4 = pc[0] > k.zero ? ps4[0] : 0;
+  }
+#pragma unroll
+  for (int i = 1; i < kShortSteps; ++i) {
+    if (i >= ct) break;
+    mac_step<KIND>(acc, acc_s4, pc[i], ps4[i], k);
+  }
+  flush<KIND, EPI>(p, k, o, acc, acc_s4, res);
+}
+
+// _update_kernel (update.py:35): the ⊞-SGD, one element a thread.  The
+// thread issues its loads of W, G (and M) first; then the block copies a
+// LUT to shared memory and meets its one barrier.  The launcher sizes the
+// block to n.
 template <int KIND>
 __global__ void __launch_bounds__(kUpdateThreads)
     update_kernel(const UpdateParams p) {
-  load_table<KIND>(p.lns, threadIdx.x, kUpdateThreads);
-  __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kUpdateThreads + threadIdx.x;
-  if (i >= p.n) return;
-  const Lns k = make_lns(p.lns);
-  int wc = p.w_code[i], ws = p.w_sign[i];
+  // A thread past n reads element 0 and leaves after the barrier.
+  const int64_t at = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = at < p.n;
+  const int64_t i = live ? at : 0;
+  int wc = __ldg(p.w_code + i), ws = __ldg(p.w_sign + i);
+  const int gc = __ldg(p.g_code + i), gs = __ldg(p.g_sign + i);
   int mc = 0, ms = 0;
   if (p.sgd.mom_on) {
-    mc = p.m_code[i];
-    ms = p.m_sign[i];
+    mc = __ldg(p.m_code + i);
+    ms = __ldg(p.m_sign + i);
   }
-  sgd_update<KIND>(wc, ws, mc, ms, p.g_code[i], p.g_sign[i], p.sgd, k);
+  if (is_lut(KIND)) {
+    load_table<KIND>(p.lns, threadIdx.x, blockDim.x);
+    __syncthreads();
+  }
+  if (!live) return;
+  const Lns k = make_lns(p.lns);
+  sgd_update<KIND>(wc, ws, mc, ms, gc, gs, p.sgd, k);
   p.w_code_out[i] = wc;
   p.w_sign_out[i] = (int8_t)ws;
   if (p.sgd.mom_on) {
@@ -636,6 +787,9 @@ __global__ void __launch_bounds__(kUpdateThreads)
     p.m_sign_out[i] = (int8_t)ms;
   }
 }
+
+// The launch floor: a kernel that does nothing, timed beside the others.
+__global__ void empty_kernel() {}
 
 // _kernel (lns_boxsum.py:28): one thread per row folds the row's steps
 // in ascending order into one accumulator.  The row's steps are a serial
@@ -682,6 +836,25 @@ int launch_kind(const LnsArgs& a) {
   }
 }
 
+// The short form's instantiation for the launch's epilogue.
+template <int KIND>
+int launch_short(dim3 grid, cudaStream_t stream, const MacParams& p) {
+  switch (p.epilogue) {
+    case kEpiNone:
+      mac_short_kernel<KIND, kEpiNone><<<grid, kShortThreads, 0, stream>>>(p);
+      return 0;
+    case kEpiFwd:
+      mac_short_kernel<KIND, kEpiFwd><<<grid, kShortThreads, 0, stream>>>(p);
+      return 0;
+    case kEpiUpdate:
+      mac_short_kernel<KIND, kEpiUpdate>
+          <<<grid, kShortThreads, 0, stream>>>(p);
+      return 0;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 #define LNS_DISPATCH(KERNEL, KIND, GRID, THREADS, STREAM, P)               \
@@ -701,31 +874,63 @@ int lns_mac_params_size() { return (int)sizeof(MacParams); }
 int lns_update_params_size() { return (int)sizeof(UpdateParams); }
 int lns_boxsum_params_size() { return (int)sizeof(BoxsumParams); }
 int lns_max_table() { return kMaxTab; }
+int lns_short_steps() { return kShortSteps; }
 const char* lns_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 // Enqueues one ⊞-MAC launch on ``stream``; returns cudaGetLastError().
+// The form is chosen by the steps a segment alone: the short form at CT
+// <= kShortSteps, the tiled form above.
 int lns_mac_launch(const MacParams* p, void* stream) {
   // Segments take no epilogue; the grid z extent holds at most 65535; a
-  // tile's offsets and the steps are int32.
+  // tile's offsets and the steps are int32; the short form's flattened
+  // output index is int32.
   if (p->S < 1 || p->S > 65535 || (p->S > 1 && p->epilogue != kEpiNone) ||
-      p->CT >= INT_MAX - kTileK || p->a_st < 0 || p->a_st >= (1 << 26) ||
-      p->b_st < 0 || p->b_st >= (1 << 26) || p->b_sc < 0 ||
-      p->b_sc >= (1 << 26))
+      p->CT < 0 || p->CT >= INT_MAX - kTileK || p->a_st < 0 ||
+      p->a_st >= (1 << 26) || p->b_st < 0 || p->b_st >= (1 << 26) ||
+      p->b_sc < 0 || p->b_sc >= (1 << 26) || p->R < 1 || p->C < 1)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((p->C + kTileC - 1) / kTileC),
-            (unsigned)((p->R + kWarps - 1) / kWarps), (unsigned)p->S);
-  LNS_DISPATCH(mac_kernel, launch_kind(p->lns), grid, kThreads,
+  const int kind = launch_kind(p->lns);
+  if (p->CT <= kShortSteps) {
+    const int64_t n = p->S * p->R * p->C;
+    if (n > INT_MAX) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned)((n + kShortThreads - 1) / kShortThreads));
+    const cudaStream_t st = (cudaStream_t)stream;
+    int rc;
+    switch (kind) {
+      case kLut: rc = launch_short<kLut>(grid, st, *p); break;
+      case kLutMul: rc = launch_short<kLutMul>(grid, st, *p); break;
+      case kBitshift: rc = launch_short<kBitshift>(grid, st, *p); break;
+      case kExact: rc = launch_short<kExact>(grid, st, *p); break;
+      default: rc = (int)cudaErrorInvalidValue;
+    }
+    if (rc != 0) return rc;
+  } else {
+    dim3 grid((unsigned)((p->C + kTileC - 1) / kTileC),
+              (unsigned)((p->R + kWarps - 1) / kWarps), (unsigned)p->S);
+    LNS_DISPATCH(mac_kernel, kind, grid, kThreads, (cudaStream_t)stream,
+                 *p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Enqueues one elementwise ⊞-SGD launch; returns cudaGetLastError().  A
+// block holds kUpdateThreads threads, or the whole warps that n needs
+// where that is fewer.
+int lns_update_launch(const UpdateParams* p, void* stream) {
+  if (p->n < 1) return (int)cudaErrorInvalidValue;
+  const int block =
+      (int)(p->n < kUpdateThreads ? (p->n + 31) / 32 * 32 : kUpdateThreads);
+  dim3 grid((unsigned)((p->n + block - 1) / block));
+  LNS_DISPATCH(update_kernel, launch_kind(p->lns), grid, block,
                (cudaStream_t)stream, *p);
   return (int)cudaGetLastError();
 }
 
-// Enqueues one elementwise ⊞-SGD launch; returns cudaGetLastError().
-int lns_update_launch(const UpdateParams* p, void* stream) {
-  dim3 grid((unsigned)((p->n + kUpdateThreads - 1) / kUpdateThreads));
-  LNS_DISPATCH(update_kernel, launch_kind(p->lns), grid, kUpdateThreads,
-               (cudaStream_t)stream, *p);
+// Enqueues the empty kernel, one warp; returns cudaGetLastError().
+int lns_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

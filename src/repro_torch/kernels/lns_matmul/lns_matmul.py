@@ -1,8 +1,13 @@
 """The sequential ⊞-MAC kernel and its flush-time epilogues, lane by device.
 
-One CUDA kernel (``csrc/lns_mac.cu: mac_kernel``) serves six launch
+One CUDA ⊞-MAC body (``csrc/lns_mac.cu``) serves six launch
 configurations, told apart by which axis of each operand is contracted,
-the epilogue and the number of contraction segments:
+the epilogue and the number of contraction segments.  It has two forms,
+which the library's launcher picks from the steps per segment alone:
+``mac_short_kernel`` for short contractions (the dW, dW-update and
+partials over the batch of 5, the dX over 10 classes) and the tiled
+``mac_kernel`` for long ones (the forward over 784 and 100 inputs,
+anything over the batch of 500).  The configurations:
 
 * ``lns_matmul``           Z[m,n]  = ⊞_k X[m,k] ⊡ W[k,n], no epilogue;
 * ``lns_matmul_fused``     the same with bias ⊞ / llReLU / requantize at
@@ -211,7 +216,8 @@ def mac_cuda(a_code, a_sign, b_code, b_sign, *, a_contract_axis: int,
              bias_code=None, bias_sign=None,
              update_epilogue: Optional[UpdateEpilogue] = None,
              w_code=None, w_sign=None, m_code=None, m_sign=None):
-    """Launch ``mac_kernel`` on the current stream; same arguments and
+    """Launch the ⊞-MAC (``mac_short_kernel`` or ``mac_kernel``, as the
+    library's launcher picks) on the current stream; same arguments and
     outputs as :func:`mac_plain`."""
     lib = build.load_library()
     dev = a_code.device

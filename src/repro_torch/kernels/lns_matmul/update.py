@@ -4,9 +4,10 @@ device.
 The bias updates of the fused train step go through it: bias gradients are
 ⊞-folds, not matmuls, so they have no dW flush to ride on.  For CUDA
 tensors :func:`lns_fused_update` launches ``csrc/lns_mac.cu:
-update_kernel`` (one thread per element; replaces ``src/repro/kernels/
-lns_matmul/update.py: _update_kernel``) and counts the launch; for CPU
-tensors it runs :func:`update_plain`.
+update_kernel`` (one thread per element, the block sized to the
+update; replaces ``src/repro/kernels/lns_matmul/update.py:
+_update_kernel``) and counts the launch; for CPU tensors it runs
+:func:`update_plain`.
 """
 from __future__ import annotations
 

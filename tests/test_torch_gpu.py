@@ -169,6 +169,106 @@ def test_plain_and_segment_kernels_equal_plain_on_card(cuda, kind, fmt_name):
     torch.cuda.synchronize()
 
 
+def _short_steps():
+    """The steps a segment up to which the library runs the short form."""
+    from repro_torch.kernels import build
+    return build.load_library().lns_short_steps()
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
+def test_short_and_tiled_forms_equal_plain_on_card(cuda, kind, fmt_name):
+    """Both forms of the ⊞-MAC, on each side of the threshold T (CT ∈
+    {1, T, T + 1}), for C ∈ {1, 10, 33, 100} at a ragged R: the forward
+    with each epilogue, the dX and the dW-update with and without
+    momentum; then the segment partials at S ∈ {1, 5} for batches 5 and
+    40."""
+    fmt, spec = T.FORMATS[fmt_name], DELTA[kind]
+    gen = torch.Generator().manual_seed(5)
+    kw = dict(fmt=fmt, spec=spec)
+    beta = T.beta_code(0.01, fmt)
+    eps = [TK.FwdEpilogue(bias=True),
+           TK.FwdEpilogue(bias=True, llrelu_beta=beta, emit_z_sign=True),
+           TK.FwdEpilogue(bias=True, llrelu_beta=beta,
+                          dst_fmt=OTHER[fmt_name], emit_z_sign=True)]
+    ups = [T.UpdateEpilogue.from_sgd(T.LogSGDConfig(**c), fmt) for c in (
+        dict(lr=0.01, weight_decay=0.01),
+        dict(lr=0.01, weight_decay=0.01, momentum=0.9))]
+    r = 13
+    for ct in (1, _short_steps(), _short_steps() + 1):
+        for c in (1, 10, 33, 100):
+            x = _operand(gen, (r, ct), fmt, cuda, zero_frac=0.4)
+            w = _operand(gen, (ct, c), fmt, cuda, scale=0.05)
+            b = _operand(gen, (c,), fmt, cuda, scale=0.1)
+            fwd = dict(a_contract_axis=1, b_contract_axis=0, **kw)
+            _same(TK.lns_matmul(x.code, x.sign, w.code, w.sign, **kw),
+                  TK.mac_plain(x.code, x.sign, w.code, w.sign, **fwd))
+            for ep in eps:
+                _same(TK.lns_matmul_fused(x.code, x.sign, w.code, w.sign,
+                                          epilogue=ep, bias_code=b.code,
+                                          bias_sign=b.sign, **kw),
+                      TK.mac_plain(x.code, x.sign, w.code, w.sign,
+                                   fwd_epilogue=ep, bias_code=b.code,
+                                   bias_sign=b.sign, **fwd))
+            dy = _operand(gen, (r, ct), fmt, cuda, scale=0.1)
+            wt = _operand(gen, (c, ct), fmt, cuda, scale=0.05)
+            _same(TK.lns_matmul_dx(dy.code, dy.sign, wt.code, wt.sign, **kw),
+                  TK.mac_plain(dy.code, dy.sign, wt.code, wt.sign,
+                               a_contract_axis=1, b_contract_axis=1, **kw))
+            xb = _operand(gen, (ct, r), fmt, cuda, zero_frac=0.5)
+            db = _operand(gen, (ct, c), fmt, cuda, scale=0.1)
+            wr = _operand(gen, (r, c), fmt, cuda, scale=0.05)
+            mr = _operand(gen, (r, c), fmt, cuda, scale=0.01, zero_frac=0.3)
+            for up in ups:
+                mk = (dict(m_code=mr.code, m_sign=mr.sign)
+                      if up.has_momentum else {})
+                _same(TK.lns_matmul_dw_update(
+                          xb.code, xb.sign, db.code, db.sign, epilogue=up,
+                          w_code=wr.code, w_sign=wr.sign, **mk, **kw),
+                      TK.mac_plain(xb.code, xb.sign, db.code, db.sign,
+                                   a_contract_axis=0, b_contract_axis=0,
+                                   update_epilogue=up, w_code=wr.code,
+                                   w_sign=wr.sign, **mk, **kw))
+    for batch in (5, 40):
+        for c in (1, 33, 100):
+            x = _operand(gen, (batch, r), fmt, cuda, zero_frac=0.5)
+            dy = _operand(gen, (batch, c), fmt, cuda, scale=0.1)
+            for s in (1, 5):
+                _same(TK.lns_matmul_dw_partials(x.code, x.sign, dy.code,
+                                                dy.sign, num_segments=s,
+                                                **kw),
+                      TK.mac_plain(x.code, x.sign, dy.code, dy.sign,
+                                   a_contract_axis=0, b_contract_axis=0,
+                                   segments=s, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
+def test_fused_update_sizes_on_card(cuda, kind, fmt_name):
+    """The ⊞-SGD at n ∈ {1, 10, 100, 257, 1000, 78400}, with and without
+    momentum, and on planes one element off the vector alignment."""
+    fmt, spec = T.FORMATS[fmt_name], DELTA[kind]
+    gen = torch.Generator().manual_seed(6)
+    for cfg in (dict(lr=0.01, weight_decay=0.01),
+                dict(lr=0.01, weight_decay=0.01, momentum=0.9)):
+        up = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(**cfg), fmt)
+        for n in (1, 10, 100, 257, 1000, 78400):
+            w, g = (_operand(gen, (n + 1,), fmt, cuda, scale=0.1)
+                    for _ in range(2))
+            m = _operand(gen, (n + 1,), fmt, cuda, scale=0.01, zero_frac=0.3)
+            for lo in (0, 1):
+                sl = slice(lo, lo + n)
+                mk = (dict(m_code=m.code[sl], m_sign=m.sign[sl])
+                      if up.has_momentum else {})
+                uk = dict(epilogue=up, fmt=fmt, spec=spec, **mk)
+                _same(TK.lns_fused_update(w.code[sl], w.sign[sl], g.code[sl],
+                                          g.sign[sl], **uk),
+                      TK.update_plain(w.code[sl], w.sign[sl], g.code[sl],
+                                      g.sign[sl], **uk))
+    torch.cuda.synchronize()
+
+
 SWEEP_SPECS = {"lut20": T.DELTA_DEFAULT, "lut640": T.DELTA_SOFTMAX,
                "r0.375": T.DeltaSpec(kind="lut", d_max=9.0, r=0.375),
                "lut1024": T.DeltaSpec(kind="lut", d_max=16.0, r=1.0 / 64.0)}
@@ -197,13 +297,27 @@ def _sweep_operands(fmt, swap, device):
 @pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
 def test_delta_index_sweep_on_card(cuda, spec_name, fmt_name):
     """The kernel's Δ index (a shift, or a multiply-high where the LUT
-    step is not a power of two) over every difference of the format."""
+    step is not a power of two) over every difference of the format,
+    through both forms: the two-step sweep takes the short form, and the
+    same sweep after T + 1 zero-code steps (a zero accumulator takes the
+    first product, so the codes do not change) the tiled form."""
     fmt, spec = T.FORMATS[fmt_name], SWEEP_SPECS[spec_name]
+    kw = dict(fmt=fmt, spec=spec)
     for swap in (False, True):
         a_c, a_s, b_c, b_s = _sweep_operands(fmt, swap, cuda)
-        _same(TK.lns_matmul(a_c, a_s, b_c, b_s, fmt=fmt, spec=spec),
-              TK.mac_plain(a_c, a_s, b_c, b_s, a_contract_axis=1,
-                           b_contract_axis=0, fmt=fmt, spec=spec))
+        short = TK.lns_matmul(a_c, a_s, b_c, b_s, **kw)
+        _same(short, TK.mac_plain(a_c, a_s, b_c, b_s, a_contract_axis=1,
+                                  b_contract_axis=0, **kw))
+        pad = _short_steps() + 1
+        a_c = torch.cat([torch.full((a_c.shape[0], pad), fmt.zero_code,
+                                    dtype=torch.int32, device=cuda), a_c], 1)
+        a_s = torch.cat([a_s.new_zeros((a_s.shape[0], pad)), a_s], 1)
+        b_c = torch.cat([b_c.new_zeros((pad, b_c.shape[1])), b_c])
+        b_s = torch.cat([b_s.new_zeros((pad, b_s.shape[1])), b_s])
+        tiled = TK.lns_matmul(a_c, a_s, b_c, b_s, **kw)
+        _same(tiled, TK.mac_plain(a_c, a_s, b_c, b_s, a_contract_axis=1,
+                                  b_contract_axis=0, **kw))
+        _same(tiled, short)
     torch.cuda.synchronize()
 
 

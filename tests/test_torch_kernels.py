@@ -167,9 +167,18 @@ def test_dx_plain_vs_reference(kind, fmt, shape):
 
 # ------------------------------------------------------- dW + ⊞-SGD --
 
-DW_CASES = [(k, f, "momentum+decay") for k in DELTA
-            for f in ("lns16", "lns12")]
-DW_CASES += [("lut", "lns16", s) for s in ("plain", "decay", "momentum")]
+# (kind, fmt, sgd, batch M, columns N) at K = 40: the step's batch of 5,
+# then the edges of the card's short form: one step, 33 steps, and one
+# output column.
+DW_CASES = [pytest.param(k, f, "momentum+decay", 5, 24,
+                         id=f"{k}-{f}-momentum+decay")
+            for k in DELTA for f in ("lns16", "lns12")]
+DW_CASES += [pytest.param("lut", "lns16", s, 5, 24, id=f"lut-lns16-{s}")
+             for s in ("plain", "decay", "momentum")]
+DW_CASES += [pytest.param(k, f, "momentum", m, n,
+                          id=f"{k}-{f}-momentum-batch{m}-n{n}")
+             for k, f in (("lut", "lns16"), ("exact", "lns12"))
+             for m, n in ((1, 24), (33, 24), (5, 1))]
 
 
 def _check_dw_update(kind, fmt, sgd, m, k, n, seed):
@@ -200,9 +209,9 @@ def _check_dw_update(kind, fmt, sgd, m, k, n, seed):
         want, "ref")
 
 
-@pytest.mark.parametrize("kind,fmt,sgd", DW_CASES)
-def test_dw_update_plain_vs_reference(kind, fmt, sgd):
-    _check_dw_update(kind, fmt, sgd, 5, 40, 24, seed=14)
+@pytest.mark.parametrize("kind,fmt,sgd,batch,n", DW_CASES)
+def test_dw_update_plain_vs_reference(kind, fmt, sgd, batch, n):
+    _check_dw_update(kind, fmt, sgd, batch, 40, n, seed=14)
 
 
 def test_dw_update_full_width():
@@ -214,15 +223,19 @@ def test_dw_update_full_width():
 
 @pytest.mark.parametrize("kind", list(DELTA))
 @pytest.mark.parametrize("fmt", ["lns16", "lns12"])
-@pytest.mark.parametrize("sgd", list(SGD))
-def test_fused_update_plain_vs_reference(kind, fmt, sgd):
+@pytest.mark.parametrize("sgd,n", [pytest.param(s, 100, id=s) for s in SGD]
+                         + [pytest.param(s, 257, id=f"{s}-n257")
+                            for s in ("decay", "momentum+decay")])
+def test_fused_update_plain_vs_reference(kind, fmt, sgd, n):
+    """The bias sizes (100) and 257, which the card's update takes as 64
+    whole vectors of 4 and one element."""
     js, ts = DELTA[kind]
     jf, tf = J.FORMATS[fmt], T.FORMATS[fmt]
     jep = J.UpdateEpilogue.from_sgd(J.LogSGDConfig(**SGD[sgd]), jf)
     tep = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(**SGD[sgd]), tf)
     rng = np.random.default_rng(16)
-    w, g = (_operand(rng, (100,), fmt, scale=0.1) for _ in range(2))
-    mom = _operand(rng, (100,), fmt, scale=0.01, zero_frac=0.3)
+    w, g = (_operand(rng, (n,), fmt, scale=0.1) for _ in range(2))
+    mom = _operand(rng, (n,), fmt, scale=0.01, zero_frac=0.3)
     jm = J.LNSArray(*mom) if jep.has_momentum else None
     jw2, jm2 = J.apply_update_codes(J.LNSArray(*w), J.LNSArray(*g), jm, jep,
                                     J.DeltaEngine(js, jf))
@@ -455,8 +468,8 @@ def _dw_operands(seed, m, k, n, fmt):
 
 @pytest.mark.parametrize("kind", list(DELTA))
 @pytest.mark.parametrize("fmt", ["lns16", "lns12"])
-@pytest.mark.parametrize("shape", [(37, 40, 24), (5, 784, 100)],
-                         ids=["ragged", "step-w1"])
+@pytest.mark.parametrize("shape", [(37, 40, 24), (5, 784, 100), (5, 40, 1)],
+                         ids=["ragged", "step-w1", "c1"])
 def test_dw_plain_vs_reference(kind, fmt, shape):
     m, k, n = shape
     js, ts = DELTA[kind]
