@@ -14,14 +14,17 @@ the result line:
    predict shape (batch 500) and at ragged shapes, over the Δ kinds
    (lut / bitshift / exact), the formats (lns16 / lns12), the epilogues,
    the segment counts S ∈ {1, 2, 4, 5, 8} of the segment-partial dW and
-   the reduce lengths K ∈ {1, 5, 37, 128} of the ⊞-reduce; both forms of
+   the reduce lengths K ∈ {1, 5, 37, 128} of the ⊞-reduce, alone and as
+   1, 2, 4 and 8 row sets of one grouped launch (steps 1, 2, 5, 12, 13,
+   37 and 128; an all-zero row; exact cancellations); both forms of
    the ⊞-MAC on each side of the library's threshold T (CT ∈ {1, T,
    T + 1}) for C ∈ {1, 10, 33, 100}, and the ⊞-SGD at n ∈ {1, 10, 100,
    257, 1000, 78400}; and the Δ-index sweep: a two-step contraction whose
    second ⊞ meets every difference of the format with both sign
    relations, for LUT steps that are powers of two and one that is not,
    and for a table of the kernels' largest size, through the short form
-   and again, after T + 1 zero-code steps, through the tiled form;
+   and again, after T + 1 zero-code steps, through the tiled form; the
+   same differences through the ⊞-reduce for every Δ kind;
 4. hold ``encode`` (all 256 pixel values) and ``lns_value_to_code`` (every
    lns16 / lns12 code) on the card against the CPU lane, and count how
    many exact-Δ codes the card and the CPU round differently;
@@ -39,7 +42,9 @@ the result line:
    ``reference_train_step`` on the card;
 6. times: ms per train step of each path, the launch floor (an empty
    kernel), and each kernel and its plain version by CUDA events at the
-   launches of the path that runs it.
+   launches of the path that runs it; the segmented step's combine as the
+   one grouped ⊞-reduce launch it makes, and for comparison as one launch
+   per parameter.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Runs in well under the 1200 s limit
@@ -66,14 +71,25 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations per ⊞-MAC step, counted from csrc/lns_mac.cu: the
 # product (stage_product, 5) and mac_step with a LUT Δ (18, its table load
-# included).  The ⊞ of the epilogues and the ⊞-reduce (boxplus with a LUT
-# Δ) is 30.  Per output at flush: the forward epilogue (bias ⊞ 30, llReLU
-# 5, requantize 8) and the ⊞-SGD (scalar ⊡ 6 + ⊞ 30, once for lr, again
-# for momentum and weight decay).
+# included).  The ⊞ of the epilogues (boxplus with a LUT Δ) is 30.  Per
+# output at flush: the forward epilogue (bias ⊞ 30, llReLU 5, requantize
+# 8) and the ⊞-SGD (scalar ⊡ 6 + ⊞ 30, once for lr, again for momentum
+# and weight decay).  The ⊞-reduce (boxsum_kernel) folds a row's steps
+# after the first with mac_step (18, plus the zero code's compare and
+# select and the sign's shift: 21); the first step and the result's sign
+# take a compare, a select and a shift each (6 a row).
 OPS_PER_MAC = 23
 OPS_BOXPLUS = 30
+OPS_BOXSUM_STEP = 18 + 3
+OPS_BOXSUM_ROW = 6
 OPS_FWD_EPILOGUE = OPS_BOXPLUS + 13
 OPS_SGD_TERM = 6 + OPS_BOXPLUS
+
+
+def boxsum_ops(rows: int, steps: int) -> int:
+    """int32 operations of a ⊞-reduce of ``rows`` rows of ``steps``."""
+    return rows * (OPS_BOXSUM_STEP * max(steps - 1, 0) + OPS_BOXSUM_ROW)
+
 
 SEED = 0
 BATCH = 5
@@ -308,13 +324,52 @@ def compare_unfused_and_segmented(torch, device, rk, check):
                     check("lns_boxsum", lns_boxsum(c, sg, **kw),
                           boxsum_plain(c, sg, **kw),
                           f"{spec.kind}/{fmt.name}/K{k}/{lay}")
-            # The combine's shapes: S = 5 slots of w1, b1, w2, b2.
+            # The combine's shapes: S = 5 slots of w1, b1, w2, b2, one
+            # launch each and all four in one grouped launch.
+            combine = []
             for e in (78400, 100, 1000, 10):
                 a = operands(torch, rk, (BATCH, e), scale=0.1, zero_frac=0.1,
                              fmt=fmt, device=device)
                 check("lns_boxsum", lns_boxsum(a.code.T, a.sign.T, **kw),
                       boxsum_plain(a.code.T, a.sign.T, **kw),
                       f"{spec.kind}/{fmt.name}/combine{e}")
+                combine.append((a.code.T, a.sign.T))
+            check_many(check, combine, kw, f"{spec.kind}/{fmt.name}/combine")
+            # 1, 2, 4 and 8 row sets of one launch, their bounds inside a
+            # block: each with an all-zero row, and step 1 cancelling step 0
+            # exactly on every other row.
+            parts = []
+            for k, e in GROUPED_SETS:
+                a = operands(torch, rk, (k, e), scale=1.0, zero_frac=0.2,
+                             fmt=fmt, device=device)
+                a.code[:, 1] = fmt.zero_code
+                a.sign[:, 1] = 0
+                if k > 1:
+                    a.code[1, 2::2] = a.code[0, 2::2]
+                    a.sign[1, 2::2] = a.sign[0, 2::2] ^ 1
+                parts.append(a)
+            for n in (1, 2, 4, 8):
+                sets = [(a.code.T, a.sign.T) for a in parts[:n]]
+                check_many(check, sets, kw,
+                           f"{spec.kind}/{fmt.name}/sets{n}/view")
+                check_many(check, [(c.contiguous(), sg.contiguous())
+                                   for c, sg in sets], kw,
+                           f"{spec.kind}/{fmt.name}/sets{n}/dense")
+
+
+#: (steps, rows) of the row sets of phase 3's grouped ⊞-reduce launches.
+GROUPED_SETS = ((5, 301), (1, 37), (13, 100), (128, 9), (2, 1000), (12, 3),
+                (37, 64), (5, 10))
+
+
+def check_many(check, sets, kw, label):
+    """One grouped ⊞-reduce launch over ``sets`` against the plain version
+    of each set."""
+    from repro_torch.kernels.lns_boxsum import boxsum_plain, lns_boxsum_many
+    got = lns_boxsum_many(sets, **kw)
+    want = [boxsum_plain(c, sg, **kw) for c, sg in sets]
+    check("lns_boxsum", [t for pair in got for t in pair],
+          [t for pair in want for t in pair], label)
 
 
 def compare_forms(torch, device, rk, check):
@@ -456,9 +511,12 @@ def compare_index_sweep(torch, device, rk, check):
     of the kernels' largest size; the ⊞-SGD and ⊞-reduce kernels once at
     each table.  The two-step sweep takes the short form; the same sweep
     after T + 1 zero-code steps takes the tiled form (a zero accumulator
-    takes the first product, so the codes are the same)."""
-    from repro_torch.core import (DELTA_DEFAULT, DELTA_SOFTMAX, LNS12, LNS16,
-                                  DeltaSpec, LogSGDConfig, UpdateEpilogue)
+    takes the first product, so the codes are the same).  Then the
+    ⊞-reduce over every difference, at each table and the bit-shift and
+    exact Δ."""
+    from repro_torch.core import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT,
+                                  DELTA_SOFTMAX, LNS12, LNS16, DeltaSpec,
+                                  LogSGDConfig, UpdateEpilogue)
     from repro_torch.kernels import build
     from repro_torch.kernels import lns_matmul as K
     from repro_torch.kernels.lns_boxsum import boxsum_plain, lns_boxsum
@@ -505,6 +563,30 @@ def compare_index_sweep(torch, device, rk, check):
                          fmt=fmt, device=device)
             check("lns_boxsum", lns_boxsum(p.code.T, p.sign.T, **kw),
                   boxsum_plain(p.code.T, p.sign.T, **kw), name)
+    for spec in specs + (DELTA_BITSHIFT, DELTA_EXACT):
+        for fmt in (LNS16, LNS12):
+            kw = dict(fmt=fmt, spec=spec)
+            name = (f"lut{spec.table_size}/r{spec.r}/{fmt.name}"
+                    if spec.kind == "lut" else f"{spec.kind}/{fmt.name}")
+            # Rows (min_nz + d, min_nz) for every d, with equal and opposite
+            # signs, in both orders; again after 13 zero-code steps.
+            lo, hi = fmt.min_nonzero_code, fmt.code_max
+            d = torch.arange(0, hi - lo + 1, dtype=torch.int32)
+            code = torch.stack([lo + d, torch.full_like(d, lo)], 1).repeat(2, 1)
+            sign = torch.zeros_like(code, dtype=torch.int8)
+            sign[len(d):, 1] = 1
+            for swap in (False, True):
+                c, sg = (code.flip(1), sign.flip(1)) if swap else (code, sign)
+                c, sg = c.contiguous().to(device), sg.contiguous().to(device)
+                label = f"{name}/boxsum-sweep{'-swapped' if swap else ''}"
+                check("lns_boxsum", lns_boxsum(c, sg, **kw),
+                      boxsum_plain(c, sg, **kw), label)
+                c = torch.cat([torch.full((c.shape[0], 13), fmt.zero_code,
+                                          dtype=torch.int32, device=device),
+                               c], 1)
+                sg = torch.cat([sg.new_zeros((sg.shape[0], 13)), sg], 1)
+                check("lns_boxsum", lns_boxsum(c, sg, **kw),
+                      boxsum_plain(c, sg, **kw), f"{label}/after13")
 
 
 # ------------------------------------------------------------- phase 4 --
@@ -555,7 +637,7 @@ def path_launches(pbatches):
         "segmented": (dict(numerics=SEGMENTED),
                       dict(lns_matmul_fused=fwd, lns_matmul_dx=STEPS,
                            lns_matmul_dw_partials=2 * STEPS,
-                           lns_boxsum=4 * STEPS,
+                           lns_boxsum=STEPS,
                            lns_fused_update=4 * STEPS)),
     }
 
@@ -680,9 +762,10 @@ def time_device(torch, fn, reps, host_ms):
 def step_launches(torch, device):
     """The kernel launches of one train step of the path that runs each
     kernel, at their real shapes, as (kernel, label, kernel call, plain
-    call, bytes, int32 ops): the fused step for kernels 1-4, the unfused
-    step for the plain forward and dW, the segmented step for the
-    segment-partial dW and the ⊞-reduce."""
+    call, bytes, int32 ops, in the step): the fused step for kernels 1-4,
+    the unfused step for the plain forward and dW, the segmented step for
+    the segment-partial dW and the ⊞-reduce.  The ⊞-reduce's launches one
+    parameter each are timed for comparison and are not in the step."""
     from repro_torch.core import (DELTA_DEFAULT, LNS16, LogSGDConfig,
                                   UpdateEpilogue, beta_code)
     from repro_torch.kernels import lns_matmul as K
@@ -707,7 +790,7 @@ def step_launches(torch, device):
                     lambda: K.mac_cuda(a.code, a.sign, b.code, b.sign,
                                        **args),
                     lambda: K.mac_plain(a.code, a.sign, b.code, b.sign,
-                                        **args), nbytes, ops))
+                                        **args), nbytes, ops, True))
 
     for (m, k, n), label, ep in (
             ((BATCH, 784, 100), "hidden (5,784)x(784,100)",
@@ -745,7 +828,7 @@ def step_launches(torch, device):
                         w.code, w.sign, g.code, g.sign, **kw),
                     lambda w=w, g=g, kw=kw: K.update_plain(
                         w.code, w.sign, g.code, g.sign, **kw),
-                    15 * n, n * 2 * OPS_SGD_TERM))
+                    15 * n, n * 2 * OPS_SGD_TERM, True))
     # The unfused step: plain forward per layer, plain dW per layer.
     for (m, k, n), label in (((BATCH, 784, 100), "hidden (5,784)x(784,100)"),
                              ((BATCH, 100, 10), "out (5,100)x(100,10)")):
@@ -762,18 +845,30 @@ def step_launches(torch, device):
         mac("lns_matmul_dw_partials", f"{label} x 5 segments", x, d, (0, 0),
             0, 5, 0, segments=BATCH)
     # The segmented step's combine: (5, E) partials of w1, b1, w2, b2
-    # reduced in place as E rows of 5 steps.
-    from repro_torch.kernels.lns_boxsum import boxsum_cuda, boxsum_plain
+    # reduced in place as E rows of 5 steps, in the one grouped launch the
+    # step makes, and one launch per parameter for comparison.
+    from repro_torch.kernels.lns_boxsum import (boxsum_cuda,
+                                                boxsum_many_cuda,
+                                                boxsum_plain)
+    sets = []
     for e, label in ((78400, "w1 (78400,5)"), (100, "b1 (100,5)"),
                      (1000, "w2 (1000,5)"), (10, "b2 (10,5)")):
         p = operands(torch, rk, (BATCH, e), scale=0.1, zero_frac=0.1,
                      fmt=fmt, device=device)
-        out.append(("lns_boxsum", label,
+        sets.append((p.code.T, p.sign.T))
+        out.append(("lns_boxsum", f"{label} alone",
                     lambda p=p: boxsum_cuda(p.code.T, p.sign.T, fmt=fmt,
                                             spec=spec),
                     lambda p=p: boxsum_plain(p.code.T, p.sign.T, fmt=fmt,
                                              spec=spec),
-                    5 * BATCH * e + 5 * e, OPS_BOXPLUS * BATCH * e))
+                    5 * BATCH * e + 5 * e, boxsum_ops(e, BATCH), False))
+    rows = sum(c.shape[0] for c, _ in sets)
+    out.append(("lns_boxsum", "w1+b1+w2+b2 grouped (79510,5)",
+                lambda: boxsum_many_cuda(sets, fmt=fmt, spec=spec),
+                lambda: [boxsum_plain(c, sg, fmt=fmt, spec=spec)
+                         for c, sg in sets],
+                5 * BATCH * rows + 5 * rows, boxsum_ops(rows, BATCH),
+                True))
     return out
 
 
@@ -912,8 +1007,8 @@ def main() -> int:
         f"{floor_ms:.5f} ms on the card ({host_ms:.5f} ms per call with the "
         f"wrapper) on {card}")
     rows = {}
-    for kname, label, kern, plain, nbytes, ops in step_launches(torch,
-                                                               device):
+    for kname, label, kern, plain, nbytes, ops, in_step in step_launches(
+            torch, device):
         host_ms = time_host(torch, kern, 200)
         ms = time_device(torch, kern, 200, host_ms)
         plain_ms = time_host(torch, plain, 5)
@@ -922,13 +1017,22 @@ def main() -> int:
             else "operations"
         log("6 times", f"{kname} {label}: {ms:.5f} ms on the card "
             f"({host_ms:.5f} ms per call with the wrapper; plain "
-            f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms by {by}) on {card}")
+            f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms by {by}; floor "
+            f"{floor_ms:.5f} ms){'' if in_step else ' [not in the step]'} "
+            f"on {card}")
+        if not in_step:
+            continue
         r = rows.setdefault(kname, dict(ms=0.0, plain_ms=0.0, bytes=0,
-                                        ops=0))
+                                        ops=0, launches=0))
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bytes"] += nbytes
         r["ops"] += ops
+        r["launches"] += 1
+    for kname, r in rows.items():
+        log("6 times", f"{kname} per step: {r['ms']:.6f} ms on the card in "
+            f"{r['launches']} launches; floor {r['launches'] * floor_ms:.5f} "
+            f"ms")
     mm = "src/repro/kernels/lns_matmul/lns_matmul.py"
     replaces = {
         "lns_matmul_fused": f"{mm}:599", "lns_matmul_dx": f"{mm}:539",

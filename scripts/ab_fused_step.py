@@ -22,6 +22,11 @@ wrapper, for:
   the w1 partials at S = 5 (``part_w1``) and the dX (``dx``);
 * the elementwise ⊞-SGD at n = 10, 100 and 78400 (``upd10``, ``upd100``,
   ``upd78400``);
+* the ⊞-reduce of the segmented step's combine, S = 5 partials read in
+  place: one launch per parameter (``box_w1``, ``box_b1``, ``box_w2``,
+  ``box_b2``: 78400, 100, 1000 and 10 rows) and, where the checkout has
+  the grouped launch, all four in one (``box_all``, checked against the
+  four);
 * the plain dW at batches of 8 to 32 (``dw_w1_b8`` ... ``dw_w2_b32``), on
   each side of the short form's threshold, where a checkout has one;
 * the launch floor, an empty kernel (``floor``), where the checkout's
@@ -31,10 +36,12 @@ wrapper, for:
 * the fused train step: ms per step on the host clock over 100 steps,
   three times;
 * the build: ``ptxas``' lines (registers, spills) for every instantiation
-  of ``mac_kernel``, ``mac_short_kernel`` and ``update_kernel``, and from
+  of ``mac_kernel``, ``mac_short_kernel``, ``update_kernel`` and
+  ``boxsum_kernel``, and from
   ``cuobjdump -sass`` the inner loop of ``mac_kernel<kLut>`` that holds the
-  most instructions: its address range, its instruction count and its
-  count of each opcode.
+  most instructions (its address range, its instruction count and its
+  count of each opcode) and the instruction count of each instantiation
+  of ``boxsum_kernel<kLut, ...>``.
 
 It prints one JSON line per run and a table; ``--out`` also writes the
 runs to a JSON file.  The output codes of every kernel launch are hashed,
@@ -102,7 +109,8 @@ def time_device(torch, fn, reps, host_ms):
     return start.elapsed_time(end) / reps
 
 
-KERNELS = ("mac_kernel", "mac_short_kernel", "update_kernel")
+KERNELS = ("mac_kernel", "mac_short_kernel", "update_kernel",
+           "boxsum_kernel")
 
 
 def ptxas_lines(report: str) -> list:
@@ -153,13 +161,18 @@ def inner_loop(ins: list) -> dict:
 
 
 def lut_loop(build) -> dict:
-    """The inner loop of ``mac_kernel<kLut>`` in the built library."""
+    """The inner loop of ``mac_kernel<kLut>`` in the built library, and
+    the instruction count of each ``boxsum_kernel<kLut, ...>``."""
     lib, _ = build._build(build.CSRC / "lns_mac.cu")
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    name = next(n for n in sass_functions(text) if "mac_kernelILi0E" in n)
-    return dict(function=name, **inner_loop(sass_functions(text)[name]))
+    funcs = sass_functions(text)
+    name = next(n for n in funcs if "mac_kernelILi0E" in n)
+    box = {re.search(r"boxsum_kernelI(\w+?)EEv", n).group(1): len(ins)
+           for n, ins in funcs.items() if "boxsum_kernelILi0E" in n}
+    return dict(function=name, boxsum_instructions=box,
+                **inner_loop(funcs[name]))
 
 
 def run_one(root: str) -> dict:
@@ -171,6 +184,7 @@ def run_one(root: str) -> dict:
     from repro_torch.core import (DELTA_DEFAULT, LNS16, LogSGDConfig,
                                   UpdateEpilogue, beta_code, encode)
     from repro_torch.kernels import build
+    from repro_torch.kernels import lns_boxsum as B
     from repro_torch.kernels import lns_matmul as K
     from repro_torch.paper import datasets
     from repro_torch.paper.mlp import MLPConfig, make_mlp
@@ -241,10 +255,27 @@ def run_one(root: str) -> dict:
         w, g = operand((n,), 0.1, 0.2), operand((n,), 0.1, 0.1)
         launches[f"upd{n}"] = (lambda w=w, g=g: K.update_cuda(
             w.code, w.sign, g.code, g.sign, epilogue=up, fmt=fmt, spec=spec))
+    combine = []
+    for n, name in ((78400, "w1"), (100, "b1"), (1000, "w2"), (10, "b2")):
+        part = operand((BATCH, n), 0.1, 0.1)
+        combine.append((part.code.T, part.sign.T))
+        launches[f"box_{name}"] = (lambda c=part.code.T, s=part.sign.T:
+                                   B.boxsum_cuda(c, s, fmt=fmt, spec=spec))
+    if getattr(build, "BOXSUM_MAX_SETS", 0) >= len(combine):
+        launches["box_all"] = lambda: B.boxsum_many_cuda(combine, fmt=fmt,
+                                                         spec=spec)
     out["ms"], out["call_ms"] = {}, {}
     for label, launch in launches.items():
-        for plane in launch():
-            digest.update(plane.cpu().numpy().tobytes())
+        if label == "box_all":
+            # Not hashed (a parent has no grouped launch): held to the four
+            # launches one parameter each.
+            for got, (c, s) in zip(launch(), combine):
+                want = B.boxsum_cuda(c, s, fmt=fmt, spec=spec)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError("box_all differs from box_*")
+        else:
+            for plane in launch():
+                digest.update(plane.cpu().numpy().tobytes())
         host_ms = time_host(torch, launch, 200)
         out["ms"][label] = time_device(torch, launch, 200, host_ms)
         out["call_ms"][label] = host_ms
@@ -330,6 +361,8 @@ def main() -> int:
         loop = r["lut_loop"]
         print(f"  LUT loop {loop['range']}: {loop['instructions']} "
               f"instructions; {json.dumps(loop['opcodes'])}")
+        print(f"  boxsum_kernel<kLut, ...> instructions: "
+              f"{json.dumps(loop['boxsum_instructions'])}")
     print(runs[0]["card"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -40,8 +40,8 @@ import torch.distributed as dist
 
 from ..core.plan import NumericsPlan
 from ..core.spec import ReduceSpec
-from .lns_reduce import (combine_partials, deterministic_boxplus_allreduce,
-                         float_psum_allreduce, rank, world_size)
+from .lns_reduce import (combine_partials_many, float_psum_allreduce,
+                         gather_partials, rank, world_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +98,8 @@ class LNSDataParallelMLP:
     trains on its own contiguous run of segments and returns the
     replicated updated parameters.  Each parameter's partials combine in
     its own layer's format and Δ engine, so the invariance holds under
-    mixed-format plans too.  The update (fused or not, with or without
+    mixed-format plans too; the parameters that share them combine in one
+    ⊞-reduce launch.  The update (fused or not, with or without
     ⊞-momentum) runs after the combine, on the replicated gradients.
     """
 
@@ -126,13 +127,14 @@ class LNSDataParallelMLP:
         lo = rank() * rows
         grads, loss = inner.per_segment_grads(
             params, x[lo:lo + rows], y[lo:lo + rows], segments // n)
-        for k, g in grads.items():
-            eng = inner.param_engines[k]
-            if dp.reduce.mode == "boxplus":
-                grads[k] = deterministic_boxplus_allreduce(
-                    g, eng, num_ranks=n, schedule=dp.reduce.schedule)
-            else:
-                grads[k] = float_psum_allreduce(g, eng, num_ranks=n)
+        engs = inner.param_engines
+        if dp.reduce.mode == "boxplus":
+            grads = combine_partials_many(
+                {k: gather_partials(g, n) for k, g in grads.items()}, engs,
+                schedule=dp.reduce.schedule)
+        else:
+            grads = {k: float_psum_allreduce(g, engs[k], num_ranks=n)
+                     for k, g in grads.items()}
         if dist.is_initialized():
             loss = loss.clone()
             dist.all_reduce(loss, op=dist.ReduceOp.SUM)
@@ -160,9 +162,8 @@ def reference_train_step(inner, params, xb, yb, *, grad_segments: int,
     momentum, loss)``."""
     x, y = inner._inputs(xb, yb)
     grads, loss = inner.per_segment_grads(params, x, y, grad_segments)
-    grads = {k: combine_partials(g, inner.param_engines[k],
-                                 schedule=reduce_schedule)
-             for k, g in grads.items()}
+    grads = combine_partials_many(grads, inner.param_engines,
+                                  schedule=reduce_schedule)
     new_params, momentum = inner.apply_updates(params, grads, momentum)
     if momentum is None:
         return new_params, loss

@@ -15,6 +15,8 @@ schedule used instead:
 3. :func:`combine_partials` ⊞-combines the S slots on a schedule that is a
    function of S alone: the sequential left fold (the ⊞-reduce kernel on
    the card, its plain version on the CPU) or a balanced tree.
+   :func:`combine_partials_many` does the same for several parameters,
+   one ⊞-reduce launch for all that share a format and Δ engine.
 
 Neither the segmentation nor the schedule mentions the rank count, so 1,
 2 or 4 ranks give bit-identical codes.  :func:`float_psum_allreduce` is
@@ -29,7 +31,7 @@ from ..core.arithmetic import boxsum_partials
 from ..core.delta import DeltaEngine
 from ..core.lns import LNSArray, decode, encode
 from ..core.spec import REDUCE_MODES, REDUCE_SCHEDULES  # noqa: F401
-from ..kernels.lns_boxsum import lns_boxsum
+from ..kernels.lns_boxsum import lns_boxsum_many
 
 
 def world_size(num_ranks: int) -> int:
@@ -70,20 +72,50 @@ def gather_partials(p: LNSArray, num_ranks: int = 1) -> LNSArray:
 
 def combine_partials(parts: LNSArray, eng: DeltaEngine, *,
                      schedule: str = "sequential") -> LNSArray:
-    """⊞-combine (S, ...) stacked partials along dim 0 on a fixed schedule.
+    """⊞-combine (S, ...) stacked partials along dim 0 on a fixed schedule:
+    the one-parameter case of :func:`combine_partials_many`.
 
     ``sequential`` reduces every element's S slots in one ⊞-reduce
     launch, reading the (S, E) planes in place as E rows of S steps;
     ``tree`` is :func:`~repro_torch.core.arithmetic.boxsum_partials`'
     balanced tree.
     """
+    return combine_partials_many({0: parts}, {0: eng},
+                                 schedule=schedule)[0]
+
+
+def group_by_arithmetic(engines: dict) -> list:
+    """The keys of ``engines`` grouped by their engines' (format, Δ spec),
+    in first-seen order: the parameters one grouped combine reduces
+    together."""
+    groups = {}
+    for k, eng in engines.items():
+        groups.setdefault((eng.fmt, eng.spec), []).append(k)
+    return list(groups.values())
+
+
+def combine_partials_many(parts: dict, engines: dict, *,
+                          schedule: str = "sequential") -> dict:
+    """:func:`combine_partials` of every ``parts[k]`` under
+    ``engines[k]``.  ``sequential`` reduces the parameters that share a
+    format and Δ spec (:func:`group_by_arithmetic`) in one
+    :func:`~repro_torch.kernels.lns_boxsum.lns_boxsum_many`, each read in
+    place as E rows of S steps; ``tree`` combines each parameter on its
+    own."""
     if schedule != "sequential":
-        return boxsum_partials(parts, eng, schedule=schedule)
-    s, tail = parts.shape[0], parts.shape[1:]
-    code, sign = lns_boxsum(parts.code.reshape(s, -1).T,
-                            parts.sign.reshape(s, -1).T, fmt=eng.fmt,
-                            spec=eng.spec)
-    return LNSArray(code.reshape(tail), sign.reshape(tail))
+        return {k: boxsum_partials(p, engines[k], schedule=schedule)
+                for k, p in parts.items()}
+    out = {}
+    for keys in group_by_arithmetic({k: engines[k] for k in parts}):
+        eng = engines[keys[0]]
+        rows = [(parts[k].code.reshape(parts[k].shape[0], -1).T,
+                 parts[k].sign.reshape(parts[k].shape[0], -1).T)
+                for k in keys]
+        for k, (code, sign) in zip(keys, lns_boxsum_many(
+                rows, fmt=eng.fmt, spec=eng.spec)):
+            tail = parts[k].shape[1:]
+            out[k] = LNSArray(code.reshape(tail), sign.reshape(tail))
+    return {k: out[k] for k in parts}
 
 
 def deterministic_boxplus_allreduce(p: LNSArray, eng: DeltaEngine, *,

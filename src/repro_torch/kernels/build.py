@@ -62,10 +62,19 @@ class UpdateParams(ctypes.Structure):
                 ("m_code_out", _P), ("m_sign_out", _P)]
 
 
-class BoxsumParams(ctypes.Structure):
-    _fields_ = [("lns", LnsArgs), ("code", _P), ("sign", _P), ("rows", _I),
-                ("steps", _I), ("row_stride", _I), ("step_stride", _I),
+class BoxsumSet(ctypes.Structure):
+    _fields_ = [("code", _P), ("sign", _P), ("rows", _I), ("steps", _I),
+                ("row_stride", _I), ("step_stride", _I), ("first", _I),
                 ("out_code", _P), ("out_sign", _P)]
+
+
+#: Row sets a ⊞-reduce launch takes (``kMaxGroups`` in ``lns_mac.cu``).
+BOXSUM_MAX_SETS = 8
+
+
+class BoxsumParams(ctypes.Structure):
+    _fields_ = [("lns", LnsArgs), ("n_sets", _I), ("max_steps", _I),
+                ("sets", BoxsumSet * BOXSUM_MAX_SETS)]
 
 
 def nvcc_path() -> str:
@@ -102,8 +111,8 @@ def load_library() -> ctypes.CDLL:
     path, _ = _build(CSRC / "lns_mac.cu")
     lib = ctypes.CDLL(str(path))
     for name in ("lns_mac_params_size", "lns_update_params_size",
-                 "lns_boxsum_params_size", "lns_max_table",
-                 "lns_short_steps"):
+                 "lns_boxsum_params_size", "lns_boxsum_max_sets",
+                 "lns_max_table", "lns_short_steps"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.lns_error_string.argtypes = [ctypes.c_int]
@@ -118,7 +127,8 @@ def load_library() -> ctypes.CDLL:
     lib.lns_empty_launch.restype = ctypes.c_int
     if (lib.lns_mac_params_size() != ctypes.sizeof(MacParams)
             or lib.lns_update_params_size() != ctypes.sizeof(UpdateParams)
-            or lib.lns_boxsum_params_size() != ctypes.sizeof(BoxsumParams)):
+            or lib.lns_boxsum_params_size() != ctypes.sizeof(BoxsumParams)
+            or lib.lns_boxsum_max_sets() != BOXSUM_MAX_SETS):
         raise RuntimeError("ctypes parameter blocks disagree with "
                            "csrc/lns_mac.cu")
     return lib

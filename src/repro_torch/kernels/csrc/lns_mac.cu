@@ -16,7 +16,9 @@
 //                         _update_kernel (:35);
 //   * lns_boxsum_launch — src/repro/kernels/lns_boxsum/lns_boxsum.py:
 //                         _kernel (:28) as launched by
-//                         lns_boxsum_pallas (:69).
+//                         lns_boxsum_pallas (:69), up to kMaxGroups
+//                         row sets (the data-parallel combine's
+//                         parameters) in one launch.
 //
 // What bounds it on an H100: there is no multiply, so no tensor core can
 // help.  The steps of one output element form a serial chain of ⊞: the
@@ -48,6 +50,10 @@
 // form: launch plus one round trip at the bias's 10 and 100 elements,
 // bytes at the segmented step's 78400; its loads go first, one element a
 // thread, then the table copy and barrier, and its block size follows n.
+// So is the ⊞-reduce (boxsum_kernel), one row a thread: the combine's
+// four parameters are one launch (row sets found from a flat row index),
+// and a row's first steps are loaded before the table and then folded
+// with mac_step.
 // The tiled form's design:
 //   * every (row, 32 columns) tile is one warp, 4 warps a block, so that
 //     at batch 5 each live warp has an SM sub-partition of its own;
@@ -98,7 +104,13 @@ constexpr int kMaxTab = 1024;
 constexpr int kShortSteps = 12;
 constexpr int kShortThreads = 128;
 constexpr int kUpdateThreads = 128;  // at most, a block of the ⊞-SGD
-constexpr int kBoxsumThreads = 256;
+constexpr int kBoxsumThreads = 128;  // at most, a block of the ⊞-reduce
+// Steps of a row the ⊞-reduce loads before the table: the combine's 5
+// segments at the paper's batch; 4 and 8 measured slower (PERF.md).
+constexpr int kBoxsumSteps = 5;
+// Row sets a ⊞-reduce launch takes: the combine's parameters of one layer
+// arithmetic (w1, b1, w2, b2 under the default plan).
+constexpr int kMaxGroups = 8;
 
 // kLutMul is the LUT whose step is not a power of two: the launchers pick
 // it from the index constants; the host passes kLut for both.
@@ -182,19 +194,29 @@ struct UpdateParams {
   int8_t* m_sign_out;
 };
 
-// The ⊞-reduce of `rows` rows of `steps` elements: row i's step s is at
-// code[i * row_stride + s * step_stride] (likewise sign).
-struct BoxsumParams {
-  LnsArgs lns;
+// One row set of a ⊞-reduce launch, `rows` rows of `steps` elements: row
+// i's step s is at code[i * row_stride + s * step_stride] (likewise sign),
+// its result at out_code[i] / out_sign[i].  `first` is the set's first row
+// in the launch's flat row index, set by the launcher.
+struct BoxsumSet {
   const int32_t* code;
   const int8_t* sign;
-  int64_t rows, steps, row_stride, step_stride;
+  int64_t rows, steps, row_stride, step_stride, first;
   int32_t* out_code;
   int8_t* out_sign;
 };
 
+// The ⊞-reduce of n_sets row sets in one launch, under one format and Δ
+// engine; max_steps is set by the launcher.
+struct BoxsumParams {
+  LnsArgs lns;
+  int64_t n_sets, max_steps;
+  BoxsumSet sets[kMaxGroups];
+};
+
 static_assert(sizeof(LnsArgs) == 12 * 8, "LnsArgs layout");
 static_assert(sizeof(SgdArgs) == 5 * 8, "SgdArgs layout");
+static_assert(sizeof(BoxsumSet) == 9 * 8, "BoxsumSet layout");
 
 namespace {
 
@@ -792,31 +814,75 @@ __global__ void __launch_bounds__(kUpdateThreads)
 __global__ void empty_kernel() {}
 
 // _kernel (lns_boxsum.py:28): one thread per row folds the row's steps
-// in ascending order into one accumulator.  The row's steps are a serial
-// chain of ⊞ (~30 int32 operations each) and every element is read once,
-// so at the data-parallel combine's shapes (up to 78400 rows of 5 steps:
-// 2.4 MB and 12 M operations, about a microsecond either way) the launch
-// dominates.  Rows and steps are read through strides: the combine passes
-// its (S, E) partials in place, where a warp's 32 rows are 32 neighbouring
-// words at every step.
-template <int KIND>
+// in ascending order into one accumulator.  Every element is read once
+// and a row's steps are a serial chain of ⊞, so at the data-parallel
+// combine's shapes (79510 rows of 5 steps over w1, b1, w2 and b2: 2.4 MB
+// and 12 M operations, under a microsecond either way) the time is the
+// launch, the round trips to memory and the instructions each thread
+// issues.  The design:
+//   * one launch for up to kMaxGroups row sets: thread `at` of the flat
+//     row index folds row at − first of the last set whose first row is
+//     at or before it (uniform within a block but at the sets' bounds);
+//     an instantiation per set count (1, 2, 4, 8), so that a thread pays
+//     only for the sets its launch has;
+//   * rows and steps are read through strides: the combine passes its
+//     (S, E) partials in place, where a warp's 32 rows are 32 neighbouring
+//     words at every step;
+//   * the thread issues the loads of its row's first kBoxsumSteps steps
+//     before the block copies a LUT to shared memory and meets its one
+//     barrier (only where a Δ is read: a set of more than one step), so
+//     that the table's round trip and the row's overlap; further steps
+//     are loaded in a plain loop, which the compiler unrolls;
+//   * the chain is mac_step's folded ⊞, an element of the zero code
+//     entering as zero_product(); the first step is peeled: a zero
+//     accumulator takes the element, or stays the zero code with sign 0.
+template <int KIND, int NSETS>
 __global__ void __launch_bounds__(kBoxsumThreads)
     boxsum_kernel(const BoxsumParams p) {
-  load_table<KIND>(p.lns, threadIdx.x, kBoxsumThreads);
-  __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kBoxsumThreads + threadIdx.x;
-  if (i >= p.rows) return;
-  const Lns k = make_lns(p.lns);
-  const int32_t* code = p.code + i * p.row_stride;
-  const int8_t* sign = p.sign + i * p.row_stride;
-  int acc_c = k.zero;
-  int acc_s = 0;
-  for (int64_t s = 0; s < p.steps; ++s) {
-    const int64_t at = s * p.step_stride;
-    boxplus<KIND>(acc_c, acc_s, code[at], sign[at], k, acc_c, acc_s);
+  const int at = blockIdx.x * blockDim.x + threadIdx.x;
+  // The thread's set among the first NSETS, by selects over constant
+  // indices: an index into the parameter block held in a register costs a
+  // round trip to memory.  The launcher gives the sets past n_sets no rows.
+  BoxsumSet set = p.sets[0];
+#pragma unroll
+  for (int j = 1; j < NSETS; ++j)
+    if (at >= p.sets[j].first) set = p.sets[j];
+  // A thread past the last row loads nothing and leaves after the barrier.
+  const int i = at - (int)set.first;
+  const bool live = i < set.rows;
+  const int steps = live ? (int)set.steps : 0;
+  const int32_t* code = set.code + (int64_t)i * set.row_stride;
+  const int8_t* sign = set.sign + (int64_t)i * set.row_stride;
+  const int64_t step_stride = set.step_stride;
+  int c[kBoxsumSteps], s4[kBoxsumSteps];
+#pragma unroll
+  for (int j = 0; j < kBoxsumSteps; ++j) {
+    c[j] = j < steps ? __ldg(code + j * step_stride) : 0;
+    s4[j] = j < steps ? (int)__ldg(sign + j * step_stride) << 2 : 0;
   }
-  p.out_code[i] = acc_c;
-  p.out_sign[i] = (int8_t)acc_s;
+  if (is_lut(KIND) && p.max_steps > 1) {
+    load_table<KIND>(p.lns, threadIdx.x, blockDim.x);
+    __syncthreads();
+  }
+  if (!live) return;
+  const Lns k = make_lns(p.lns);
+  int acc = k.zero, acc_s4 = 0;
+  if (steps > 0) {
+    acc = c[0];
+    acc_s4 = c[0] == k.zero ? 0 : s4[0];
+  }
+#pragma unroll
+  for (int j = 1; j < kBoxsumSteps; ++j)
+    if (j < steps)
+      mac_step<KIND>(acc, acc_s4, c[j] == k.zero ? zero_product(k) : c[j],
+                     s4[j], k);
+  for (int t = kBoxsumSteps; t < steps; ++t) {
+    const int ct = __ldg(code + t * step_stride);
+    mac_step<KIND>(acc, acc_s4, ct == k.zero ? zero_product(k) : ct,
+                   (int)__ldg(sign + t * step_stride) << 2, k);
+  }
+  set.out_code[i] = acc;
+  set.out_sign[i] = (int8_t)(acc == k.zero ? 0 : acc_s4 >> 2);
 }
 
 // The kernel instantiation a launch takes, or -1 for arguments the kernels
@@ -834,6 +900,26 @@ int launch_kind(const LnsArgs& a) {
     default:
       return -1;
   }
+}
+
+// The ⊞-reduce's instantiation for the Δ kind, holding NSETS row sets.
+template <int NSETS>
+int launch_boxsum(int kind, dim3 grid, int block, cudaStream_t stream,
+                  const BoxsumParams& p) {
+  switch (kind) {
+    case kLut: boxsum_kernel<kLut, NSETS><<<grid, block, 0, stream>>>(p); break;
+    case kLutMul:
+      boxsum_kernel<kLutMul, NSETS><<<grid, block, 0, stream>>>(p);
+      break;
+    case kBitshift:
+      boxsum_kernel<kBitshift, NSETS><<<grid, block, 0, stream>>>(p);
+      break;
+    case kExact:
+      boxsum_kernel<kExact, NSETS><<<grid, block, 0, stream>>>(p);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return 0;
 }
 
 // The short form's instantiation for the launch's epilogue.
@@ -873,6 +959,7 @@ extern "C" {
 int lns_mac_params_size() { return (int)sizeof(MacParams); }
 int lns_update_params_size() { return (int)sizeof(UpdateParams); }
 int lns_boxsum_params_size() { return (int)sizeof(BoxsumParams); }
+int lns_boxsum_max_sets() { return kMaxGroups; }
 int lns_max_table() { return kMaxTab; }
 int lns_short_steps() { return kShortSteps; }
 const char* lns_error_string(int err) {
@@ -934,11 +1021,41 @@ int lns_empty_launch(void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Enqueues one ⊞-reduce launch; returns cudaGetLastError().
+// Enqueues one ⊞-reduce launch of p->n_sets row sets; returns
+// cudaGetLastError().  The sets' rows are numbered one after another in a
+// flat int32 index; the instantiation holds the fewest of 1, 2, 4 or 8
+// sets that take them.  A block holds kBoxsumThreads threads, or the
+// whole warps that the rows need where that is fewer.
 int lns_boxsum_launch(const BoxsumParams* p, void* stream) {
-  dim3 grid((unsigned)((p->rows + kBoxsumThreads - 1) / kBoxsumThreads));
-  LNS_DISPATCH(boxsum_kernel, launch_kind(p->lns), grid, kBoxsumThreads,
-               (cudaStream_t)stream, *p);
+  if (p->n_sets < 1 || p->n_sets > kMaxGroups)
+    return (int)cudaErrorInvalidValue;
+  BoxsumParams q = *p;
+  int64_t n = 0;
+  q.max_steps = 0;
+  for (int j = 0; j < q.n_sets; ++j) {
+    BoxsumSet& s = q.sets[j];
+    if (s.rows < 1 || s.steps < 0 || s.steps > INT_MAX)
+      return (int)cudaErrorInvalidValue;
+    s.first = n;
+    n += s.rows;
+    if (n > INT_MAX - kBoxsumThreads) return (int)cudaErrorInvalidValue;
+    q.max_steps = q.max_steps > s.steps ? q.max_steps : s.steps;
+  }
+  for (int j = (int)q.n_sets; j < kMaxGroups; ++j) {
+    q.sets[j] = BoxsumSet{};
+    q.sets[j].first = n;
+  }
+  const int block =
+      (int)(n < kBoxsumThreads ? (n + 31) / 32 * 32 : kBoxsumThreads);
+  dim3 grid((unsigned)((n + block - 1) / block));
+  const int kind = launch_kind(q.lns);
+  const cudaStream_t st = (cudaStream_t)stream;
+  int rc;
+  if (q.n_sets == 1) rc = launch_boxsum<1>(kind, grid, block, st, q);
+  else if (q.n_sets == 2) rc = launch_boxsum<2>(kind, grid, block, st, q);
+  else if (q.n_sets <= 4) rc = launch_boxsum<4>(kind, grid, block, st, q);
+  else rc = launch_boxsum<kMaxGroups>(kind, grid, block, st, q);
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

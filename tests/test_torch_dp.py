@@ -26,8 +26,10 @@ from repro.paper.mlp import (LNSMLP as JLNSMLP, MLPConfig as JConfig,
 import repro_torch.core as T
 from repro_torch.distributed import (DPConfig, LNSDataParallelMLP,
                                      deterministic_boxplus_allreduce,
-                                     gather_partials, reference_train_step,
+                                     gather_partials, group_by_arithmetic,
+                                     reference_train_step,
                                      run_device_count_invariance_check)
+from repro_torch.distributed import lns_reduce as TR
 from repro_torch.paper import (MLPConfig, make_mlp, params_from_numpy,
                                params_to_numpy, run_experiment)
 from repro_torch.paper.mlp import LNSMLP, segmented_boxsum
@@ -171,6 +173,42 @@ def test_segmented_full_width_equals_reference_route():
         jp, _ = jm.train_step(jp, x[sl], y[sl])
         tp, _ = tm.train_step(tp, x[sl], y[sl])
         _equal(params_to_numpy(tp), _np(jp), f"@{step}")
+
+
+#: (spec suffix, the parameters the grouped combine reduces together).
+GROUP_PLANS = {
+    "default": ("", [["w1", "b1", "w2", "b2"]]),
+    "fmt-lns12": (",fmt=lns12", [["w1", "b1", "w2", "b2"]]),
+    "hidden-lns12": (";hidden=fmt:lns12", [["w1", "b1"], ["w2", "b2"]]),
+    "out-bitshift": (";out=delta:bitshift", [["w1", "b1"], ["w2", "b2"]]),
+}
+
+
+@pytest.mark.parametrize("plan", list(GROUP_PLANS))
+def test_segmented_step_combines_once_per_arithmetic(plan, monkeypatch):
+    """The segmented step (and ``reference_train_step``) combines every
+    parameter that shares a format and Δ engine in one grouped ⊞-reduce:
+    one for the whole model under a uniform plan, one per layer where the
+    layers' arithmetic differs; each group in its own arithmetic."""
+    suffix, groups = GROUP_PLANS[plan]
+    model = make_mlp("lns", MLPConfig(
+        spec=f"lns16-train-pallas,reduce.grad_segments={SEGS}{suffix}",
+        **SMALL), "cpu")
+    engs = model.inner.param_engines
+    assert group_by_arithmetic(engs) == groups
+    calls = []
+    many = TR.lns_boxsum_many
+
+    def spy(sets, *, fmt, spec):
+        calls.append((len(sets), fmt, spec))
+        return many(sets, fmt=fmt, spec=spec)
+    monkeypatch.setattr(TR, "lns_boxsum_many", spy)
+    xb, yb = _data(7)
+    p = model.init(torch.Generator().manual_seed(0))
+    model.train_step(p, xb, yb)
+    reference_train_step(model.inner, p, xb, yb, grad_segments=SEGS)
+    want = [(len(g), engs[g[0]].fmt, engs[g[0]].spec) for g in groups]
+    assert calls == want * 2
 
 
 def test_segmented_boxsum_equals_reference():

@@ -14,7 +14,8 @@ import torch
 import repro_torch.core as T
 import repro_torch.kernels as TKS
 import repro_torch.kernels.lns_matmul as TK
-from repro_torch.kernels.lns_boxsum import boxsum_plain, lns_boxsum
+from repro_torch.kernels.lns_boxsum import (boxsum_plain, lns_boxsum,
+                                            lns_boxsum_many)
 from repro_torch.paper import MLPConfig, make_mlp, params_to_numpy
 from repro_torch.paper import datasets
 
@@ -341,13 +342,119 @@ def test_boxsum_kernel_equals_plain_on_card(cuda, kind, fmt_name):
     torch.cuda.synchronize()
 
 
+#: (steps, rows) of the row sets of a grouped ⊞-reduce launch: the
+#: rows of 2, 4 and 8 sets end inside a block of the kernel.
+MANY_SETS = ((5, 301), (1, 37), (13, 100), (128, 9), (2, 1000), (12, 3),
+             (37, 64), (5, 10))
+
+
+def _zero_and_cancel(a, fmt):
+    """Row 1 all zero codes; step 1 cancels step 0 exactly on every other
+    row from row 2."""
+    a.code[:, 1] = fmt.zero_code
+    a.sign[:, 1] = 0
+    if a.code.shape[0] > 1:
+        a.code[1, 2::2] = a.code[0, 2::2]
+        a.sign[1, 2::2] = a.sign[0, 2::2] ^ 1
+    return a
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
+def test_boxsum_many_kernel_equals_plain_on_card(cuda, kind, fmt_name):
+    """The grouped ⊞-reduce over 1, 2, 4 and 8 row sets of steps 1, 2, 5,
+    12, 13, 37 and 128, read as the combine reads (S, E) partials and
+    dense, with an all-zero row and exact cancellations in every set, in
+    one launch each; 9 sets take two launches."""
+    fmt, spec = T.FORMATS[fmt_name], DELTA[kind]
+    gen = torch.Generator().manual_seed(7)
+    parts = [_zero_and_cancel(_operand(gen, shape, fmt, cuda), fmt)
+             for shape in MANY_SETS]
+    kw = dict(fmt=fmt, spec=spec)
+    for n in (1, 2, 4, 8):
+        for dense in (False, True):
+            sets = [(a.code.T, a.sign.T) for a in parts[:n]]
+            if dense:
+                sets = [(c.contiguous(), sg.contiguous()) for c, sg in sets]
+            TKS.reset_launch_counts()
+            got = lns_boxsum_many(sets, **kw)
+            assert TKS.launch_counts()["lns_boxsum"] == 1
+            for g, (c, sg) in zip(got, sets):
+                _same(g, boxsum_plain(c, sg, **kw))
+    sets = [(a.code.T, a.sign.T) for a in parts] + [(parts[0].code.T,
+                                                     parts[0].sign.T)]
+    TKS.reset_launch_counts()
+    got = lns_boxsum_many(sets, **kw)
+    assert TKS.launch_counts()["lns_boxsum"] == 2
+    for g, (c, sg) in zip(got, sets):
+        _same(g, boxsum_plain(c, sg, **kw))
+    torch.cuda.synchronize()
+
+
+BOXSUM_SWEEP_SPECS = dict(SWEEP_SPECS, bitshift=T.DELTA_BITSHIFT,
+                          exact=T.DELTA_EXACT)
+
+
+@pytest.mark.parametrize("spec_name", list(BOXSUM_SWEEP_SPECS))
+@pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
+def test_boxsum_delta_index_sweep_on_card(cuda, spec_name, fmt_name):
+    """The ⊞-reduce's Δ index over every difference of the format: rows
+    of two steps (min_nz + d, min_nz) with equal and with opposite signs,
+    in both orders, then the same rows after 13 zero-code steps (past the
+    kernel's first chunk of loads)."""
+    fmt, spec = T.FORMATS[fmt_name], BOXSUM_SWEEP_SPECS[spec_name]
+    lo, hi = fmt.min_nonzero_code, fmt.code_max
+    d = torch.arange(0, hi - lo + 1, dtype=torch.int32)
+    code = torch.stack([lo + d, torch.full_like(d, lo)], 1).repeat(2, 1)
+    sign = torch.zeros_like(code, dtype=torch.int8)
+    sign[len(d):, 1] = 1
+    kw = dict(fmt=fmt, spec=spec)
+    for swap in (False, True):
+        c, sg = (code.flip(1), sign.flip(1)) if swap else (code, sign)
+        c, sg = c.contiguous().to(cuda), sg.contiguous().to(cuda)
+        _same(lns_boxsum(c, sg, **kw), boxsum_plain(c, sg, **kw))
+        c = torch.cat([torch.full((c.shape[0], 13), fmt.zero_code,
+                                  dtype=torch.int32, device=cuda), c], 1)
+        sg = torch.cat([sg.new_zeros((sg.shape[0], 13)), sg], 1)
+        _same(lns_boxsum(c, sg, **kw), boxsum_plain(c, sg, **kw))
+    torch.cuda.synchronize()
+
+
+def test_boxsum_launcher_rejects_set_counts(cuda):
+    """The launcher takes 1 to 8 row sets and refuses 0 and 9 with
+    cudaErrorInvalidValue; the wrapper refuses them before it."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels._common import lns_args
+    from repro_torch.kernels.lns_boxsum import boxsum_many_cuda
+    lib = build.load_library()
+    assert lib.lns_boxsum_max_sets() == build.BOXSUM_MAX_SETS == 8
+    a = _operand(torch.Generator().manual_seed(8), (5, 10), T.LNS16, cuda)
+    kw = dict(fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    for n in (0, 9):
+        p = build.BoxsumParams(lns=lns_args(T.LNS16, T.DELTA_DEFAULT, cuda),
+                               n_sets=n)
+        stream = torch.cuda.current_stream().cuda_stream
+        assert lib.lns_boxsum_launch(ctypes.byref(p),
+                                     ctypes.c_void_p(stream)) == 1
+        with pytest.raises(ValueError, match="1 to 8 row sets"):
+            boxsum_many_cuda([(a.code.T, a.sign.T)] * n, **kw)
+    torch.cuda.synchronize()
+
+
+SEGMENTED_LAUNCHES = dict(lns_matmul_fused=40, lns_matmul_dx=20,
+                          lns_matmul_dw_partials=40, lns_fused_update=80)
 PATHS = {
     "unfused": (dict(spec="lns16-train-pallas", fused=False),
                 dict(lns_matmul=40, lns_matmul_dx=20, lns_matmul_dw=40)),
+    # One grouped ⊞-reduce a step combines w1, b1, w2 and b2 ...
     "segmented": (dict(spec="lns16-train-pallas,reduce.grad_segments=5"),
-                  dict(lns_matmul_fused=40, lns_matmul_dx=20,
-                       lns_matmul_dw_partials=40, lns_boxsum=80,
-                       lns_fused_update=80)),
+                  dict(SEGMENTED_LAUNCHES, lns_boxsum=20)),
+    # ... and one per layer where the layers' formats differ.
+    "segmented-mixed-plan": (
+        dict(spec="lns16-train-pallas,reduce.grad_segments=5;"
+                  "hidden=fmt:lns12"),
+        dict(SEGMENTED_LAUNCHES, lns_boxsum=40)),
 }
 
 
