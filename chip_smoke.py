@@ -40,11 +40,21 @@ the result line:
    ``run_device_count_invariance_check((1,))`` trains the small MLP with
    momentum in one NCCL rank of its own process and holds its codes to
    ``reference_train_step`` on the card;
-6. times: ms per train step of each path, the launch floor (an empty
-   kernel), and each kernel and its plain version by CUDA events at the
-   launches of the path that runs it; the segmented step's combine as the
-   one grouped ⊞-reduce launch it makes, and for comparison as one launch
-   per parameter.
+6. times: ms per train step of each path and of the float and fixed-point
+   baselines (``float``; ``fxp16-sr``, 16-bit fixed point with stochastic
+   rounding), the launch floor (an empty kernel), and each kernel and its
+   plain version by CUDA events at the launches of the path that runs it;
+   the segmented step's combine as the one grouped ⊞-reduce launch it
+   makes, and for comparison as one launch per parameter;
+7. the Table 1 baselines: with TF32 off, ``run_experiment`` trains the
+   float MLP and the fixed-point MLP at 16 and 12 bits, each without and
+   with stochastic rounding, 20 steps of batch 5 on the card and on the
+   CPU lane: the float weights must agree within the stated tolerance, the
+   int32 codes and accuracies exactly, and the card runs launch no LNS
+   kernel (counters set to 0 before, read after).  Then the Table 1 grid
+   (the eight configs of ``repro_torch.benchmarks.table1_accuracy``) on
+   the card, one epoch of 150 steps each, a line per run with its test
+   accuracy and wall seconds.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Runs in well under the 1200 s limit
@@ -872,26 +882,45 @@ def step_launches(torch, device):
     return out
 
 
-def time_step(torch, path):
-    """ms per train step of ``path`` on the card (host clock around 100
-    steps ending in a synchronize), and a torch.profiler view of 10 steps:
-    device time per kernel and the device's busy share of the profiled
-    wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def step_model(torch, name):
+    """(model, step) of a timed path: the LNS paths of phase 5 and the
+    baselines (``float``, ``fxp16-sr``), weight decay 0.01; ``step(params,
+    i)`` trains on batch ``i`` of synthetic ``mnist``."""
     from repro_torch.paper import datasets
     from repro_torch.paper.mlp import MLPConfig, make_mlp
-    kw = path_launches(0)[path][0]
-    model = make_mlp("lns", MLPConfig(spec=kw["numerics"],
-                                      fused=kw.get("fused", True),
-                                      weight_decay=0.01), "cuda")
-    params = model.init(torch.Generator().manual_seed(SEED))
     x, y, _, _, _ = datasets.load("mnist", "data", SEED)
+    if name in BASELINES:
+        backend, kw = BASELINES[name]
+        model = make_mlp(backend, MLPConfig(weight_decay=0.01, **kw), "cuda")
+    else:
+        kw = path_launches(0)[name][0]
+        model = make_mlp("lns", MLPConfig(spec=kw["numerics"],
+                                          fused=kw.get("fused", True),
+                                          weight_decay=0.01), "cuda")
+    sr = name in BASELINES and BASELINES[name][1].get("stochastic_round")
+
+    def step(params, i):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        if sr:
+            return model.train_step(params, x[sl], y[sl],
+                                    torch.Generator().manual_seed(i))
+        return model.train_step(params, x[sl], y[sl])
+    return model, step
+
+
+def time_step(torch, name):
+    """ms per train step of path ``name`` on the card (host clock around
+    100 steps ending in a synchronize), and a torch.profiler view of 10
+    steps: device time per kernel and the device's busy share of the
+    profiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model, step = step_model(torch, name)
+    params = model.init(torch.Generator().manual_seed(SEED))
 
     def steps(params, lo, n):
         for i in range(lo, lo + n):
-            sl = slice(i * BATCH, (i + 1) * BATCH)
-            params, loss = model.train_step(params, x[sl], y[sl])
+            params, loss = step(params, i)
         torch.cuda.synchronize()
         return params, loss
 
@@ -919,6 +948,97 @@ def time_step(torch, path):
             rows.append((dev, e.count, e.key))
     rows.sort(reverse=True)
     return ms, wall_us, rows
+
+
+# ------------------------------------------------------------- phase 7 --
+
+#: The baselines' timed steps (phase 6) by name: (backend, MLPConfig keys).
+BASELINES = {"float": ("float", {}),
+             "fxp16-sr": ("fxp", dict(bits=16, stochastic_round=True))}
+#: The float run on the card against the CPU lane: cuBLAS and the CPU sum
+#: the float32 products in other orders.
+FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-6
+#: Steps of each Table 1 grid run (one epoch).
+GRID_STEPS = 150
+
+
+def baselines(torch, card):
+    """Phase 7: the float and fixed-point baselines through
+    ``run_experiment``, card against CPU lane, then the Table 1 grid on the
+    card.  Returns the launch counts of the card runs (none expected: the
+    baselines reach no kernel)."""
+    from repro_torch.benchmarks.table1_accuracy import CONFIGS, config_tag
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.paper import run_experiment
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is on: the float baseline must run its "
+                             "products in float32")
+    log("7 baselines", "torch.backends.cuda.matmul.allow_tf32 False, "
+        "float32 matmul precision 'highest'")
+    common = dict(epochs=1, max_steps_per_epoch=STEPS, batch_size=BATCH,
+                  seed=SEED)
+    runs = [("float", {})] + [("fxp", dict(bits=b, stochastic_round=sr))
+                              for b in (16, 12) for sr in (False, True)]
+    reset_launch_counts()
+    for backend, kw in runs:
+        t0 = time.time()
+        card_run = run_experiment(backend, "mnist", device="cuda", **common,
+                                  **kw)
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
+        cpu_run = run_experiment(backend, "mnist", device="cpu", **common,
+                                 **kw)
+        label = config_tag("mnist", backend, kw)
+        if backend == "float":
+            worst = 0.0
+            for k, w in card_run.params.items():
+                ref = cpu_run.params[k]
+                worst = max(worst, float(abs(w - ref).max()))
+                if not (abs(w - ref) <= FLOAT_ATOL
+                        + FLOAT_RTOL * abs(ref)).all():
+                    raise AssertionError(f"{label}: {k} on the card differs "
+                                         f"from the CPU lane beyond rtol "
+                                         f"{FLOAT_RTOL}, atol {FLOAT_ATOL}")
+            log("7 baselines", f"{label}: {STEPS} steps + evaluate in "
+                f"{card_s:.2f} s on the card; weights within rtol "
+                f"{FLOAT_RTOL}, atol {FLOAT_ATOL} of the CPU lane, largest "
+                f"difference {worst:.3e}; test acc card {card_run.test_acc} "
+                f"cpu {cpu_run.test_acc}")
+            continue
+        for k, w in card_run.params.items():
+            if w.dtype != cpu_run.params[k].dtype or not (
+                    w == cpu_run.params[k]).all():
+                raise AssertionError(f"{label}: {k} on the card differs "
+                                     f"from the CPU lane after {STEPS} "
+                                     f"steps")
+        if (card_run.val_curve, card_run.test_acc) != (cpu_run.val_curve,
+                                                       cpu_run.test_acc):
+            raise AssertionError(f"{label}: accuracy card "
+                                 f"{card_run.val_curve}/{card_run.test_acc}"
+                                 f" vs cpu {cpu_run.val_curve}/"
+                                 f"{cpu_run.test_acc}")
+        log("7 baselines", f"{label}: {STEPS} steps + evaluate in "
+            f"{card_s:.2f} s on the card; int32 weight codes and accuracy "
+            f"equal to the CPU lane; val acc {card_run.val_curve}, test acc "
+            f"{card_run.test_acc}")
+    counts = {k: v for k, v in launch_counts().items() if v}
+    log("7 baselines", f"kernel launches of the five card runs: "
+        f"{counts or 'none'} (the baselines reach no LNS kernel)")
+    log("7 table1", f"the Table 1 grid on synthetic mnist, 1 epoch of "
+        f"{GRID_STEPS} steps of batch {BATCH}, seed {SEED}, on {card}")
+    for backend, kw in CONFIGS:
+        t0 = time.time()
+        r = run_experiment(backend, "mnist", epochs=1,
+                           max_steps_per_epoch=GRID_STEPS, device="cuda",
+                           **kw)
+        torch.cuda.synchronize()
+        if not 0.0 <= r.test_acc <= 1.0:
+            raise AssertionError(f"{backend} {kw}: test acc {r.test_acc}")
+        log("7 table1", f"table1/{config_tag('mnist', backend, kw)}: test "
+            f"acc {r.test_acc:.4f}, val acc {r.val_curve[-1]:.4f}, "
+            f"{time.time() - t0:.2f} s wall on {card}")
+    return counts
 
 
 def main() -> int:
@@ -983,7 +1103,7 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
-    for path in ("fused", "unfused", "segmented"):
+    for path in ("fused", "unfused", "segmented") + tuple(BASELINES):
         step_ms, wall_us, prof_rows = time_step(torch, path)
         log("6 times", f"{path}: {step_ms:.3f} ms per train step on {card}")
         dev_us = sum(r[0] for r in prof_rows)
@@ -1059,6 +1179,11 @@ def main() -> int:
         "path that runs the kernel (the sum over that step's launches); ms "
         "is card time alone, plain_ms the plain version's time; launches "
         "are summed over the phase-5 runs on the card")
+
+    t0 = time.time()
+    if baselines(torch, card):
+        raise AssertionError("a baseline run launched an LNS kernel")
+    log("7 baselines", f"phase 7 in {time.time() - t0:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

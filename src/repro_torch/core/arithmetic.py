@@ -56,6 +56,14 @@ def boxminus(a: LNSArray, b: LNSArray, eng: DeltaEngine) -> LNSArray:
     return boxplus(a, boxneg(b), eng)
 
 
+def boxdiv(a: LNSArray, b: LNSArray, fmt: LNSFormat) -> LNSArray:
+    """Linear-domain divide = log-domain subtract of codes."""
+    zero = a.code == fmt.zero_code
+    code = torch.where(zero, fmt.zero_code, _sat(a.code - b.code, fmt))
+    sign = torch.where(zero, 0, a.sign ^ b.sign).to(torch.int8)
+    return LNSArray(code, sign)
+
+
 def boxabs_max(a: LNSArray, axis: int, keepdims: bool = False) -> LNSArray:
     """Signed max over ``axis`` (value order, not magnitude order)."""
     key = torch.where(a.sign == 0, a.code + (1 << 30), -a.code - (1 << 30))
@@ -123,24 +131,27 @@ def boxsum_partials(parts: LNSArray, eng: DeltaEngine,
     return boxsum(parts, 0, eng, order=order)
 
 
-def lns_matmul(x: LNSArray, w: LNSArray, eng: DeltaEngine) -> LNSArray:
-    """Z[m,n] = ⊞_k (X[m,k] ⊡ W[k,n]) (eq. 10), folded over k ascending.
+def lns_matmul(x: LNSArray, w: LNSArray, eng: DeltaEngine,
+               order: str = "pairwise") -> LNSArray:
+    """Z[..., m, n] = ⊞_k (X[..., m, k] ⊡ W[k, n]) (eq. 10).
 
-    ``x``: (M, K), ``w``: (K, N).  One (M, N) accumulator takes the K
-    products in turn: the sequential MAC order that the kernels keep.
+    ``x``: (..., M, K), ``w``: (K, N).  The (..., M, K, N) ⊡ product is
+    ⊞-summed over K in ``order`` (:func:`boxsum`): the balanced tree by
+    default, as in the JAX package; ``order="sequential"`` is the
+    ascending fold the MAC kernels keep, and their oracles ask for it.
     """
-    fmt = eng.fmt
-    acc = LNSArray(
-        torch.full((x.shape[0], w.shape[1]), fmt.zero_code,
-                   dtype=torch.int32, device=x.device),
-        torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int8,
-                    device=x.device))
-    for k in range(x.shape[1]):
-        acc = boxplus(acc, boxdot(x[:, k:k + 1], w[k:k + 1, :], fmt), eng)
-    return acc
+    prod = boxdot(LNSArray(x.code[..., :, :, None], x.sign[..., :, :, None]),
+                  w, eng.fmt)
+    return boxsum(prod, prod.ndim - 2, eng, order=order)
 
 
 def bias_add(z: LNSArray, b: LNSArray, eng: DeltaEngine) -> LNSArray:
     """z ⊞ b with the bias broadcast over z's leading axes."""
     return boxplus(z, LNSArray(b.code.expand(z.shape), b.sign.expand(z.shape)),
                    eng)
+
+
+def lns_affine(x: LNSArray, w: LNSArray, b: LNSArray, eng: DeltaEngine,
+               order: str = "pairwise") -> LNSArray:
+    """z = W x + b in the log domain (eq. 10 with bias)."""
+    return bias_add(lns_matmul(x, w, eng, order=order), b, eng)

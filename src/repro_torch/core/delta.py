@@ -25,6 +25,16 @@ from . import f32
 from .formats import LNSFormat
 
 
+def delta_plus_float(d):
+    """Exact Δ+ on floats (numpy float64; for Fig. 1 and oracles)."""
+    return np.log2(1.0 + np.exp2(-np.asarray(d, np.float64)))
+
+
+def delta_minus_float(d):
+    """Exact Δ- on floats (numpy float64); d must be > 0."""
+    return np.log2(-np.expm1(-np.asarray(d, np.float64) * np.log(2.0)))
+
+
 @dataclasses.dataclass(frozen=True)
 class DeltaSpec:
     """Configuration of the Δ approximation.
@@ -78,7 +88,7 @@ class DeltaEngine:
             self.r_code = int(round(r_code))
             n = spec.table_size
             d = np.arange(n, dtype=np.float64) * spec.r
-            plus = np.round(np.log2(1.0 + np.exp2(-d)) * fmt.scale
+            plus = np.round(delta_plus_float(d) * fmt.scale
                             ).astype(np.int32)
             minus = np.zeros(n, np.int32)
             minus[0] = self.underflow
@@ -131,6 +141,32 @@ class DeltaEngine:
         val = self.tables(d_code.device)[1][torch.clamp(idx, 0, n - 1)]
         val = torch.where(idx >= n, 0, val)
         return torch.where(d_code == 0, self.underflow, val)
+
+    # -- the approximation on floats (Fig. 1), host numpy float64 ---------
+    def _lut_float(self, d, tab) -> np.ndarray:
+        idx = (np.round(d * self.fmt.scale).astype(np.int64)
+               + self.r_code // 2) // self.r_code
+        n = self.spec.table_size
+        return np.where(idx >= n, 0.0,
+                        tab[np.clip(idx, 0, n - 1)] / self.fmt.scale)
+
+    def plus_float(self, d) -> np.ndarray:
+        """Δ+ of this engine at real differences ``d`` (the code grid's
+        table entry, or the bit-shift or exact value)."""
+        d = np.asarray(d, np.float64)
+        if self.spec.kind == "exact":
+            return delta_plus_float(d)
+        if self.spec.kind == "bitshift":
+            return np.exp2(-np.floor(d))
+        return self._lut_float(d, self._tab_plus)
+
+    def minus_float(self, d) -> np.ndarray:
+        d = np.asarray(d, np.float64)
+        if self.spec.kind == "exact":
+            return delta_minus_float(d)
+        if self.spec.kind == "bitshift":
+            return -1.5 * np.exp2(-np.floor(d))
+        return self._lut_float(d, self._tab_minus.astype(np.float64))
 
 
 @functools.lru_cache(maxsize=None)

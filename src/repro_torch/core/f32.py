@@ -1,4 +1,5 @@
-"""float32 log2 / exp2 / expm1 as ``jax.numpy`` evaluates them.
+"""float32 log2 / exp2 / expm1 as ``jax.numpy`` evaluates them, and a
+float32 softmax that depends on its input alone.
 
 ``jnp.log2(x)`` lowers to ``log(x) / log(2)`` and ``jnp.exp2(x)`` to
 ``exp(log(2) · x)``, each step rounded to float32.  These helpers keep
@@ -29,3 +30,10 @@ def exp2(x: torch.Tensor) -> torch.Tensor:
 
 def expm1(x: torch.Tensor) -> torch.Tensor:
     return torch.expm1(x.double()).float()
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis in float64, rounded once to float32: the
+    same on every device (XLA's float32 one can differ from it by an ulp,
+    which moves a code only where a value lies at a half-code boundary)."""
+    return torch.softmax(x.double(), dim=-1).float()

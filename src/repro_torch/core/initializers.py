@@ -15,7 +15,7 @@ import torch
 
 from . import f32
 from .formats import LNSFormat
-from .lns import LNSArray
+from .lns import LNSArray, encode
 
 
 def he_sigma(fan_in: int) -> float:
@@ -45,3 +45,17 @@ def log_density_normal(y, sigma: float):
     f_w = np.exp(-x * x / (2 * sigma * sigma)) / (
         math.sqrt(2 * math.pi) * sigma)
     return np.exp2(y + 1) * math.log(2.0) * f_w
+
+
+def linear_normal_init(gen: torch.Generator, shape, sigma: float
+                       ) -> torch.Tensor:
+    """float32 weights w ~ N(0, sigma^2) drawn from ``gen`` on its device."""
+    return sigma * torch.randn(shape, generator=gen, dtype=torch.float32,
+                               device=gen.device)
+
+
+def encode_init(gen: torch.Generator, shape, sigma: float,
+                fmt: LNSFormat) -> LNSArray:
+    """Reference path: sample in the linear domain, then encode (the same
+    law as :func:`log_normal_init`)."""
+    return encode(linear_normal_init(gen, shape, sigma), fmt)

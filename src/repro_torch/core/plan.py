@@ -10,6 +10,10 @@ each rule is ``<pattern>=<key>:<value>[,<key>:<value>...]`` with the
 spec-string vocabulary.  Patterns are ``fnmatch`` globs over layer paths
 (the paper MLP has ``hidden`` and ``out``).  :meth:`NumericsPlan.resolve`
 applies every matching rule on top of the default, in declaration order.
+A plan with no rules reads through to its default spec, so it can stand
+wherever a spec does.  The JAX package's ``runtime_for`` / ``runtime``
+(its ``LNSRuntime``) are not ported: the port's products take a format and
+a Δ spec, and their lane follows the device.
 """
 from __future__ import annotations
 
@@ -42,8 +46,12 @@ class PlanRule:
         if not self.overrides:
             raise ValueError(f"rule {self.pattern!r} has no overrides; "
                              f"expected '{self.pattern}=key:value[,...]'")
-        bad_reduce = sorted(k for k, _ in self.overrides
-                            if k.startswith("reduce."))
+        keys = [k for k, _ in self.overrides]
+        if len(keys) != len(set(keys)):
+            dup = sorted(k for k in set(keys) if keys.count(k) > 1)
+            raise ValueError(
+                f"rule {self.pattern!r} sets {', '.join(dup)} more than once")
+        bad_reduce = sorted(k for k in keys if k.startswith("reduce."))
         if bad_reduce:
             raise ValueError(
                 f"rule {self.pattern!r} sets {', '.join(bad_reduce)}: the "
@@ -87,6 +95,11 @@ class NumericsPlan:
         """The spec layer ``path`` runs under (default + matching rules)."""
         return _resolve_cached(self, path)
 
+    def resolve_layers(self, paths) -> dict:
+        """``{path: resolved spec}`` for every path, after validation."""
+        self.validate_paths(paths)
+        return {p: self.resolve(p) for p in paths}
+
     def validate_paths(self, paths) -> "NumericsPlan":
         """Raise if any rule pattern matches none of ``paths`` (a typo'd
         pattern would otherwise train a layer under the wrong format)."""
@@ -98,10 +111,61 @@ class NumericsPlan:
                              f"path; known layer paths: {', '.join(paths)}")
         return self
 
+    def diff(self, other, paths=None) -> dict:
+        """Which spec keys differ from ``other``, and where:
+        ``{where: {key: (mine, theirs)}}`` over serialized values.
+
+        ``"<default>"`` compares the default specs.  With ``paths`` each
+        layer path compares its resolved spec; without, the rules compare
+        pattern by pattern, each pattern's last value of a key counting
+        (``None`` where only one side sets it)."""
+        other = NumericsPlan.parse(other)
+        out: dict = {}
+        mine_d, theirs_d = self.default._flat(), other.default._flat()
+        d = {k: (mine_d[k], theirs_d[k]) for k in mine_d
+             if mine_d[k] != theirs_d[k]}
+        if d:
+            out["<default>"] = d
+        if paths is not None:
+            for p in paths:
+                a, b = self.resolve(p)._flat(), other.resolve(p)._flat()
+                dd = {k: (a[k], b[k]) for k in a if a[k] != b[k]}
+                if dd:
+                    out[p] = dd
+            return out
+
+        def effective(plan):
+            eff: dict = {}
+            for r in plan.rules:
+                eff.setdefault(r.pattern, {}).update(dict(r.overrides))
+            return eff
+        mine, theirs = effective(self), effective(other)
+        for pat in dict.fromkeys(r.pattern for plan in (self, other)
+                                 for r in plan.rules):
+            a_kv, b_kv = mine.get(pat, {}), theirs.get(pat, {})
+            dd = {k: (a_kv.get(k), b_kv.get(k))
+                  for k in sorted(set(a_kv) | set(b_kv))
+                  if a_kv.get(k) != b_kv.get(k)}
+            if dd:
+                out[pat] = dd
+        return out
+
     def with_(self, **kw) -> "NumericsPlan":
         """Typed overrides applied to the default spec (rules kept)."""
         return dataclasses.replace(self, default=self.default.with_(**kw))
 
+    def with_rule(self, pattern: str, **kv) -> "NumericsPlan":
+        """Append one rule from serialized ``key=value`` strings."""
+        rule = _canonical_rule(self.default, pattern,
+                               [(k, str(v)) for k, v in kv.items()])
+        return dataclasses.replace(self, rules=self.rules + (rule,))
+
+    @property
+    def is_uniform(self) -> bool:
+        """True when every layer resolves to the default spec."""
+        return not self.rules
+
+    # -- read-through views of the default spec --------------------------
     @property
     def fmt(self):
         return self.default.fmt
@@ -111,12 +175,40 @@ class NumericsPlan:
         return self.default.delta_spec
 
     @property
+    def quantize(self) -> str:
+        return self.default.quantize
+
+    @property
+    def compute_dtype(self) -> str:
+        return self.default.compute_dtype
+
+    @property
     def backend(self) -> str:
         return self.default.backend
 
     @property
+    def interpret(self) -> str:
+        return self.default.interpret
+
+    @property
     def reduce(self):
         return self.default.reduce
+
+    @property
+    def quantize_params(self) -> bool:
+        return self.default.quantize_params
+
+    @property
+    def quantize_acts(self) -> bool:
+        return self.default.quantize_acts
+
+    @property
+    def quantize_grads(self) -> bool:
+        return self.default.quantize_grads
+
+    @property
+    def lns_grad(self) -> bool:
+        return self.default.quantize_grads
 
 
 def _canonical_rule(default: NumericsSpec, pattern: str, kv) -> PlanRule:
@@ -167,3 +259,29 @@ def _resolve_cached(plan: NumericsPlan, path: str) -> NumericsSpec:
         if rule.matches(path):
             spec = apply_kv_overrides(spec, rule.overrides)
     return spec
+
+
+def get_plan(name: "str | NumericsSpec | NumericsPlan") -> NumericsPlan:
+    """Resolve any numerics descriptor (alias / spec / plan) to a plan."""
+    return NumericsPlan.parse(name)
+
+
+def plan_diff(a, b, paths=None, labels=("a", "b")) -> str:
+    """:meth:`NumericsPlan.diff` for people: a header naming ``labels``,
+    then one ``<where>: <key> <a-value> -> <b-value>`` line per place
+    (``-`` where a side sets nothing), or ``(no differences)``."""
+    a, b = NumericsPlan.parse(a), NumericsPlan.parse(b)
+    delta = a.diff(b, paths=paths)
+    head = f"numerics diff ({labels[0]} vs {labels[1]}):"
+    if not delta:
+        return f"{head} (no differences)"
+    lines = [head]
+    order = ["<default>"] + [w for w in delta if w != "<default>"]
+    for where in order:
+        if where not in delta:
+            continue
+        changes = ", ".join(
+            f"{k} {'-' if av is None else av} -> {'-' if bv is None else bv}"
+            for k, (av, bv) in sorted(delta[where].items()))
+        lines.append(f"  {where}: {changes}")
+    return "\n".join(lines)

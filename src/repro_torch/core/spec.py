@@ -1,16 +1,20 @@
 """``NumericsSpec``: the serializable descriptor of the LNS arithmetic.
 
-The subset of the JAX package's spec that the paper MLP needs: format, Δ
-approximation, which tensors are quantized, compute dtype, backend and the
-data-parallel gradient reduce (:class:`ReduceSpec`).
-``parse`` accepts a registry alias (``"lns16-train-pallas"``), a
-``key=value`` list, or an alias plus overrides
-(``"lns16-train-pallas,delta=bitshift"``); ``str`` gives the same
-canonical text as the JAX package does for those strings.
+The JAX package's spec without its runtime: format, Δ approximation, which
+tensors are quantized, compute dtype, backend, interpret mode, kernel
+blocks, telemetry and the data-parallel gradient reduce
+(:class:`ReduceSpec`).  ``parse`` accepts a registry alias
+(``"lns16-train-pallas"``), a ``key=value`` list, or an alias plus
+overrides (``"lns16-train-pallas,delta=bitshift"``); ``str`` gives the same
+canonical text as the JAX package does.
 
-``backend`` is parsed and printed so that reference spec strings load
-unchanged, but it selects nothing here: the device of the operands
-chooses the lane (see :class:`~repro_torch.core.lns.LNSMatmulBackend`).
+Four keys are parsed, validated and printed so that reference strings load
+unchanged, but route nothing here:
+
+* ``backend`` and ``interpret``: the device of the operands chooses the
+  lane (see :class:`~repro_torch.core.lns.LNSMatmulBackend`);
+* ``blocks``: the CUDA kernels keep a fixed launch shape of their own;
+* ``metrics``: the telemetry (``obs/``) is not ported.
 """
 from __future__ import annotations
 
@@ -20,15 +24,48 @@ from typing import Optional
 
 from .delta import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT, DELTA_SOFTMAX,
                     DeltaSpec)
-from .formats import FORMATS, LNS16, LNSFormat
+from .formats import FORMATS, LNS12, LNS16, LNSFormat
 
 MATMUL_BACKENDS = ("emulate", "pallas")
 QUANTIZE_AXES = ("params", "acts", "grads")
 COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
 REDUCE_MODES = ("boxplus", "float-psum")
 REDUCE_SCHEDULES = ("sequential", "tree")
-#: Spec keys of the JAX package that the port does not parse yet.
-UNPORTED_KEYS = ("interpret", "blocks", "metrics")
+INTERPRET_MODES = ("auto", "on", "off")
+#: Telemetry eligibility per spec: "counters", "full" (also the Δ-LUT
+#: occupancy histogram) or "off".
+METRICS_MODES = ("off", "counters", "full")
+#: Kernel tiling: "default", "auto" (the autotuner) or an explicit
+#: "MxNxK" (block_m × block_n × block_k).
+BLOCK_MODES = ("default", "auto", "<M>x<N>x<K>")
+
+
+def parse_blocks(text: str):
+    """Decode an explicit ``MxNxK`` blocks value → (block_m, block_n,
+    block_k); raises with the valid forms for anything else."""
+    parts = text.split("x")
+    if len(parts) == 3:
+        try:
+            bm, bn, bk = (int(p) for p in parts)
+            if bm > 0 and bn > 0 and bk > 0:
+                return bm, bn, bk
+        except ValueError:
+            pass
+    raise _bad_value("blocks", text, BLOCK_MODES)
+
+
+def resolve_blocks_arg(blocks: str, block_m: int, block_n: int,
+                       block_k: int):
+    """Fold a spec's ``blocks`` axis onto caller-supplied tile sizes:
+    ``(block_m, block_n, block_k, mode)``, ``mode`` "auto" or "default";
+    an explicit ``MxNxK`` overrides the caller's sizes."""
+    if blocks == "auto":
+        return block_m, block_n, block_k, "auto"
+    if blocks != "default":
+        bm, bn, bk = parse_blocks(blocks)
+        return bm, bn, bk, "default"
+    return block_m, block_n, block_k, "default"
+
 
 #: Named Δ specs; other LUTs round-trip as ``lut:<d_max>:<r>``.
 DELTA_NAMES = {
@@ -38,6 +75,9 @@ DELTA_NAMES = {
     "exact": DELTA_EXACT,
 }
 _DELTA_REVERSE = {v: k for k, v in DELTA_NAMES.items()}
+
+#: The formats a spec may name: the linear fixed-point ones are refused.
+_LNS_FORMATS = {n: f for n, f in FORMATS.items() if isinstance(f, LNSFormat)}
 
 
 def _bad_value(key, got, valid):
@@ -92,6 +132,10 @@ class NumericsSpec:
                                         params/acts/grads
     ``compute_dtype``       compute_dtype  float32 | bfloat16 | float16
     ``backend``             backend     emulate | pallas (printed only)
+    ``interpret``           interpret   auto | on | off (printed only)
+    ``blocks``              blocks      default | auto | ``<M>x<N>x<K>``
+                                        (printed only)
+    ``metrics``             metrics     off | counters | full (printed only)
     ``reduce.mode``         reduce.mode  boxplus | float-psum
     ``reduce.grad_segments``  reduce.grad_segments  int >= 0
     ``reduce.schedule``     reduce.schedule  sequential | tree
@@ -103,11 +147,20 @@ class NumericsSpec:
     quantize: str = ""
     compute_dtype: str = "bfloat16"
     backend: str = "emulate"
+    interpret: str = "auto"
+    blocks: str = "default"
+    metrics: str = "counters"
     reduce: ReduceSpec = ReduceSpec()
 
     def __post_init__(self):
         if self.backend not in MATMUL_BACKENDS:
             raise _bad_value("backend", self.backend, MATMUL_BACKENDS)
+        if self.interpret not in INTERPRET_MODES:
+            raise _bad_value("interpret", self.interpret, INTERPRET_MODES)
+        if self.blocks not in ("default", "auto"):
+            parse_blocks(self.blocks)
+        if self.metrics not in METRICS_MODES:
+            raise _bad_value("metrics", self.metrics, METRICS_MODES)
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise _bad_value("compute_dtype", self.compute_dtype,
                              COMPUTE_DTYPES)
@@ -120,25 +173,59 @@ class NumericsSpec:
                            "+".join(a for a in QUANTIZE_AXES if a in toks))
         if self.quantize and self.fmt is None:
             raise ValueError(f"quantize={self.quantize!r} requires an LNS "
-                             f"fmt; valid fmt values: {', '.join(FORMATS)}")
-        if "grads" in toks and self.delta_spec is None:
+                             f"fmt; valid fmt values: "
+                             f"{', '.join(sorted(_LNS_FORMATS))}")
+        if self.quantize_grads and self.delta_spec is None:
             raise ValueError("quantize='...+grads' requires a delta spec")
         if self.delta_spec is not None and self.fmt is None:
             raise ValueError("a delta spec requires an LNS fmt")
 
+    @property
+    def quantize_params(self) -> bool:
+        return "params" in self.quantize.split("+")
+
+    @property
+    def quantize_acts(self) -> bool:
+        return "acts" in self.quantize.split("+")
+
+    @property
+    def quantize_grads(self) -> bool:
+        """End-to-end log-domain gradients (the ⊞-MAC backward path)."""
+        return "grads" in self.quantize.split("+")
+
+    # The JAX package's pre-spec field names.
+    @property
+    def lns_grad(self) -> bool:
+        return self.quantize_grads
+
+    @property
+    def exact_spec(self) -> Optional[DeltaSpec]:
+        return self.delta_spec
+
+    @property
+    def interpret_flag(self) -> Optional[bool]:
+        """The tri-state as the JAX package's kernels take it."""
+        return {"auto": None, "on": True, "off": False}[self.interpret]
+
     def with_(self, **kw) -> "NumericsSpec":
         """Validated copy with field overrides; dotted ``reduce.*`` keys
-        update the nested :class:`ReduceSpec`."""
-        reduce_kw = {}
-        for k in [k for k in kw if k.startswith("reduce.")]:
-            sub = k.split(".", 1)[1]
-            if sub not in _REDUCE_FIELDS:
-                raise _bad_value("override key", k, tuple(
-                    f"reduce.{f}" for f in _REDUCE_FIELDS))
-            reduce_kw[sub] = kw.pop(k)
+        update the nested :class:`ReduceSpec`.  Unknown keys raise with
+        the valid ones."""
+        names = {f.name for f in dataclasses.fields(self)}
+        reduce_keys = tuple(f"reduce.{f}" for f in _REDUCE_FIELDS)
+        flat, reduce_kw = {}, {}
+        for k, v in kw.items():
+            if k in reduce_keys:
+                reduce_kw[k.split(".", 1)[1]] = v
+            elif k in names:
+                flat[k] = v
+            else:
+                raise _bad_value("override key", k,
+                                 tuple(sorted(names)) + reduce_keys)
         if reduce_kw:
-            kw["reduce"] = kw.get("reduce", self.reduce).with_(**reduce_kw)
-        return dataclasses.replace(self, **kw)
+            flat["reduce"] = flat.get("reduce", self.reduce).with_(
+                **reduce_kw)
+        return dataclasses.replace(self, **flat)
 
     def _flat(self) -> dict:
         """Serialized ``key → value-string`` view (parse's inverse)."""
@@ -148,6 +235,9 @@ class NumericsSpec:
             "quantize": self.quantize or "none",
             "compute_dtype": self.compute_dtype,
             "backend": self.backend,
+            "interpret": self.interpret,
+            "blocks": self.blocks,
+            "metrics": self.metrics,
             "reduce.mode": self.reduce.mode,
             "reduce.grad_segments": str(self.reduce.grad_segments),
             "reduce.schedule": self.reduce.schedule,
@@ -165,6 +255,15 @@ class NumericsSpec:
                 best_name, best_diff = name, diff
         return best_name + "".join(
             f",{k}={best_diff[k]}" for k in sorted(best_diff))
+
+    @staticmethod
+    def explicit_keys(text: "str | NumericsSpec") -> frozenset:
+        """The ``key=value`` keys a spec string mentions (a spec object:
+        those its ``str()`` carries)."""
+        if isinstance(text, NumericsSpec):
+            text = str(text)
+        return frozenset(tok.split("=", 1)[0].strip()
+                         for tok in str(text).split(",") if "=" in tok)
 
     @staticmethod
     def parse(text: "str | NumericsSpec") -> "NumericsSpec":
@@ -199,24 +298,22 @@ def _delta_from_str(s: str) -> Optional[DeltaSpec]:
 
 
 _PARSE_KEYS = ("fmt", "delta", "quantize", "compute_dtype", "backend",
-               "reduce.mode", "reduce.grad_segments", "reduce.schedule")
+               "interpret", "blocks", "metrics", "reduce.mode",
+               "reduce.grad_segments", "reduce.schedule")
 
 
 def override_from_kv(key: str, value: str):
     """Map one serialized ``key``/``value`` pair to a ``with_`` override.
     Shared by the spec parser and the plan's rule parser."""
-    if key in UNPORTED_KEYS:
-        raise NotImplementedError(
-            f"spec key {key!r} is not ported yet (ROADMAP queue 1, the "
-            f"spec/plan items); ported keys: {', '.join(_PARSE_KEYS)}")
     if key not in _PARSE_KEYS:
         raise _bad_value("spec key", key, _PARSE_KEYS)
     if key == "fmt":
         if value == "none":
             return "fmt", None
-        if value not in FORMATS:
-            raise _bad_value("fmt", value, ("none",) + tuple(FORMATS))
-        return "fmt", FORMATS[value]
+        if value not in _LNS_FORMATS:
+            raise _bad_value("fmt", value,
+                             ("none",) + tuple(sorted(_LNS_FORMATS)))
+        return "fmt", _LNS_FORMATS[value]
     if key == "delta":
         return "delta_spec", _delta_from_str(value)
     if key == "quantize":
@@ -258,9 +355,23 @@ def _parse_cached(text: str) -> NumericsSpec:
     return apply_kv_overrides(spec, kv)
 
 
-#: The training aliases of the JAX package's registry.  Both run the same
-#: arithmetic here; the name keeps reference strings loading unchanged.
+#: The JAX package's nine aliases, in its order, so that ``str()``
+#: canonicalizes onto the same nearest alias in both packages.  The QAT and
+#: float ones parse and print; the paper MLP completes a spec without a
+#: fmt or Δ from its ``bits`` / ``approx``.  The two training aliases run
+#: the same arithmetic here.
 ALIASES = {
+    "fp32": NumericsSpec(compute_dtype="float32"),
+    "bf16": NumericsSpec(compute_dtype="bfloat16"),
+    "lns16-qat": NumericsSpec(fmt=LNS16, quantize="params+acts"),
+    "lns12-qat": NumericsSpec(fmt=LNS12, quantize="params+acts"),
+    "lns16-w-only": NumericsSpec(fmt=LNS16, quantize="params"),
+    "lns16-exact": NumericsSpec(
+        fmt=LNS16, quantize="params+acts", delta_spec=DELTA_DEFAULT,
+        compute_dtype="float32"),
+    "lns16-exact-pallas": NumericsSpec(
+        fmt=LNS16, quantize="params+acts", delta_spec=DELTA_DEFAULT,
+        compute_dtype="float32", backend="pallas"),
     "lns16-train-emulate": NumericsSpec(
         fmt=LNS16, quantize="params+acts+grads", delta_spec=DELTA_DEFAULT,
         compute_dtype="float32", backend="emulate"),

@@ -32,6 +32,7 @@ import pickle
 import shutil
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -53,14 +54,25 @@ class DPConfig:
     ``reduce.grad_segments`` fixes the canonical segmentation of the global
     batch; ``0`` resolves to ``num_devices``.  The device of the partials
     picks the combine's lane, so ``reduce_with_kernel`` is not ported: any
-    value but ``None`` raises.
+    value but ``None`` raises.  The JAX package's loose ``reduce_mode=`` /
+    ``grad_segments=`` / ``reduce_schedule=`` keywords fold into
+    ``reduce``, and the same names read back as properties.
     """
 
     num_devices: int = 1
     reduce: ReduceSpec = ReduceSpec()
     reduce_with_kernel: "bool | None" = None
+    reduce_mode: dataclasses.InitVar["str | None"] = None
+    grad_segments: dataclasses.InitVar["int | None"] = None
+    reduce_schedule: dataclasses.InitVar["str | None"] = None
 
-    def __post_init__(self):
+    def __post_init__(self, reduce_mode, grad_segments, reduce_schedule):
+        legacy = {k: v for k, v in (("mode", reduce_mode),
+                                    ("grad_segments", grad_segments),
+                                    ("schedule", reduce_schedule))
+                  if v is not None}
+        if legacy:
+            object.__setattr__(self, "reduce", self.reduce.with_(**legacy))
         if self.reduce_with_kernel is not None:
             raise NotImplementedError(
                 "DPConfig(reduce_with_kernel=) is not ported: the combine "
@@ -86,6 +98,13 @@ class DPConfig:
             raise ValueError(f"global batch {global_batch} not divisible "
                              f"into {s} canonical segments")
         return s
+
+
+# Read-back of the loose keywords, as views of ``reduce``.  The names double
+# as InitVars above, so the properties are attached after the class.
+DPConfig.reduce_mode = property(lambda self: self.reduce.mode)
+DPConfig.grad_segments = property(lambda self: self.reduce.grad_segments)
+DPConfig.reduce_schedule = property(lambda self: self.reduce.schedule)
 
 
 class LNSDataParallelMLP:
@@ -246,7 +265,10 @@ def run_device_count_invariance_check(device_counts=(1, 2, 4), *,
                                       seed: int = 0, init_params=None,
                                       device: str = "cuda",
                                       timeout: float = 300.0,
-                                      verbose: bool = False):
+                                      verbose: bool = False,
+                                      grad_segments=None,
+                                      matmul_backend=None,
+                                      reduce_mode=None):
     """Train the paper MLP at several rank counts, one process group of
     that size each, and compare the weight codes with
     :func:`reference_train_step`.
@@ -265,7 +287,10 @@ def run_device_count_invariance_check(device_counts=(1, 2, 4), *,
     ``momentum`` (``None`` without), ``loss``, ``matches_reference`` and
     ``replicas_agree``.  The momentum after the first step is the
     combined gradient itself, so it shows a combine in another order where
-    the weights may not.
+    the weights may not.  The loose ``grad_segments=`` /
+    ``matmul_backend=`` / ``reduce_mode=`` are the deprecated spelling of
+    the spec's keys: they fold into ``numerics`` with a
+    ``DeprecationWarning``.
     """
     from ..paper.mlp import (LNSMLP, MLPConfig, params_from_numpy,
                              params_to_numpy)
@@ -280,6 +305,17 @@ def run_device_count_invariance_check(device_counts=(1, 2, 4), *,
     ref_device = "cuda:0" if device == "cuda" else "cpu"
     plan = NumericsPlan.parse(
         numerics or "lns16-train-pallas,reduce.grad_segments=4")
+    legacy = {k: v for k, v in (("backend", matmul_backend),
+                                ("reduce.mode", reduce_mode),
+                                ("reduce.grad_segments", grad_segments))
+              if v is not None}
+    if legacy:
+        plan = plan.with_(**legacy)
+        warnings.warn(
+            f"run_device_count_invariance_check(matmul_backend=/"
+            f"reduce_mode=/grad_segments=) are deprecated; pass the "
+            f"unified descriptor instead: numerics={str(plan)!r}",
+            DeprecationWarning, stacklevel=2)
     segs = plan.reduce.grad_segments or 4
     plan = plan.with_(**{"reduce.grad_segments": segs})
     rng = np.random.default_rng(seed)

@@ -1,9 +1,9 @@
 """Plain oracles for the ⊞-MAC kernels: the *unfused compositions* of
 ``core`` ops that each fused kernel folds into one pass.
 
-Every oracle is the sequential ``core.arithmetic.lns_matmul`` on suitably
-transposed operands, followed by the separate epilogue ops; comparisons
-against the kernels are bit-exact.
+Every oracle is ``core.arithmetic.lns_matmul(..., order="sequential")``
+on suitably transposed operands, followed by the separate epilogue ops;
+comparisons against the kernels are bit-exact.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from ...core.sgd import UpdateEpilogue, apply_update_codes
 def lns_matmul_ref(x: LNSArray, w: LNSArray, *, fmt: LNSFormat,
                    spec: DeltaSpec) -> LNSArray:
     """Z = X ⊞-MAC W, sequential over K."""
-    return lns_matmul(x, w, cached_engine(spec, fmt))
+    return lns_matmul(x, w, cached_engine(spec, fmt), order="sequential")
 
 
 def lns_matmul_fused_ref(x: LNSArray, w: LNSArray, *, fmt: LNSFormat,
@@ -30,7 +30,7 @@ def lns_matmul_fused_ref(x: LNSArray, w: LNSArray, *, fmt: LNSFormat,
     ``convert_format`` per the :class:`FwdEpilogue`.  Returns ``(z,
     z_sign)`` with ``z_sign`` the post-bias pre-activation sign plane."""
     eng = cached_engine(spec, fmt)
-    z = lns_matmul(x, w, eng)
+    z = lns_matmul(x, w, eng, order="sequential")
     if epilogue.bias:
         z = bias_add(z, bias, eng)
     z_sign = z.sign
@@ -44,13 +44,15 @@ def lns_matmul_fused_ref(x: LNSArray, w: LNSArray, *, fmt: LNSFormat,
 def lns_matmul_dx_ref(dy: LNSArray, w: LNSArray, *, fmt: LNSFormat,
                       spec: DeltaSpec) -> LNSArray:
     """dX = dY ⊞-MAC Wᵀ, sequential over N."""
-    return lns_matmul(dy, w.T, cached_engine(spec, fmt))
+    return lns_matmul(dy, w.T, cached_engine(spec, fmt),
+                      order="sequential")
 
 
 def lns_matmul_dw_ref(x: LNSArray, dy: LNSArray, *, fmt: LNSFormat,
                       spec: DeltaSpec) -> LNSArray:
     """dW = Xᵀ ⊞-MAC dY, sequential over M."""
-    return lns_matmul(x.T, dy, cached_engine(spec, fmt))
+    return lns_matmul(x.T, dy, cached_engine(spec, fmt),
+                      order="sequential")
 
 
 def lns_matmul_dw_partials_ref(x: LNSArray, dy: LNSArray, *,
@@ -76,5 +78,6 @@ def lns_matmul_dw_update_ref(x: LNSArray, dy: LNSArray, *, w: LNSArray,
     """dW = Xᵀ ⊞-MAC dY (sequential over M), then the unfused ⊞-SGD.
     Returns ``(w_new, m_new)``."""
     eng = cached_engine(spec, fmt)
-    return apply_update_codes(w, lns_matmul(x.T, dy, eng), m, epilogue, eng)
+    return apply_update_codes(w, lns_matmul(x.T, dy, eng, order="sequential"),
+                              m, epilogue, eng)
 

@@ -1,6 +1,13 @@
-"""The paper's MLP (784–100–K) trained end to end in the log domain.
+"""The paper's MLP (784–100–K) in its three arithmetic backends (Sec. 4/5).
 
-Backprop follows eq. (10)-(14): δ2 = P ⊟ Y, gW2 = a1ᵀ ⊡⊞ δ2,
+* ``float`` — float32 linear-domain reference (:class:`FloatMLP`);
+* ``fxp``   — linear-domain fixed point, 12 or 16 bits, hand backprop,
+              optionally with stochastic rounding of the update
+              (:class:`FxpMLP`);
+* ``lns``   — end-to-end log-domain fixed point (:class:`LNSMLP`), the
+              paper's contribution, with the hand-written CUDA kernels.
+
+The LNS backprop follows eq. (10)-(14): δ2 = P ⊟ Y, gW2 = a1ᵀ ⊡⊞ δ2,
 δ1 = (δ2 ⊡⊞ W2ᵀ) ⊡ llReLU'(z1), gW1 = xᵀ ⊡⊞ δ1, ⊞-SGD per core/sgd.py.
 Every forward / backward / update quantity is an LNS code; the CE loss is
 a monitoring readout only.
@@ -22,24 +29,32 @@ Arithmetic is per layer: ``MLPConfig.spec`` is a
 :class:`~repro_torch.core.plan.NumericsPlan` over the layer paths
 ``"hidden"`` (w1/b1) and ``"out"`` (w2/b2); ``"lns16-train-pallas;hidden=
 fmt:lns12"`` trains the hidden layer in lns12 with exact integer shifts at
-the format boundary.  Where the step runs follows the model's ``device``:
+the format boundary.  Where a step runs follows the model's ``device``:
 the CUDA kernels on a card, their plain PyTorch versions on the CPU,
-bit-exact to each other and to the JAX package.
+bit-exact to each other and to the JAX package.  The float and fixed-point
+baselines reach no TPU kernel in the JAX package and none here: their
+products are ``torch.matmul`` in float32 (never TF32) and a broadcast
+int32 product-and-sum.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..core import f32
 from ..core.activations import beta_code, llrelu, llrelu_grad_from_sign
 from ..core.arithmetic import boxdot, boxsum
 from ..core.delta import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT,
                           DELTA_SOFTMAX, DeltaEngine, DeltaSpec, cached_engine)
-from ..core.formats import LNS12, LNS16
-from ..core.initializers import he_sigma, log_normal_init
+from ..core.formats import FXP12, FXP16, LNS12, LNS16
+from ..core.initializers import he_sigma, linear_normal_init, log_normal_init
+from ..core.linear_fixed import (fxp_affine, fxp_decode, fxp_encode,
+                                 fxp_leaky_relu, fxp_leaky_relu_grad,
+                                 fxp_matmul, fxp_mul, fxp_sat)
 from ..core.lns import (LNSArray, LNSMatmulBackend, convert_format, encode,
                         zeros)
 from ..core.plan import NumericsPlan
@@ -66,18 +81,28 @@ class MLPConfig:
     n_out: int = 10
     lr: float = 0.01
     weight_decay: float = 0.0
-    momentum: float = 0.0
+    momentum: float = 0.0           # lns only: ⊞-momentum
     bits: int = 16                  # 12 or 16
-    approx: str = "lut"             # 'lut' | 'bitshift' | 'exact'
+    approx: str = "lut"             # 'lut' | 'bitshift' | 'exact' (lns)
+    stochastic_round: bool = False  # fxp only: SR on the weight update
     spec: Any = None                # NumericsPlan | NumericsSpec | string |
                                     # None (→ from bits/approx); normalized
                                     # to a NumericsPlan
-    fused: bool = True              # flush-time kernel epilogues; False =
-                                    # the separate-pass step, same codes
-    data_parallel: int = 1          # ranks of the data-parallel step
+    matmul_block: int = 32          # carried for the JAX package's
+                                    # signature; routes nothing: the CUDA
+                                    # kernels' launch shape is their own
+    fused: bool = True              # lns only: flush-time kernel
+                                    # epilogues; False = the separate-pass
+                                    # step, same codes
+    data_parallel: int = 1          # lns only: ranks of the DP step
     faults: Any = None              # fault injection (not ported)
+    # -- the JAX package's loose knobs, deprecated: fold into ``spec`` ----
+    matmul_backend: dataclasses.InitVar[Any] = None   # → spec.backend
+    reduce_mode: dataclasses.InitVar[Any] = None      # → spec.reduce.mode
+    grad_segments: dataclasses.InitVar[Any] = None    # → spec.reduce
+                                                      #   .grad_segments
 
-    def __post_init__(self):
+    def __post_init__(self, matmul_backend, reduce_mode, grad_segments):
         if self.faults is not None:
             raise NotImplementedError(
                 "fault injection (resil/) is not ported yet: ROADMAP queue 1")
@@ -87,6 +112,21 @@ class MLPConfig:
             spec = NumericsPlan(NumericsSpec(
                 fmt=self.lns_fmt, delta_spec=_APPROX_DELTA[self.approx],
                 quantize="params+acts+grads", compute_dtype="float32"))
+        # A legacy value equal to what the spec already says stays silent:
+        # dataclasses.replace() passes the read-back values of these names.
+        current = {"backend": spec.backend, "reduce.mode": spec.reduce.mode,
+                   "reduce.grad_segments": spec.reduce.grad_segments}
+        legacy = {k: v for k, v in (("backend", matmul_backend),
+                                    ("reduce.mode", reduce_mode),
+                                    ("reduce.grad_segments", grad_segments))
+                  if v is not None and v != current[k]}
+        if legacy:
+            spec = spec.with_(**legacy)
+            warnings.warn(
+                f"MLPConfig(matmul_backend=/reduce_mode=/grad_segments=) "
+                f"are deprecated; pass the unified descriptor instead: "
+                f"MLPConfig(spec={str(spec)!r})",
+                DeprecationWarning, stacklevel=3)
         object.__setattr__(self, "spec", spec)
 
     @property
@@ -96,11 +136,22 @@ class MLPConfig:
         return LNS16 if self.bits == 16 else LNS12
 
     @property
+    def fxp_fmt(self):
+        return FXP16 if self.bits == 16 else FXP12
+
+    @property
     def delta_spec(self) -> DeltaSpec:
         if (isinstance(self.spec, NumericsPlan)
                 and self.spec.delta_spec is not None):
             return self.spec.delta_spec
         return _APPROX_DELTA[self.approx]
+
+    @property
+    def softmax_spec(self) -> DeltaSpec:
+        """The softmax's Δ: the r = 1/64 table, also under bit-shifts
+        (the paper's approximation-sensitive block), or exact."""
+        return DELTA_EXACT if self.delta_spec.kind == "exact" \
+            else DELTA_SOFTMAX
 
     def plan(self) -> NumericsPlan:
         """The plan with its default completed from ``bits`` / ``approx``
@@ -109,6 +160,14 @@ class MLPConfig:
         if plan.fmt is None or plan.delta_spec is None:
             plan = plan.with_(fmt=self.lns_fmt, delta_spec=self.delta_spec)
         return plan
+
+
+# Read-back of the deprecated keywords, as views of the spec.  The names
+# double as InitVars above, so the properties are attached after the class.
+MLPConfig.matmul_backend = property(lambda self: self.spec.backend)
+MLPConfig.reduce_mode = property(lambda self: self.spec.reduce.mode)
+MLPConfig.grad_segments = property(
+    lambda self: self.spec.reduce.grad_segments)
 
 
 def _device(device) -> torch.device:
@@ -122,6 +181,179 @@ def _device(device) -> torch.device:
     return device
 
 
+class _PaperMLP:
+    """What the three backends share: the config, the device and the
+    batch's move onto it."""
+
+    def __init__(self, cfg: MLPConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = _device(device)
+
+    def _inputs(self, xb, yb=None):
+        x = torch.as_tensor(xb, dtype=torch.float32, device=self.device)
+        if yb is None:
+            return x
+        return x, torch.as_tensor(yb, device=self.device).long()
+
+
+def _leaky(z: torch.Tensor) -> torch.Tensor:
+    return torch.where(z > 0, z, ALPHA * z)
+
+
+# ---------------------------------------------------------------- float --
+class FloatMLP(_PaperMLP):
+    """float32 linear-domain reference: autograd of the batch's summed NLL
+    (no 1/B, as the MAC array accumulates per-sample outer products), plain
+    SGD with weight decay.  On a card its products must run in float32,
+    not TF32."""
+
+    def __init__(self, cfg: MLPConfig, device="cuda"):
+        super().__init__(cfg, device)
+        if self.device.type == "cuda" and (
+                torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise RuntimeError(
+                "FloatMLP is the float32 baseline: set "
+                "torch.backends.cuda.matmul.allow_tf32 = False and "
+                "torch.set_float32_matmul_precision('highest')")
+
+    def init(self, gen: torch.Generator):
+        """He-normal weights drawn from ``gen``, then moved to the device."""
+        c = self.cfg
+        params = dict(
+            w1=linear_normal_init(gen, (c.n_in, c.n_hidden), he_sigma(c.n_in)),
+            b1=torch.zeros(c.n_hidden),
+            w2=linear_normal_init(gen, (c.n_hidden, c.n_out),
+                                  he_sigma(c.n_hidden)),
+            b2=torch.zeros(c.n_out))
+        return {k: v.to(self.device) for k, v in params.items()}
+
+    @staticmethod
+    def _logits(p, x):
+        return _leaky(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+    def train_step(self, params, xb, yb):
+        """One step; returns (params, summed NLL)."""
+        c = self.cfg
+        x, y = self._inputs(xb, yb)
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        nll = -torch.log_softmax(self._logits(p, x), dim=-1).gather(
+            1, y[:, None]).sum()
+        grads = torch.autograd.grad(nll, list(p.values()))
+        new = {k: (w - c.lr * (g + c.weight_decay * w)).detach()
+               for (k, w), g in zip(params.items(), grads)}
+        return new, nll.detach()
+
+    @torch.no_grad()
+    def predict(self, params, xb) -> torch.Tensor:
+        return torch.argmax(self._logits(params, self._inputs(xb)), dim=-1)
+
+
+# ------------------------------------------------------------------ fxp --
+def sr_update(w: torch.Tensor, g: torch.Tensor, lr_code: int,
+              r: torch.Tensor, fmt) -> torch.Tensor:
+    """w - lr·g with stochastic rounding (Gupta et al. 2015): the raw
+    product carries 2·bf fraction bits, and its low bf bits round the step
+    up where they exceed the rounding bits ``r`` (uniform on [0, 2^bf)),
+    so sub-resolution updates survive in expectation."""
+    raw = lr_code * g
+    step = (raw >> fmt.bf) + ((raw & (fmt.scale - 1)) > r).to(torch.int32)
+    return fxp_sat(w - step, fmt)
+
+
+class FxpMLP(_PaperMLP):
+    """Linear-domain fixed point, the paper's Table 1 baseline; int32 codes
+    throughout.  The softmax / CE gradient is float on the decoded logits
+    and re-encoded (a fine exp table in hardware)."""
+
+    def __init__(self, cfg: MLPConfig, device="cuda"):
+        super().__init__(cfg, device)
+        self.fmt = f = cfg.fxp_fmt
+        self.alpha = int(fxp_encode(ALPHA, f))
+        self.lr_code = int(fxp_encode(cfg.lr, f))
+
+    def init(self, gen: torch.Generator):
+        """He-normal weights drawn from ``gen`` and encoded, then moved to
+        the device."""
+        c, f = self.cfg, self.fmt
+        params = dict(
+            w1=fxp_encode(linear_normal_init(
+                gen, (c.n_in, c.n_hidden), he_sigma(c.n_in)), f),
+            b1=torch.zeros(c.n_hidden, dtype=torch.int32),
+            w2=fxp_encode(linear_normal_init(
+                gen, (c.n_hidden, c.n_out), he_sigma(c.n_hidden)), f),
+            b2=torch.zeros(c.n_out, dtype=torch.int32))
+        return {k: v.to(self.device) for k, v in params.items()}
+
+    def _forward(self, params, x):
+        f = self.fmt
+        x = fxp_encode(x, f)
+        z1 = fxp_affine(x, params["w1"], params["b1"], f)
+        a1 = fxp_leaky_relu(z1, self.alpha, f)
+        return x, z1, a1, fxp_affine(a1, params["w2"], params["b2"], f)
+
+    def rounding_bits(self, params, gen: torch.Generator) -> dict:
+        """The stochastic rounding's bits, uniform int32 on [0, 2^bf), one
+        per weight, drawn from the CPU generator ``gen`` in the order w1,
+        b1, w2, b2 and moved to the device: every device sees the same."""
+        return {k: torch.randint(0, self.fmt.scale, params[k].shape,
+                                 generator=gen, dtype=torch.int32
+                                 ).to(self.device)
+                for k in ("w1", "b1", "w2", "b2")}
+
+    def gradients(self, params, xb, yb):
+        """The int32 gradient of every weight, and the mean NLL readout."""
+        c, f = self.cfg, self.fmt
+        xf, y = self._inputs(xb, yb)
+        x, z1, a1, z2 = self._forward(params, xf)
+        logits = fxp_decode(z2, f)
+        onehot = torch.nn.functional.one_hot(y, c.n_out).to(torch.float32)
+        d2 = fxp_encode(f32.softmax(logits) - onehot, f)
+        bp = fxp_matmul(d2, params["w2"].T, f)
+        d1 = fxp_mul(bp, fxp_leaky_relu_grad(z1, self.alpha, f), f)
+        grads = dict(
+            w1=fxp_matmul(x.T, d1, f),
+            b1=fxp_sat(torch.sum(d1, dim=0, dtype=torch.int32), f),
+            w2=fxp_matmul(a1.T, d2, f),
+            b2=fxp_sat(torch.sum(d2, dim=0, dtype=torch.int32), f))
+        nll = -torch.log_softmax(logits, dim=-1).gather(1, y[:, None]).mean()
+        return grads, nll
+
+    def update(self, params, grads, r=None):
+        """w - lr·g for every weight: rounded to nearest, or stochastically
+        with the rounding bits ``r`` (:meth:`rounding_bits`)."""
+        f = self.fmt
+        if r is None:
+            return {k: fxp_sat(w - fxp_mul(self.lr_code, grads[k], f), f)
+                    for k, w in params.items()}
+        return {k: sr_update(w, grads[k], self.lr_code, r[k], f)
+                for k, w in params.items()}
+
+    def train_step(self, params, xb, yb, gen: torch.Generator = None):
+        """One step; returns (params, mean NLL readout).  With
+        ``cfg.stochastic_round`` and a CPU generator the update rounds
+        stochastically with bits drawn from it, else to nearest."""
+        grads, nll = self.gradients(params, xb, yb)
+        r = (self.rounding_bits(params, gen)
+             if self.cfg.stochastic_round and gen is not None else None)
+        return self.update(params, grads, r), nll
+
+    def predict(self, params, xb) -> torch.Tensor:
+        return torch.argmax(self._forward(params, self._inputs(xb))[3],
+                            dim=-1)
+
+    def apply_decay(self, params, every: int):
+        """Periodic weight decay: the per-step constant lr·λ underflows
+        narrow fixed point (code 0 at bf = 7), so the decay runs every
+        ``every`` steps with the representable every·lr·λ; the 12-bit runs
+        need it (the paper's larger regularization, Sec. 5)."""
+        f, c = self.fmt, self.cfg
+        wd = int(fxp_encode(every * c.lr * c.weight_decay, f))
+        return {k: fxp_sat(w - fxp_mul(wd, w, f), f)
+                for k, w in params.items()}
+
+
+# ------------------------------------------------------------------ lns --
 def segmented_boxsum(d: LNSArray, num_segments: int, eng) -> LNSArray:
     """Per-segment sequential ⊞-fold over the batch axis: (B, K) → (S, K);
     slot s folds segment s's rows only (the bias side of the
@@ -132,14 +364,13 @@ def segmented_boxsum(d: LNSArray, num_segments: int, eng) -> LNSArray:
                   eng, order="sequential")
 
 
-class LNSMLP:
+class LNSMLP(_PaperMLP):
     """End-to-end log-domain training (the paper's contribution) on
     ``device``; parameters are dicts of :class:`LNSArray` on that device.
     """
 
     def __init__(self, cfg: MLPConfig, device="cuda"):
-        self.cfg = cfg
-        self.device = _device(device)
+        super().__init__(cfg, device)
         self.plan = cfg.plan().validate_paths(LAYER_PATHS)
         specs = {p: self.plan.resolve(p) for p in LAYER_PATHS}
         self.fmts = {p: specs[p].fmt for p in LAYER_PATHS}
@@ -302,12 +533,6 @@ class LNSMLP:
             return new_p, loss
         return new_p, new_m, loss
 
-    def _inputs(self, xb, yb=None):
-        x = torch.as_tensor(xb, dtype=torch.float32, device=self.device)
-        if yb is None:
-            return x
-        return x, torch.as_tensor(yb, device=self.device).long()
-
     def train_step(self, params, xb, yb, momentum=None):
         """One step on a batch (numpy or tensors); returns (params, loss),
         or (params, momentum, loss) when a momentum dict is passed."""
@@ -324,26 +549,37 @@ class LNSMLP:
 
 
 def params_from_numpy(d: dict, device="cuda") -> dict:
-    """``{"w1","b1","w2","b2"}`` → ``(code int32, sign int8)`` numpy pairs
-    (e.g. ``np.asarray`` of the JAX package's parameters) as LNSArrays on
-    ``device``.  Momentum state has the same form."""
+    """Parameters as numpy (e.g. ``np.asarray`` of the JAX package's) onto
+    ``device``: an LNS parameter is a ``(code int32, sign int8)`` pair and
+    becomes an :class:`LNSArray`; a float or fixed-point one is a plain
+    array and keeps its dtype.  Momentum state has the LNS form."""
     device = _device(device)
-    return {k: LNSArray(torch.as_tensor(np.array(c, np.int32),
-                                        device=device),
-                        torch.as_tensor(np.array(s, np.int8), device=device))
-            for k, (c, s) in d.items()}
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, (tuple, list)):
+            c, s = v
+            out[k] = LNSArray(
+                torch.as_tensor(np.array(c, np.int32), device=device),
+                torch.as_tensor(np.array(s, np.int8), device=device))
+        else:
+            out[k] = torch.as_tensor(np.array(v), device=device)
+    return out
 
 
 def params_to_numpy(params: dict) -> dict:
     """Inverse of :func:`params_from_numpy`."""
-    return {k: (v.code.cpu().numpy(), v.sign.cpu().numpy())
+    return {k: ((v.code.cpu().numpy(), v.sign.cpu().numpy())
+                if isinstance(v, LNSArray) else v.cpu().numpy())
             for k, v in params.items()}
 
 
+BACKENDS = {"float": FloatMLP, "fxp": FxpMLP, "lns": LNSMLP}
+
+
 def make_mlp(backend: str, cfg: MLPConfig, device="cuda"):
-    """The paper MLP of ``backend`` on ``device``.  With
-    ``cfg.data_parallel > 1`` or a spec that sets
-    ``reduce.grad_segments``, the data-parallel model
+    """The paper MLP of ``backend`` (``BACKENDS``) on ``device``.  An LNS
+    config with ``data_parallel > 1`` or a spec that sets
+    ``reduce.grad_segments`` gives the data-parallel model
     (:class:`~repro_torch.distributed.lns_dp.LNSDataParallelMLP`), so that
     one- and many-rank runs sharing a segmentation give the same codes."""
     if cfg.data_parallel > 1 and backend != "lns":
@@ -351,13 +587,13 @@ def make_mlp(backend: str, cfg: MLPConfig, device="cuda"):
             f"data_parallel={cfg.data_parallel} is the LNS data-parallel "
             f"step (distributed/lns_dp); the {backend!r} backend has no "
             f"deterministic-reduce train step")
-    if backend != "lns":
-        raise NotImplementedError(
-            f"the {backend!r} MLP (FloatMLP / FxpMLP) is not ported yet: "
-            f"ROADMAP queue 1")
-    if cfg.data_parallel > 1 or cfg.spec.reduce.grad_segments:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; valid values: "
+                         f"{', '.join(BACKENDS)}")
+    if backend == "lns" and (cfg.data_parallel > 1
+                             or cfg.spec.reduce.grad_segments):
         from ..distributed.lns_dp import DPConfig, LNSDataParallelMLP
         return LNSDataParallelMLP(
             cfg, DPConfig(num_devices=cfg.data_parallel,
                           reduce=cfg.spec.reduce), device)
-    return LNSMLP(cfg, device)
+    return BACKENDS[backend](cfg, device)

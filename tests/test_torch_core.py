@@ -233,7 +233,7 @@ def test_lns_matmul_sequential(kind):
     jx, tx = _lns_pair(rng, (6, 40), "lns16", zero_frac=0.5)
     jw, tw = _lns_pair(rng, (40, 9), "lns16", scale=0.1)
     _eq(J.lns_matmul(jx, jw, J.DeltaEngine(js, jf), order="sequential"),
-        T.lns_matmul(tx, tw, T.DeltaEngine(ts, tf)))
+        T.lns_matmul(tx, tw, T.DeltaEngine(ts, tf), order="sequential"))
 
 
 # ------------------------------------------------- activations, softmax --

@@ -258,9 +258,9 @@ def test_float_psum_within_reference_tolerance():
 
 def test_dpconfig_like_reference():
     """``DPConfig`` on the ported surface (``num_devices``, ``reduce``,
-    ``from_spec``, ``segments``) against the reference's; the loose legacy
-    keywords are not ported, and ``reduce_with_kernel`` routes nothing, so
-    any value but ``None`` raises."""
+    ``from_spec``, ``segments``, the loose legacy keywords) against the
+    reference's; ``reduce_with_kernel`` routes nothing, so any value but
+    ``None`` raises."""
     from repro.distributed.lns_dp import DPConfig as JDPConfig
     with pytest.raises(ValueError):
         T.ReduceSpec(mode="ring-allreduce")
@@ -289,8 +289,10 @@ def test_dpconfig_like_reference():
     for flag in (True, False):
         with pytest.raises(NotImplementedError, match="reduce_with_kernel"):
             DPConfig(reduce_with_kernel=flag)
-    with pytest.raises(TypeError):
-        DPConfig(reduce_mode="float-psum")
+    # The loose keywords fold into ``reduce`` as in the reference.
+    assert DPConfig(reduce_mode="float-psum").reduce == T.ReduceSpec(
+        "float-psum") and JDPConfig(reduce_mode="float-psum").reduce_mode \
+        == DPConfig(reduce_mode="float-psum").reduce_mode == "float-psum"
 
 
 def test_missing_or_smaller_group_raises():

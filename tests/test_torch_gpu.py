@@ -493,3 +493,58 @@ def test_invariance_check_on_card(cuda):
     ok, runs = run_device_count_invariance_check(
         (1,), momentum=0.9, timeout=300)
     assert ok and runs[1]["matches_reference"] and runs[1]["replicas_agree"]
+
+
+# ------------------------------------------------- the Table 1 baselines --
+
+def test_tf32_is_off(cuda):
+    """The float baseline is float32 on the card: no TF32 in its products."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.parametrize("sr", [False, True], ids=["nearest", "sr"])
+@pytest.mark.parametrize("bits", [16, 12])
+def test_fxp_steps_card_equal_cpu(cuda, bits, sr):
+    """20 full-width fixed-point steps of batch 5 on the card, the decay
+    after step 16: int32 codes equal to the CPU lane after every step, the
+    rounding bits drawn from the same CPU generator."""
+    x, y, _, _, _ = datasets.load("mnist", "data", 0)
+    cfg = MLPConfig(bits=bits, stochastic_round=sr, weight_decay=0.3)
+    models = {d: make_mlp("fxp", cfg, device=d) for d in ("cuda", "cpu")}
+    params = {d: m.init(torch.Generator().manual_seed(4))
+              for d, m in models.items()}
+    for step in range(20):
+        sl = slice(step * 5, (step + 1) * 5)
+        for d, m in models.items():
+            gen = torch.Generator().manual_seed(step) if sr else None
+            params[d], _ = m.train_step(params[d], x[sl], y[sl], gen)
+            if (step + 1) % 16 == 0:
+                params[d] = m.apply_decay(params[d], 16)
+        got, want = (params_to_numpy(params[d]) for d in ("cuda", "cpu"))
+        for k in want:
+            assert got[k].dtype == want[k].dtype == np.int32
+            np.testing.assert_array_equal(got[k], want[k],
+                                          err_msg=f"{k}@{step}")
+    xv = x[1000:1500]
+    assert torch.equal(models["cuda"].predict(params["cuda"], xv).cpu(),
+                       models["cpu"].predict(params["cpu"], xv))
+
+
+def test_float_steps_card_match_cpu(cuda):
+    """20 full-width float32 steps on the card within rtol 1e-5, atol 1e-6
+    of the CPU lane (float sums in another order)."""
+    x, y, _, _, _ = datasets.load("mnist", "data", 0)
+    cfg = MLPConfig(weight_decay=0.01)
+    models = {d: make_mlp("float", cfg, device=d) for d in ("cuda", "cpu")}
+    params = {d: m.init(torch.Generator().manual_seed(4))
+              for d, m in models.items()}
+    for step in range(20):
+        sl = slice(step * 5, (step + 1) * 5)
+        for d, m in models.items():
+            params[d], _ = m.train_step(params[d], x[sl], y[sl])
+    got, want = (params_to_numpy(params[d]) for d in ("cuda", "cpu"))
+    for k in want:
+        assert got[k].dtype == want[k].dtype == np.float32
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)

@@ -384,11 +384,11 @@ def test_unported_products_and_bad_inputs_raise():
         TK.mac_plain(x.code, x.sign, x.code, x.sign, a_contract_axis=0,
                      b_contract_axis=0, fmt=T.LNS16, spec=T.DELTA_DEFAULT,
                      segments=2, fwd_epilogue=TK.FwdEpilogue())
-    # The reference kernels' interpret / blocks switches stay unported.
+    # The reference kernels' interpret / blocks switches parse and print,
+    # and route nothing: the operands' device picks the lane.
     for text in ("lns16-train-pallas,interpret=on",
                  "lns16-train-pallas,blocks=auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.NumericsSpec.parse(text)
+        assert str(T.NumericsSpec.parse(text)) == text
     ep = T.UpdateEpilogue.from_sgd(T.LogSGDConfig(momentum=0.9), T.LNS16)
     with pytest.raises(ValueError, match="momentum"):
         be.fused_update(x, x, None, ep)

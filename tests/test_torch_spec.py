@@ -74,14 +74,14 @@ def test_spec_aliases_match_reference():
 
 
 @pytest.mark.parametrize("text,err", [
-    ("lns16-train-pallas,interpret=on", NotImplementedError),
-    ("lns16-train-pallas,blocks=auto", NotImplementedError),
-    ("lns16-train-pallas;hidden=metrics:full", NotImplementedError),
+    ("lns16-train-pallas,interpret=maybe", ValueError),
+    ("lns16-train-pallas,blocks=8x0x8", ValueError),
+    ("lns16-train-pallas;hidden=metrics:loud", ValueError),
     ("lns16-train-pallas,backend=cuda", ValueError),
     ("lns16-train-pallas,fmt=lns9", ValueError),
     ("lns16-train-pallas,delta=lut:x:y", ValueError),
     ("lns16-train-pallas,colour=red", ValueError),
-    ("lns16-qat", ValueError),
+    ("lns16-qat8", ValueError),
     ("lns16-train-pallas;hidden", ValueError),
     ("lns16-train-pallas;hid:den=fmt:lns12", ValueError),
     ("lns16-train-pallas;hidden=fmt:lns12,fmt:lns16", ValueError),
