@@ -54,7 +54,18 @@ the result line:
    kernel (counters set to 0 before, read after).  Then the Table 1 grid
    (the eight configs of ``repro_torch.benchmarks.table1_accuracy``) on
    the card, one epoch of 150 steps each, a line per run with its test
-   accuracy and wall seconds.
+   accuracy and wall seconds;
+8. telemetry, faults and guardrails: ``train_step_metrics`` of the fused,
+   unfused and segmented steps at full width (and the fused step at
+   ``metrics=full``, the Δ-table occupancy replay), each path's launch
+   counters set to 0 just before it and read just after, must give the
+   card's ``train_step`` codes and the CPU lane's codes and taps;
+   ``train_step_faults`` under bit flips, stuck lanes, a corrupted Δ
+   table and (segmented) segment faults must give the CPU lane's codes,
+   so the threefry on the card draws the CPU's bits; the three drills of
+   ``repro_torch.launch.drill`` on the card must give the CPU lane's rows
+   but for ``lane``; then ms per step of ``train_step``,
+   ``train_step_metrics`` and ``train_step_faults`` in turns.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Runs in well under the 1200 s limit
@@ -1041,6 +1052,276 @@ def baselines(torch, card):
     return counts
 
 
+# ------------------------------------------------------------- phase 8 --
+
+#: The faulted steps' plan: bit flips of w and of the activations and two
+#: stuck lanes in the hidden layer in the window [2, 4), three corrupted
+#: entries in each of the output layer's Δ tables.
+FAULTS = ("seed=3,start=2,stop=4;hidden=flip_w:0.01,flip_act:0.01,"
+          "sat_lanes:2;out=lut:3")
+#: The segmented step's plan adds a dropped and a duplicated segment.
+SEG_FAULTS = FAULTS + ";hidden=drop_seg:1;out=dup_seg:2"
+#: path → (spec, MLPConfig keywords, kernel launches per step).
+PHASE8_PATHS = {
+    "fused": ("lns16-train-pallas", {},
+              dict(lns_matmul_fused=2, lns_matmul_dx=1,
+                   lns_matmul_dw_update=2, lns_fused_update=2)),
+    "unfused": ("lns16-train-pallas", {"fused": False},
+                dict(lns_matmul=2, lns_matmul_dx=1, lns_matmul_dw=2)),
+    "segmented": (SEGMENTED, {},
+                  dict(lns_matmul_fused=2, lns_matmul_dx=1,
+                       lns_matmul_dw_partials=2, lns_boxsum=1,
+                       lns_fused_update=4)),
+    "fused-full": ("lns16-train-pallas;hidden=metrics:full", {},
+                   dict(lns_matmul_fused=2, lns_matmul_dx=1,
+                        lns_matmul_dw_update=2, lns_fused_update=2)),
+}
+PHASE8_STEPS = 8
+PHASE8_TIMED = 40
+
+
+def _codes(params):
+    from repro_torch.paper import params_to_numpy
+    return params_to_numpy(params)
+
+
+def _equal_codes(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(a[k][0], b[k][0])
+               and np.array_equal(a[k][1], b[k][1]) for k in b)
+
+
+def _counted(torch, fn):
+    """Run ``fn`` with the launch counters set to 0 just before and read
+    just after; returns (fn's result, the counts that are not 0)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in launch_counts().items() if v}
+
+
+def _phase8_model(path, device, faults=None):
+    from repro_torch.paper.mlp import MLPConfig, make_mlp
+    spec, kw, _ = PHASE8_PATHS[path]
+    return make_mlp("lns", MLPConfig(spec=spec, momentum=0.9,
+                                     weight_decay=0.01, faults=faults, **kw),
+                    device)
+
+
+def _expect(path, counts, steps, what):
+    want = {k: v * steps for k, v in PHASE8_PATHS[path][2].items()}
+    if counts != want:
+        raise AssertionError(f"{what} {path}: launch counts {counts}, "
+                             f"expected {want}")
+
+
+def phase8_metrics(torch, x, y, init):
+    """``train_step_metrics`` of each path on the card against the card's
+    ``train_step`` and the CPU lane's metrics step; returns per path the
+    launch counts of the card's metrics run."""
+    from repro_torch.obs import host_taps
+    from repro_torch.paper import params_from_numpy
+    import numpy as np
+    out = {}
+    for path in PHASE8_PATHS:
+        steps = 3 if path == "fused-full" else PHASE8_STEPS
+        runs = {}
+        for device, entry in (("cuda", "plain"), ("cuda", "metrics"),
+                              ("cpu", "metrics")):
+            model = _phase8_model(path, device)
+            params = params_from_numpy(init, device)
+            mom = model.init_momentum(params)
+
+            def run():
+                nonlocal params, mom
+                codes, taps = [], []
+                for i in range(steps):
+                    sl = slice(i * BATCH, (i + 1) * BATCH)
+                    if entry == "plain":
+                        params, mom, _ = model.train_step(params, x[sl],
+                                                          y[sl], mom)
+                    else:
+                        (params, mom, _), t = model.train_step_metrics(
+                            params, x[sl], y[sl], mom)
+                        taps.append(host_taps(t))
+                    codes.append((_codes(params), _codes(mom)))
+                return codes, taps
+            if device == "cuda":
+                runs[entry], counts = _counted(torch, run)
+                _expect(path, counts, steps, f"{entry} step")
+                if entry == "metrics":
+                    out[path] = counts
+            else:
+                runs["cpu"] = run()
+        for i in range(steps):
+            card, plain, cpu = (runs["metrics"][0][i], runs["plain"][0][i],
+                                runs["cpu"][0][i])
+            for part in (0, 1):
+                if not _equal_codes(card[part], plain[part]):
+                    raise AssertionError(f"metrics {path}: codes differ from "
+                                         f"the card's train_step, step {i}")
+                if not _equal_codes(card[part], cpu[part]):
+                    raise AssertionError(f"metrics {path}: codes differ from "
+                                         f"the CPU lane, step {i}")
+            ct, pt = runs["metrics"][1][i], runs["cpu"][1][i]
+            if sorted(ct) != sorted(pt) or not all(
+                    np.array_equal(ct[k], pt[k]) for k in pt):
+                raise AssertionError(f"metrics {path}: taps differ from the "
+                                     f"CPU lane, step {i}")
+        log("8 metrics", f"{path}: {steps} steps of train_step_metrics on "
+            f"the card; codes equal to the card's train_step and to the CPU "
+            f"lane, {len(ct)} taps equal to the CPU lane's at every step"
+            + (f" (hidden dhist {ct['hidden/fwd/dhist'].tolist()})"
+               if "hidden/fwd/dhist" in ct else "")
+            + f"; launches {out[path]}")
+    return out
+
+
+def phase8_faults(torch, x, y, init):
+    """``train_step_faults`` of the fused, unfused and segmented steps on
+    the card against the CPU lane, 6 steps, the step an int or a tensor
+    on the model's device in turns."""
+    from repro_torch.paper import params_from_numpy
+    out = {}
+    for path in ("fused", "unfused", "segmented"):
+        plan = SEG_FAULTS if path == "segmented" else FAULTS
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model = _phase8_model(path, device, plan)
+            params = params_from_numpy(init, device)
+            mom = model.init_momentum(params)
+            on = getattr(model, "inner", model).device
+
+            def run():
+                nonlocal params, mom
+                codes = []
+                for i in range(6):
+                    sl = slice(i * BATCH, (i + 1) * BATCH)
+                    step = (torch.tensor(i, dtype=torch.int32, device=on)
+                            if i % 2 else i)
+                    params, mom, _ = model.train_step_faults(
+                        params, x[sl], y[sl], step, mom)
+                    codes.append((_codes(params), _codes(mom)))
+                return codes
+            if device == "cuda":
+                runs[device], counts = _counted(torch, run)
+                _expect(path, counts, 6, "faults step")
+                out[path] = counts
+            else:
+                runs[device] = run()
+        for i, (card, cpu) in enumerate(zip(runs["cuda"], runs["cpu"])):
+            if not (_equal_codes(card[0], cpu[0])
+                    and _equal_codes(card[1], cpu[1])):
+                raise AssertionError(f"faults {path}: codes differ from the "
+                                     f"CPU lane after step {i}")
+        log("8 faults", f"{path}: 6 steps of train_step_faults under "
+            f"{plan!r} on the card; weight and momentum codes equal to the "
+            f"CPU lane after every step; launches {out[path]}")
+    return out
+
+
+def phase8_drills(torch):
+    """The three drills on the card against the CPU lane; returns the card
+    run's launch counts."""
+    from repro_torch.launch.drill import run_scenarios
+    card, counts = _counted(torch, lambda: run_scenarios(device="cuda"))
+    cpu = run_scenarios(device="cpu")
+    for c, h in zip(card, cpu):
+        if c.pop("lane") != "cuda" or h.pop("lane") != "cpu" or c != h:
+            raise AssertionError(f"drill {c['mode']}: card row {c} differs "
+                                 f"from the CPU lane's {h}")
+        log("8 drills", f"{c['mode']}: inject@{c['inject_step']} "
+            f"detect@{c['detect_step']} action {c['recovery_action']} "
+            f"acc_delta {c['acc_delta_post']:+.6f}; row equal to the CPU "
+            f"lane's but for lane")
+    for k in ("lns_matmul_fused", "lns_matmul_dx", "lns_matmul_dw_update",
+              "lns_fused_update", "lns_matmul_dw_partials", "lns_boxsum"):
+        if not counts.get(k):
+            raise AssertionError(f"the drills on the card never launched "
+                                 f"{k}: {counts}")
+    log("8 drills", f"launches of the three card drills: {counts}")
+    return counts
+
+
+def phase8_times(torch, x, y, init, card):
+    """ms per step of the fused step's three entry points on the card,
+    host clock around ``PHASE8_TIMED`` steps ending in a synchronize, in
+    turns (plain, metrics, faults, faults, metrics, plain); then
+    torch.profiler over 5 more steps of each: kernel launches and device
+    time per step, and the kernels that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.paper import params_from_numpy
+    models = {"train_step": _phase8_model("fused", "cuda"),
+              "train_step_metrics": _phase8_model("fused", "cuda"),
+              "train_step_faults": _phase8_model("fused", "cuda", FAULTS)}
+    state = {}
+    for e, model in models.items():
+        params = params_from_numpy(init, "cuda")
+        state[e] = (params, model.init_momentum(params))
+
+    def steps(entry, lo, n):
+        model = models[entry]
+        params, mom = state[entry]
+        for i in range(lo, lo + n):
+            sl = slice(i * BATCH, (i + 1) * BATCH)
+            if entry == "train_step":
+                params, mom, _ = model.train_step(params, x[sl], y[sl], mom)
+            elif entry == "train_step_metrics":
+                (params, mom, _), _ = model.train_step_metrics(
+                    params, x[sl], y[sl], mom)
+            else:
+                # Inside the fault window [2, 4).
+                params, mom, _ = model.train_step_faults(
+                    params, x[sl], y[sl], 3, mom)
+        torch.cuda.synchronize()
+        state[entry] = (params, mom)
+
+    ms = {e: [] for e in models}
+    for e in models:
+        steps(e, 0, 5)
+    lo = 5
+    for e in ("train_step", "train_step_metrics", "train_step_faults",
+              "train_step_faults", "train_step_metrics", "train_step"):
+        t0 = time.perf_counter()
+        steps(e, lo, PHASE8_TIMED)
+        ms[e].append((time.perf_counter() - t0) * 1e3 / PHASE8_TIMED)
+        lo += PHASE8_TIMED
+    for e, runs in ms.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            steps(e, lo, 5)
+        rows = sorted(((getattr(ev, "self_device_time_total", 0), ev.count,
+                        ev.key) for ev in prof.key_averages()
+                       if getattr(ev, "device_type", None)
+                       == DeviceType.CUDA), reverse=True)
+        dev_us = sum(r[0] for r in rows) / 5
+        log("8 times", f"fused {e}: {runs[0]:.3f} / {runs[1]:.3f} ms per "
+            f"step (two turns of {PHASE8_TIMED} steps); "
+            f"{sum(r[1] for r in rows) / 5:.0f} kernel launches and "
+            f"{dev_us:.1f} us of device time per step (torch.profiler, 5 "
+            f"steps; busy share {dev_us / 1e3 / min(runs):.4f}) on {card}")
+        for dev, count, key in rows[:4]:
+            log("8 times", f"fused {e} {dev / 5:10.2f} us/step "
+                f"{count / 5:6.1f} launches/step  {key[:70]}")
+    return ms
+
+
+def phase8(torch, card):
+    """Phase 8; returns the launch counts of each card run."""
+    from repro_torch.paper import datasets, params_to_numpy
+    from repro_torch.paper.mlp import MLPConfig, make_mlp
+    x, y, _, _, _ = datasets.load("mnist", "data", SEED)
+    init = params_to_numpy(make_mlp("lns", MLPConfig(), "cpu").init(
+        torch.Generator().manual_seed(SEED)))
+    counts = dict(metrics=phase8_metrics(torch, x, y, init),
+                  faults=phase8_faults(torch, x, y, init),
+                  drills=phase8_drills(torch))
+    phase8_times(torch, x, y, init, card)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1184,6 +1465,9 @@ def main() -> int:
     if baselines(torch, card):
         raise AssertionError("a baseline run launched an LNS kernel")
     log("7 baselines", f"phase 7 in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase8(torch, card)
+    log("8 obs+resil", f"phase 8 in {time.time() - t0:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ from . import f32
 from .activations import beta_code, llrelu, llrelu_grad_from_sign
 from .arithmetic import (bias_add, boxabs_max, boxdiv, boxdot, boxminus,
                          boxneg, boxplus, boxsum, boxsum_partials,
-                         lns_affine, lns_matmul)
+                         lns_affine, lns_matmul, matmul_dhist)
 from .conversions import code_to_lns, lns_value_to_code
 from .delta import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT, DELTA_SOFTMAX,
                     DeltaEngine, DeltaSpec, cached_engine, delta_minus_float,

@@ -145,6 +145,46 @@ def lns_matmul(x: LNSArray, w: LNSArray, eng: DeltaEngine,
     return boxsum(prod, prod.ndim - 2, eng, order=order)
 
 
+def matmul_dhist(x: LNSArray, w: LNSArray, eng: DeltaEngine,
+                 edges_log2=None) -> torch.Tensor:
+    """Δ-table occupancy of a sequential ⊞-MAC product: an int32 histogram
+    of the ``|d| = |X - Y|`` entering the Δ engine.
+
+    Replays ``lns_matmul(x, w, eng, order="sequential")``'s ascending MAC
+    order (the order the kernels keep) and, at each accumulate, buckets
+    ``|acc.code - prod.code|`` by the log2-magnitude ``edges_log2``
+    (default :data:`repro_torch.obs.metrics.DHIST_EDGES`) put on the
+    format's code grid.  Accumulates with a zero operand are not counted:
+    ``x ⊞ 0`` bypasses the Δ engine.  Returns shape ``(len(edges) + 1,)``;
+    the last bucket is beyond the table's ``d_max``.
+
+    Telemetry only, taken at ``metrics=full``: a shadow pass in plain
+    tensor ops beside the real product, whose result it never touches.
+    """
+    from ..obs.metrics import DHIST_EDGES, dhist_edges_codes
+    fmt = eng.fmt
+    edges = dhist_edges_codes(fmt, x.code.device,
+                              DHIST_EDGES if edges_log2 is None
+                              else edges_log2)
+    prod = boxdot(LNSArray(x.code[..., :, :, None], x.sign[..., :, :, None]),
+                  w, fmt)
+    code = torch.movedim(prod.code, prod.ndim - 2, 0)
+    sign = torch.movedim(prod.sign, prod.ndim - 2, 0)
+    acc = LNSArray(torch.full_like(code[0], fmt.zero_code),
+                   torch.zeros_like(sign[0]))
+    d = torch.empty_like(code)
+    live = torch.empty(code.shape, dtype=torch.bool, device=code.device)
+    for i in range(code.shape[0]):
+        live[i] = (acc.code != fmt.zero_code) & (code[i] != fmt.zero_code)
+        d[i] = torch.abs(acc.code - code[i])
+        acc = boxplus(acc, LNSArray(code[i], sign[i]), eng)
+    bucket = torch.searchsorted(edges, d.reshape(-1), right=True)
+    hist = torch.zeros(len(edges) + 1, dtype=torch.int64,
+                       device=code.device)
+    hist.scatter_add_(0, bucket, live.reshape(-1).to(torch.int64))
+    return hist.to(torch.int32)
+
+
 def bias_add(z: LNSArray, b: LNSArray, eng: DeltaEngine) -> LNSArray:
     """z ⊞ b with the bias broadcast over z's leading axes."""
     return boxplus(z, LNSArray(b.code.expand(z.shape), b.sign.expand(z.shape)),

@@ -15,6 +15,7 @@ sentinel so a saturating add flushes the result to the zero code.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 
@@ -99,6 +100,20 @@ class DeltaEngine:
             self._tab_plus = plus
             self._tab_minus = minus
         self._device_tables: dict = {}
+
+    def with_tables(self, tab_plus: np.ndarray,
+                    tab_minus: np.ndarray) -> "DeltaEngine":
+        """A copy of this engine with other (host int32) Δ+ / Δ- tables
+        and a device-table cache of its own: a shallow copy would share
+        :meth:`tables`' cache, serving the old tables on a device they are
+        already on and writing the new ones into the shared engine's
+        cache (engines from :func:`cached_engine` are shared by every
+        model)."""
+        new = copy.copy(self)
+        new._tab_plus = np.asarray(tab_plus, np.int32)
+        new._tab_minus = np.asarray(tab_minus, np.int32)
+        new._device_tables = {}
+        return new
 
     def tables(self, device) -> tuple:
         """(Δ+ table, Δ- table) as int32 tensors on ``device``."""

@@ -14,6 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..obs import metrics as _obs
 from . import f32
 from .delta import cached_engine
 from .formats import LNSFormat
@@ -58,8 +59,11 @@ def encode(v: torch.Tensor, fmt: LNSFormat) -> LNSArray:
     nonzero = mag > 0
     x = f32.log2(torch.where(nonzero, mag, 1.0))
     raw = torch.round(x * fmt.scale)
-    code = torch.clamp(raw.to(torch.int32), fmt.min_nonzero_code,
-                       fmt.code_max)
+    code = raw.to(torch.int32)
+    if _obs.scope_active():
+        # Quantization health before the clip (pure reads).
+        _obs.observe_quantize(code, nonzero, fmt)
+    code = torch.clamp(code, fmt.min_nonzero_code, fmt.code_max)
     # Zeros and true underflow (rounded below the representable range).
     zero = ~nonzero | (raw < fmt.min_nonzero_code)
     code = torch.where(zero, fmt.zero_code, code)
@@ -105,6 +109,9 @@ def convert_format(a: LNSArray, src: LNSFormat, dst: LNSFormat) -> LNSArray:
         code = a.code << shift
     else:
         code = (a.code + (1 << (-shift - 1))) >> (-shift)
+    if _obs.scope_active():
+        # Crossing health against the destination grid, before the clip.
+        _obs.observe_convert(a.code != src.zero_code, code, dst)
     zero = (a.code == src.zero_code) | (code < dst.min_nonzero_code)
     code = torch.clamp(code, dst.min_nonzero_code, dst.code_max)
     return LNSArray(torch.where(zero, dst.zero_code, code),
@@ -132,6 +139,11 @@ class LNSMatmulBackend:
     * ``matmul_dw_partials(x, dy, S)``  (S, K, N) per-segment dW
     * ``matmul_dw_update(x, dy, ...)``  ⊞-SGD of W by Xᵀ ⊞-MAC dY
     * ``fused_update(w, g, ...)``   elementwise ⊞-SGD
+
+    Under an ambient telemetry scope (``obs.metrics``) the epilogued
+    products tap their outputs' code health (``epi_fwd``,
+    ``epi_dw_update``, ``epi_update``): reads of a kernel's output after
+    its launch, the same labels on both lanes.
     """
 
     fmt: LNSFormat
@@ -181,8 +193,15 @@ class LNSMatmulBackend:
             out_fmt = None
         ep = FwdEpilogue(bias=bias is not None, llrelu_beta=llrelu_beta,
                          dst_fmt=out_fmt, emit_z_sign=emit_z_sign)
-        return lns_matmul_fused_kernel(x, w, epilogue=ep, bias=bias,
-                                       fmt=self.fmt, spec=self.spec)
+        # The product taps nothing inside: only the epi_fwd tap below.
+        with _obs.suspended():
+            out = lns_matmul_fused_kernel(x, w, epilogue=ep, bias=bias,
+                                          fmt=self.fmt, spec=self.spec)
+        if _obs.scope_active():
+            _obs.observe_codes(out[0] if emit_z_sign else out,
+                               out_fmt if out_fmt is not None else self.fmt,
+                               op="epi_fwd")
+        return out
 
     def matmul_dx(self, dy: LNSArray, w: LNSArray) -> LNSArray:
         """Backward dX = dY (M, N) ⊞-MAC Wᵀ (N, K), sequential over N."""
@@ -194,12 +213,18 @@ class LNSMatmulBackend:
         """Backward-weight ⊞-MAC with the ⊞-SGD update fused at flush.
         Returns ``(w_new, m_new)`` (``m_new is None`` without momentum)."""
         from ..kernels.lns_matmul import lns_matmul_dw_update_kernel
-        return lns_matmul_dw_update_kernel(x, dy, w=w, m=m, epilogue=epilogue,
-                                           fmt=self.fmt, spec=self.spec)
+        out = lns_matmul_dw_update_kernel(x, dy, w=w, m=m, epilogue=epilogue,
+                                          fmt=self.fmt, spec=self.spec)
+        if _obs.scope_active():
+            _obs.observe_codes(out[0], self.fmt, op="epi_dw_update")
+        return out
 
     def fused_update(self, w: LNSArray, g: LNSArray, m: "LNSArray | None",
                      epilogue):
         """One-pass elementwise ⊞-SGD update: ``(w, m, g) → (w', m')``."""
         from ..kernels.lns_matmul import lns_fused_update_kernel
-        return lns_fused_update_kernel(w, g, m=m, epilogue=epilogue,
-                                       fmt=self.fmt, spec=self.spec)
+        out = lns_fused_update_kernel(w, g, m=m, epilogue=epilogue,
+                                      fmt=self.fmt, spec=self.spec)
+        if _obs.scope_active():
+            _obs.observe_codes(out[0], self.fmt, op="epi_update")
+        return out

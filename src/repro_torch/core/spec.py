@@ -8,13 +8,16 @@ blocks, telemetry and the data-parallel gradient reduce
 overrides (``"lns16-train-pallas,delta=bitshift"``); ``str`` gives the same
 canonical text as the JAX package does.
 
-Four keys are parsed, validated and printed so that reference strings load
-unchanged, but route nothing here:
+Three keys are parsed, validated and printed so that reference strings
+load unchanged, but route nothing here:
 
 * ``backend`` and ``interpret``: the device of the operands chooses the
   lane (see :class:`~repro_torch.core.lns.LNSMatmulBackend`);
-* ``blocks``: the CUDA kernels keep a fixed launch shape of their own;
-* ``metrics``: the telemetry (``obs/``) is not ported.
+* ``blocks``: the CUDA kernels keep a fixed launch shape of their own.
+
+``metrics`` sets a layer's telemetry as in the JAX package: ``off``,
+``counters``, or ``full`` (the counters and the Δ-table occupancy
+histogram), read by the metrics entry points of ``paper/mlp.py``.
 """
 from __future__ import annotations
 
@@ -135,7 +138,7 @@ class NumericsSpec:
     ``interpret``           interpret   auto | on | off (printed only)
     ``blocks``              blocks      default | auto | ``<M>x<N>x<K>``
                                         (printed only)
-    ``metrics``             metrics     off | counters | full (printed only)
+    ``metrics``             metrics     off | counters | full
     ``reduce.mode``         reduce.mode  boxplus | float-psum
     ``reduce.grad_segments``  reduce.grad_segments  int >= 0
     ``reduce.schedule``     reduce.schedule  sequential | tree

@@ -10,7 +10,8 @@ from .lns_reduce import (REDUCE_MODES, combine_partials,
                          group_by_arithmetic)
 
 __all__ = ["DPConfig", "LNSDataParallelMLP", "reference_train_step",
-           "run_device_count_invariance_check", "REDUCE_MODES",
+           "run_device_count_invariance_check",
+           "REDUCE_MODES",
            "combine_partials", "combine_partials_many",
            "deterministic_boxplus_allreduce", "float_psum_allreduce",
            "gather_partials", "group_by_arithmetic"]

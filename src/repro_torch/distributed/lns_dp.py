@@ -19,6 +19,14 @@ the sequential combine is the paper's sequential MAC over the batch.
 ``reduce.mode=float-psum`` decodes, sums in float and re-encodes: cheaper
 on the wire, not bit-stable across rank counts.
 
+The metrics and fault entry points are :class:`~repro_torch.paper.mlp.
+LNSMLP`'s: weight-code flips hit the replicated parameters before the
+step, segment faults (``drop_seg`` / ``dup_seg``) hit the per-segment
+partials at their global slots (rank × local segments on), and the
+telemetry and the other faults are suspended across the per-segment
+backward, the gather and the combine; the combined gradients are tapped
+as ``dp_grad.<param>``.
+
 Process groups are the caller's: ``num_devices > 1`` needs
 ``torch.distributed.init_process_group`` with that world size (gloo on
 the CPU, NCCL on the card, one card per rank); a missing or other-sized
@@ -41,6 +49,9 @@ import torch.distributed as dist
 
 from ..core.plan import NumericsPlan
 from ..core.spec import ReduceSpec
+from ..obs import metrics as _obs
+from ..obs.trace import phase_scope
+from ..resil import inject as _inj
 from .lns_reduce import (combine_partials_many, float_psum_allreduce,
                          gather_partials, rank, world_size)
 
@@ -128,6 +139,7 @@ class LNSDataParallelMLP:
         self.cfg = cfg
         self.dp = dp
         self.inner = LNSMLP(cfg, device)
+        self.fault_plan = self.inner.fault_plan
 
     def init(self, gen: torch.Generator):
         return self.inner.init(gen)
@@ -139,26 +151,50 @@ class LNSDataParallelMLP:
         return self.inner.predict(params, xb)
 
     def _step_impl(self, params, x, y, momentum=None):
+        from ..paper.mlp import PARAM_LAYER
         inner, dp = self.inner, self.dp
         n = dp.num_devices
         segments = dp.segments(x.shape[0])
+        segs_local = segments // n
         rows = x.shape[0] // n
-        lo = rank() * rows
-        grads, loss = inner.per_segment_grads(
-            params, x[lo:lo + rows], y[lo:lo + rows], segments // n)
+        r = rank()
+        # Faults (no-ops without an active plan): weight-code flips on the
+        # replicated parameters; segment faults on this rank's partials,
+        # with the plan passed explicitly since the ambient plan is
+        # suspended with the telemetry across the per-segment region.
+        fplan = _inj.active_plan()
+        params = _inj.inject_param_codes(params, param_fmts=inner.param_fmts,
+                                         param_layer=PARAM_LAYER)
         engs = inner.param_engines
-        if dp.reduce.mode == "boxplus":
-            grads = combine_partials_many(
-                {k: gather_partials(g, n) for k, g in grads.items()}, engs,
-                schedule=dp.reduce.schedule)
-        else:
-            grads = {k: float_psum_allreduce(g, engs[k], num_ranks=n)
-                     for k, g in grads.items()}
-        if dist.is_initialized():
-            loss = loss.clone()
-            dist.all_reduce(loss, op=dist.ReduceOp.SUM)
-            loss = loss / n
-        new_params, momentum = inner.apply_updates(params, grads, momentum)
+        with phase_scope("reduce"), _obs.suspended(), _inj.suspended():
+            grads, loss = inner.per_segment_grads(
+                params, x[r * rows:(r + 1) * rows],
+                y[r * rows:(r + 1) * rows], segs_local)
+            if fplan is not None:
+                grads = _inj.inject_segment_partials(
+                    grads, param_fmts=inner.param_fmts,
+                    param_layer=PARAM_LAYER, segs_local=segs_local, rank=r,
+                    plan=fplan)
+            if dp.reduce.mode == "boxplus":
+                grads = combine_partials_many(
+                    {k: gather_partials(g, n) for k, g in grads.items()},
+                    engs, schedule=dp.reduce.schedule)
+            else:
+                grads = {k: float_psum_allreduce(g, engs[k], num_ranks=n)
+                         for k, g in grads.items()}
+            if dist.is_initialized():
+                loss = loss.clone()
+                dist.all_reduce(loss, op=dist.ReduceOp.SUM)
+                loss = loss / n
+        if _obs.enabled():
+            for k, g in grads.items():
+                layer = PARAM_LAYER[k]
+                if inner.metrics_levels[layer] != "off":
+                    _obs.observe_codes(g, inner.param_fmts[k], layer=layer,
+                                       op=f"dp_grad.{k}")
+        with phase_scope("update"):
+            new_params, momentum = inner.apply_updates(params, grads,
+                                                       momentum)
         if momentum is None:
             return new_params, loss
         return new_params, momentum, loss
@@ -169,6 +205,34 @@ class LNSDataParallelMLP:
         The loss is the mean of the ranks' batch losses."""
         x, y = self.inner._inputs(xb, yb)
         return self._step_impl(params, x, y, momentum)
+
+    def train_step_metrics(self, params, xb, yb, momentum=None):
+        """:meth:`train_step` and its taps: the combined gradients'
+        health (``dp_grad.*``) and the update's taps; the per-segment
+        region reports nothing.  ``(step_outputs, taps)``, the outputs
+        exactly :meth:`train_step`'s."""
+        x, y = self.inner._inputs(xb, yb)
+        with _obs.collecting() as col:
+            out = self._step_impl(params, x, y, momentum)
+        return out, col.taps()
+
+    def train_step_faults(self, params, xb, yb, step, momentum=None):
+        """:meth:`train_step` with the config's :class:`FaultPlan` armed
+        at ``step`` (an int, or an integer tensor on the model's
+        device)."""
+        x, y = self.inner._inputs(xb, yb)
+        with _inj.injecting(self.fault_plan, step):
+            return self._step_impl(params, x, y, momentum)
+
+    def train_step_faults_metrics(self, params, xb, yb, step,
+                                  momentum=None):
+        """:meth:`train_step_faults` and its taps (the guardrails' entry
+        point)."""
+        x, y = self.inner._inputs(xb, yb)
+        with _inj.injecting(self.fault_plan, step):
+            with _obs.collecting() as col:
+                out = self._step_impl(params, x, y, momentum)
+        return out, col.taps()
 
 
 def reference_train_step(inner, params, xb, yb, *, grad_segments: int,
@@ -190,11 +254,12 @@ def reference_train_step(inner, params, xb, yb, *, grad_segments: int,
 
 
 def _train(step, params, mom, xb, yb, steps: int):
-    """``steps`` calls of ``step(params, xb, yb, mom)``; returns the numpy
-    (params, momentum or None) and the last loss."""
+    """``steps`` calls of ``step(params, xb, yb, mom, i)`` (``i`` the step
+    index); returns the numpy (params, momentum or None) and the last
+    loss."""
     from ..paper.mlp import params_to_numpy
-    for _ in range(steps):
-        out = step(params, xb, yb, mom)
+    for i in range(steps):
+        out = step(params, xb, yb, mom, i)
         params, loss = out[0], out[-1]
         if mom is not None:
             mom = out[1]
@@ -203,9 +268,9 @@ def _train(step, params, mom, xb, yb, steps: int):
 
 
 def _rank_main(rank_: int, world: int, job: dict) -> None:
-    """One rank of :func:`run_device_count_invariance_check` (gloo on the
-    CPU, NCCL on card ``rank_``): trains and writes its replica of the
-    parameters to the job's directory."""
+    """One rank of :func:`_train_on_ranks` (gloo on the CPU, NCCL on card
+    ``rank_``): trains and writes its replica of the parameters to the
+    job's directory."""
     torch.set_num_threads(1)
     device = job["device"]
     if device == "cuda":
@@ -221,8 +286,11 @@ def _rank_main(rank_: int, world: int, job: dict) -> None:
         model = LNSDataParallelMLP(job["cfg"], DPConfig.from_spec(
             job["plan"], num_devices=world), device=device)
         params = params_from_numpy(job["params"], device)
-        out = _train(model.train_step, params, model.init_momentum(params),
-                     job["xb"], job["yb"], job["steps"])
+        # With no fault plan train_step_faults is train_step.
+        out = _train(lambda p, x, y, m, i: model.train_step_faults(
+                         p, x, y, i, m), params,
+                     model.init_momentum(params), job["xb"], job["yb"],
+                     job["steps"])
         path = Path(job["dir"]) / f"out_{world}_{rank_}.pkl"
         path.write_bytes(pickle.dumps(out))
     finally:
@@ -247,6 +315,26 @@ def _spawn(world: int, job: dict, deadline: float):
                 p.join()
     return [pickle.loads((Path(job["dir"]) / f"out_{world}_{r}.pkl"
                           ).read_bytes()) for r in range(world)]
+
+
+def _train_on_ranks(world: int, cfg, plan, params, xb, yb, *,
+                    steps: int = 3, device: str = "cuda",
+                    timeout: float = 300.0) -> list:
+    """Train the data-parallel model of ``cfg`` under the plan ``plan``
+    (its ``reduce.grad_segments`` the segmentation) on ``world`` ranks of
+    one process group, each in a process of its own (gloo on the CPU, or
+    NCCL with rank r on card r), ``steps`` steps on the global batch
+    ``xb``, ``yb`` from ``params`` (``params_to_numpy`` form).  Each step
+    is ``train_step_faults`` at its index (``train_step`` when ``cfg``
+    plans no faults).  Returns every rank's (params, momentum
+    or None, last loss), in numpy form."""
+    workdir = tempfile.mkdtemp()  # the ranks' file store and results
+    job = dict(cfg=cfg, plan=plan, params=params, xb=xb, yb=yb,
+               steps=steps, dir=workdir, timeout=timeout, device=device)
+    try:
+        return _spawn(world, job, time.monotonic() + timeout)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 def _same(a, b) -> bool:
@@ -330,28 +418,23 @@ def run_device_count_invariance_check(device_counts=(1, 2, 4), *,
             torch.Generator().manual_seed(seed)))
     params = params_from_numpy(init_params, ref_device)
     ref, ref_mom, _ = _train(
-        lambda p, x, y, m: reference_train_step(
+        lambda p, x, y, m, i: reference_train_step(
             inner, p, x, y, grad_segments=segs,
             reduce_schedule=plan.reduce.schedule, momentum=m),
         params, inner.init_momentum(params), xb, yb, steps)
-    workdir = tempfile.mkdtemp()  # the ranks' file stores and results
-    job = dict(cfg=cfg, plan=plan, params=init_params, xb=xb, yb=yb,
-               steps=steps, dir=workdir, timeout=timeout, device=device)
     deadline = time.monotonic() + timeout
     runs, ok = {}, True
-    try:
-        for d in device_counts:
-            outs = _spawn(d, job, deadline)
-            params, mom, loss = outs[0]
-            agree = all(_same(o[0], params) and _same(o[1], mom)
-                        for o in outs)
-            same = _same(params, ref) and _same(mom, ref_mom) and agree
-            runs[d] = dict(params=params, momentum=mom, loss=loss,
-                           matches_reference=same, replicas_agree=agree)
-            ok = ok and (same if plan.reduce.mode == "boxplus" else agree)
-            if verbose:
-                print(f"[lns_dp] ranks={d} loss={loss:.4f} "
-                      f"bit-identical-to-reference={same}")
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    for d in device_counts:
+        outs = _train_on_ranks(d, cfg, plan, init_params, xb, yb,
+                               steps=steps, device=device,
+                               timeout=max(0.0, deadline - time.monotonic()))
+        params, mom, loss = outs[0]
+        agree = all(_same(o[0], params) and _same(o[1], mom) for o in outs)
+        same = _same(params, ref) and _same(mom, ref_mom) and agree
+        runs[d] = dict(params=params, momentum=mom, loss=loss,
+                       matches_reference=same, replicas_agree=agree)
+        ok = ok and (same if plan.reduce.mode == "boxplus" else agree)
+        if verbose:
+            print(f"[lns_dp] ranks={d} loss={loss:.4f} "
+                  f"bit-identical-to-reference={same}")
     return ok, runs

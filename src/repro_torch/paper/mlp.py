@@ -35,9 +35,18 @@ bit-exact to each other and to the JAX package.  The float and fixed-point
 baselines reach no TPU kernel in the JAX package and none here: their
 products are ``torch.matmul`` in float32 (never TF32) and a broadcast
 int32 product-and-sum.
+
+Telemetry and faults ride on the LNS models' other entry points:
+``train_step_metrics`` returns the step's outputs and its numerics taps
+(``obs/``), ``train_step_faults`` runs the step with the config's
+:class:`~repro_torch.resil.inject.FaultPlan` armed at a given step, and
+``train_step_faults_metrics`` does both.  Each returns exactly what
+``train_step`` returns where no fault is planned: the taps are reads of
+the step's tensors, the fault sites return their inputs untouched.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Any
@@ -47,7 +56,7 @@ import torch
 
 from ..core import f32
 from ..core.activations import beta_code, llrelu, llrelu_grad_from_sign
-from ..core.arithmetic import boxdot, boxsum
+from ..core.arithmetic import boxdot, boxsum, matmul_dhist
 from ..core.delta import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT,
                           DELTA_SOFTMAX, DeltaEngine, DeltaSpec, cached_engine)
 from ..core.formats import FXP12, FXP16, LNS12, LNS16
@@ -61,6 +70,9 @@ from ..core.plan import NumericsPlan
 from ..core.sgd import LogSGDConfig, UpdateEpilogue, apply_update
 from ..core.softmax import ce_grad_init, ce_loss_readout, log_softmax_lns
 from ..core.spec import NumericsSpec
+from ..obs import metrics as _obs
+from ..obs.trace import phase_scope
+from ..resil import inject as _inj
 
 HIDDEN = 100
 ALPHA = 0.01  # leaky-ReLU slope
@@ -95,7 +107,9 @@ class MLPConfig:
                                     # epilogues; False = the separate-pass
                                     # step, same codes
     data_parallel: int = 1          # lns only: ranks of the DP step
-    faults: Any = None              # fault injection (not ported)
+    faults: Any = None              # lns only: FaultPlan | plan string |
+                                    # None (no injection); normalized to a
+                                    # FaultPlan
     # -- the JAX package's loose knobs, deprecated: fold into ``spec`` ----
     matmul_backend: dataclasses.InitVar[Any] = None   # → spec.backend
     reduce_mode: dataclasses.InitVar[Any] = None      # → spec.reduce.mode
@@ -103,9 +117,6 @@ class MLPConfig:
                                                       #   .grad_segments
 
     def __post_init__(self, matmul_backend, reduce_mode, grad_segments):
-        if self.faults is not None:
-            raise NotImplementedError(
-                "fault injection (resil/) is not ported yet: ROADMAP queue 1")
         if self.spec is not None:
             spec = NumericsPlan.parse(self.spec)
         else:
@@ -128,6 +139,7 @@ class MLPConfig:
                 f"MLPConfig(spec={str(spec)!r})",
                 DeprecationWarning, stacklevel=3)
         object.__setattr__(self, "spec", spec)
+        object.__setattr__(self, "faults", _inj.FaultPlan.parse(self.faults))
 
     @property
     def lns_fmt(self):
@@ -367,6 +379,10 @@ def segmented_boxsum(d: LNSArray, num_segments: int, eng) -> LNSArray:
 class LNSMLP(_PaperMLP):
     """End-to-end log-domain training (the paper's contribution) on
     ``device``; parameters are dicts of :class:`LNSArray` on that device.
+
+    Its lane is the device's: :meth:`lanes` names it ``"cuda"`` (the
+    kernels launch) or ``"cpu"`` (their plain versions run) in metrics
+    rows.
     """
 
     def __init__(self, cfg: MLPConfig, device="cuda"):
@@ -376,6 +392,18 @@ class LNSMLP(_PaperMLP):
         self.fmts = {p: specs[p].fmt for p in LAYER_PATHS}
         self.engs = {p: cached_engine(specs[p].delta_spec, self.fmts[p])
                      for p in LAYER_PATHS}
+        # Δ-table corruption is a build-time fault, applied to copies (the
+        # cached engines are shared by every model).  The copies feed the
+        # ⊞ sites that read the model's engines: the bias-gradient ⊞-fold,
+        # the unfused update, the tree combine and the dhist replay; the
+        # kernels build their tables from the format and Δ spec and stay
+        # clean, as the JAX package's Pallas kernels do.
+        self.fault_plan = cfg.faults
+        if self.fault_plan is not None:
+            self.fault_plan.validate_paths(LAYER_PATHS + ("serve",))
+            self.engs = {p: _inj.corrupt_engine(self.engs[p],
+                                                self.fault_plan, p)
+                         for p in LAYER_PATHS}
         self.mms = {p: LNSMatmulBackend(fmt=self.fmts[p],
                                         spec=specs[p].delta_spec)
                     for p in LAYER_PATHS}
@@ -397,6 +425,31 @@ class LNSMLP(_PaperMLP):
         # Per-parameter views (the unit the data-parallel reduce keys on).
         self.param_fmts = {k: self.fmts[l] for k, l in PARAM_LAYER.items()}
         self.param_engines = {k: self.engs[l] for k, l in PARAM_LAYER.items()}
+        # Telemetry per layer (the plan's `metrics` axis); the switch is
+        # which entry point runs (train_step or train_step_metrics).
+        self.metrics_levels = {p: specs[p].metrics for p in LAYER_PATHS}
+
+    def lanes(self) -> dict:
+        """Layer path → the lane that runs it, for metrics rows: ``"cuda"``
+        (the kernels) or ``"cpu"`` (their plain versions)."""
+        return {p: self.device.type for p in LAYER_PATHS}
+
+    # -- telemetry gates (no-ops unless a collector is active) -------------
+    def _collect(self, layer: str, level: str = "counters") -> bool:
+        """Should this layer tap at ``level`` right now?"""
+        if not _obs.enabled():
+            return False
+        mode = self.metrics_levels[layer]
+        if mode == "off":
+            return False
+        return mode == "full" if level == "full" else True
+
+    def _scope(self, layer: str, op: str):
+        """Ambient tap scope for ``layer``: a null context unless a
+        collector is live and the layer's spec opted in."""
+        if self._collect(layer):
+            return _obs.scope(layer, op)
+        return contextlib.nullcontext()
 
     def init(self, gen: torch.Generator):
         """Log-normal He init (eq. 12) drawn from ``gen``, then moved to
@@ -429,26 +482,58 @@ class LNSMLP(_PaperMLP):
         mm_h, mm_o = self.mms["hidden"], self.mms["out"]
         fh, fo = self.fmts["hidden"], self.fmts["out"]
         if self.cfg.fused:
-            a1, z1_sign = mm_h.matmul_fused(
-                x, params["w1"], bias=params["b1"], llrelu_beta=self.beta,
-                out_fmt=fo, emit_z_sign=True)
-            z2 = mm_o.matmul_fused(a1, params["w2"], bias=params["b2"])
-            return z1_sign, a1, z2
-        z1 = mm_h.affine(x, params["w1"], params["b1"])
-        a1 = convert_format(llrelu(z1, self.beta, fh), fh, fo)
-        z2 = mm_o.affine(a1, params["w2"], params["b2"])
-        return z1.sign, a1, z2
+            with self._scope("hidden", "fwd"):  # the epi_fwd tap
+                a1, z1_sign = mm_h.matmul_fused(
+                    x, params["w1"], bias=params["b1"],
+                    llrelu_beta=self.beta, out_fmt=fo, emit_z_sign=True)
+            with self._scope("out", "fwd"):
+                z2 = mm_o.matmul_fused(a1, params["w2"], bias=params["b2"])
+        else:
+            with self._scope("hidden", "fwd"):  # the convert_* taps
+                z1 = mm_h.affine(x, params["w1"], params["b1"])
+                a1 = convert_format(llrelu(z1, self.beta, fh), fh, fo)
+            with self._scope("out", "fwd"):
+                z2 = mm_o.affine(a1, params["w2"], params["b2"])
+            z1_sign = z1.sign
+        # Fault sites (no-ops without an active FaultPlan): activation bit
+        # flips and stuck lanes land after the layer's compute and before
+        # its taps, so the detectors see what the next layer sees.
+        a1 = _inj.inject_codes(a1, fo, layer="hidden", site="act")
+        z2 = _inj.inject_codes(z2, fo, layer="out", site="act")
+        if self._collect("hidden"):
+            _obs.observe_codes(a1, fo, layer="hidden", op="act")
+        if self._collect("out"):
+            _obs.observe_codes(z2, fo, layer="out", op="logits")
+        return z1_sign, a1, z2
 
     def _bwd_core(self, params, xb, yb):
         """Forward + error backprop; returns ``(x, a1, d1, d2, loss)``."""
         fh, fo = self.fmts["hidden"], self.fmts["out"]
-        x = encode(xb, fh)
-        z1_sign, a1, z2 = self._forward(params, x)
-        p = log_softmax_lns(z2, self.eng_sm)
+        with self._scope("hidden", "encode"):  # the q_* taps
+            x = encode(xb, fh)
+        with phase_scope("fwd"):
+            z1_sign, a1, z2 = self._forward(params, x)
+            p = log_softmax_lns(z2, self.eng_sm)
+        # Δ-table occupancy (metrics=full): a shadow replay of each forward
+        # product's sequential order; what flows on is the product above.
+        if self._collect("hidden", "full"):
+            _obs.tap("dhist", matmul_dhist(x, params["w1"],
+                                           self.engs["hidden"]),
+                     layer="hidden", op="fwd")
+        if self._collect("out", "full"):
+            _obs.tap("dhist", matmul_dhist(a1, params["w2"],
+                                           self.engs["out"]),
+                     layer="out", op="fwd")
         d2 = ce_grad_init(p, yb, fo, self.eng_sm)            # (B, K), out fmt
-        bp = self.mms["out"].matmul_dx(d2, params["w2"])    # (B, H), out fmt
-        bp = convert_format(bp, fo, fh)
-        d1 = boxdot(bp, llrelu_grad_from_sign(z1_sign, self.beta), fh)
+        if self._collect("out"):
+            _obs.observe_codes(d2, fo, layer="out", op="dgrad")
+        with phase_scope("dx"):
+            bp = self.mms["out"].matmul_dx(d2, params["w2"])  # (B, H), out
+            with self._scope("hidden", "dx"):  # the convert_* taps
+                bp = convert_format(bp, fo, fh)
+            d1 = boxdot(bp, llrelu_grad_from_sign(z1_sign, self.beta), fh)
+        if self._collect("hidden"):
+            _obs.observe_codes(d1, fh, layer="hidden", op="dgrad")
         return x, a1, d1, d2, ce_loss_readout(p, yb, fo)
 
     def _backward(self, params, xb, yb, num_segments=None):
@@ -488,9 +573,11 @@ class LNSMLP(_PaperMLP):
             new_m = dict(momentum) if momentum is not None else None
             for k in params:
                 layer = PARAM_LAYER[k]
-                new_p[k], m = self.mms[layer].fused_update(
-                    params[k], grads[k], momentum[k] if has_mom else None,
-                    self.update_eps[layer])
+                with self._scope(layer, f"update.{k}"):  # epi_update tap
+                    new_p[k], m = self.mms[layer].fused_update(
+                        params[k], grads[k],
+                        momentum[k] if has_mom else None,
+                        self.update_eps[layer])
                 if has_mom:
                     new_m[k] = m
             return new_p, new_m
@@ -501,15 +588,28 @@ class LNSMLP(_PaperMLP):
                 {k: params[k] for k in keys}, {k: grads[k] for k in keys},
                 None if momentum is None else {k: momentum[k] for k in keys},
                 self.sgd, self.engs[layer])
+            if self._collect(layer):
+                for k in keys:
+                    _obs.observe_codes(p2[k], self.fmts[layer], layer=layer,
+                                       op=f"update.{k}")
             new_p.update(p2)
             if momentum is not None:
                 new_m.update(m2)
         return new_p, new_m
 
     def _step_impl(self, params, xb, yb, momentum=None):
+        """The step's body, shared by every entry point, so telemetry and
+        faults can never fork its arithmetic."""
+        # Weight-code bit flips (a fault site; the same object back with
+        # no active plan): the step trains on, and updates, the flipped
+        # codes.
+        params = _inj.inject_param_codes(params, param_fmts=self.param_fmts,
+                                         param_layer=PARAM_LAYER)
         if not self.cfg.fused or self.update_eps is None:
             grads, loss = self._backward(params, xb, yb)
-            params, momentum = self.apply_updates(params, grads, momentum)
+            with phase_scope("update"):
+                params, momentum = self.apply_updates(params, grads,
+                                                      momentum)
             if momentum is None:
                 return params, loss
             return params, momentum, loss
@@ -522,11 +622,14 @@ class LNSMLP(_PaperMLP):
         for wk, bk, layer, act, d in (("w1", "b1", "hidden", x, d1),
                                       ("w2", "b2", "out", a1, d2)):
             mm, ep = self.mms[layer], self.update_eps[layer]
-            new_p[wk], mw = mm.matmul_dw_update(
-                act, d, params[wk], momentum[wk] if has_mom else None, ep)
+            with phase_scope("dw"), self._scope(layer, f"update.{wk}"):
+                new_p[wk], mw = mm.matmul_dw_update(
+                    act, d, params[wk], momentum[wk] if has_mom else None,
+                    ep)
             gb = boxsum(d, 0, self.engs[layer])
-            new_p[bk], mb = mm.fused_update(
-                params[bk], gb, momentum[bk] if has_mom else None, ep)
+            with phase_scope("update"), self._scope(layer, f"update.{bk}"):
+                new_p[bk], mb = mm.fused_update(
+                    params[bk], gb, momentum[bk] if has_mom else None, ep)
             if has_mom:
                 new_m[wk], new_m[bk] = mw, mb
         if momentum is None:
@@ -538,6 +641,38 @@ class LNSMLP(_PaperMLP):
         or (params, momentum, loss) when a momentum dict is passed."""
         x, y = self._inputs(xb, yb)
         return self._step_impl(params, x, y, momentum)
+
+    def train_step_metrics(self, params, xb, yb, momentum=None):
+        """:meth:`train_step` with numerics telemetry: returns
+        ``(step_outputs, taps)``, ``step_outputs`` exactly what
+        ``train_step`` returns and ``taps`` a ``"layer/op/counter"`` →
+        int32 tensor dict on the model's device (read it to the host once:
+        ``obs.metrics.host_taps``; fold it into a ``MetricsRegistry`` with
+        :meth:`lanes`).  Layers whose spec says ``metrics=off`` stay
+        silent; ``metrics=full`` adds the Δ-table ``dhist`` replay."""
+        x, y = self._inputs(xb, yb)
+        with _obs.collecting() as col:
+            out = self._step_impl(params, x, y, momentum)
+        return out, col.taps()
+
+    def train_step_faults(self, params, xb, yb, step, momentum=None):
+        """:meth:`train_step` with the config's :class:`FaultPlan` armed.
+        ``step`` (an int, or an integer tensor on the model's device) keys
+        the per-step faults and the plan's ``[start, stop)`` window.  With
+        ``cfg.faults=None`` this is the plain step."""
+        x, y = self._inputs(xb, yb)
+        with _inj.injecting(self.fault_plan, step):
+            return self._step_impl(params, x, y, momentum)
+
+    def train_step_faults_metrics(self, params, xb, yb, step,
+                                  momentum=None):
+        """:meth:`train_step_faults` and its taps, taken after injection
+        (the guardrails' entry point)."""
+        x, y = self._inputs(xb, yb)
+        with _inj.injecting(self.fault_plan, step):
+            with _obs.collecting() as col:
+                out = self._step_impl(params, x, y, momentum)
+        return out, col.taps()
 
     def predict(self, params, xb) -> torch.Tensor:
         """Class indices: signed argmax of the LNS logits (no decode)."""

@@ -548,3 +548,126 @@ def test_float_steps_card_match_cpu(cuda):
         assert got[k].dtype == want[k].dtype == np.float32
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
                                    err_msg=k)
+
+
+# ------------------------------------ telemetry, faults and guardrails --
+
+FAULTS = ("seed=3,start=2,stop=4;hidden=flip_w:0.01,flip_act:0.01,"
+          "sat_lanes:2;out=lut:3")
+OBS_PATHS = {
+    "fused": dict(spec="lns16-train-pallas"),
+    "unfused": dict(spec="lns16-train-pallas", fused=False),
+    "segmented": dict(spec="lns16-train-pallas,reduce.grad_segments=5"),
+    "fused-full": dict(spec="lns16-train-pallas;hidden=fmt:lns12,"
+                            "metrics:full"),
+}
+
+
+def _pair(kw, faults=None):
+    """The model of ``kw`` on the card and on the CPU, from the same
+    weights."""
+    models = {d: make_mlp("lns", MLPConfig(momentum=0.9, weight_decay=0.01,
+                                           faults=faults, **kw), device=d)
+              for d in ("cuda", "cpu")}
+    init = params_to_numpy(models["cpu"].init(
+        torch.Generator().manual_seed(4)))
+    from repro_torch.paper import params_from_numpy
+    params = {d: params_from_numpy(init, d) for d in models}
+    moms = {d: m.init_momentum(params[d]) for d, m in models.items()}
+    return models, params, moms
+
+
+def _codes_equal(a, b, msg):
+    for k, (g, w) in zip(a, zip(params_to_numpy(a).values(),
+                                params_to_numpy(b).values())):
+        np.testing.assert_array_equal(g[0], w[0], err_msg=f"{k} {msg}")
+        np.testing.assert_array_equal(g[1], w[1], err_msg=f"{k} {msg}")
+
+
+@pytest.mark.parametrize("path", list(OBS_PATHS))
+def test_metrics_steps_card_equal_cpu(cuda, path):
+    """``train_step_metrics`` on the card: the card's ``train_step`` codes,
+    the CPU lane's codes and taps, the kernels of the path launched."""
+    from repro_torch.obs import host_taps
+    x, y, _, _, _ = datasets.load("mnist", "data", 0)
+    models, params, moms = _pair(OBS_PATHS[path])
+    plain, plain_m = params["cuda"], moms["cuda"]
+    for step in range(3):
+        sl = slice(step * 5, (step + 1) * 5)
+        taps = {}
+        for d, m in models.items():
+            TKS.reset_launch_counts()
+            (params[d], moms[d], _), t = m.train_step_metrics(
+                params[d], x[sl], y[sl], moms[d])
+            taps[d] = host_taps(t)
+            if d == "cuda":
+                assert TKS.launch_counts()["lns_matmul_dx"] == 1
+        plain, plain_m, _ = models["cuda"].train_step(plain, x[sl], y[sl],
+                                                      plain_m)
+        _codes_equal(params["cuda"], plain, f"vs train_step @{step}")
+        _codes_equal(params["cuda"], params["cpu"], f"vs cpu @{step}")
+        _codes_equal(moms["cuda"], moms["cpu"], f"momentum @{step}")
+        assert sorted(taps["cuda"]) == sorted(taps["cpu"])
+        for k, v in taps["cpu"].items():
+            np.testing.assert_array_equal(taps["cuda"][k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("path", ["fused", "unfused", "segmented"])
+def test_faulted_steps_card_equal_cpu(cuda, path):
+    """``train_step_faults`` on the card draws the CPU lane's faults: the
+    codes are equal after every step, the step an int or a card tensor."""
+    faults = FAULTS + (";hidden=drop_seg:1;out=dup_seg:2"
+                       if path == "segmented" else "")
+    x, y, _, _, _ = datasets.load("mnist", "data", 0)
+    models, params, moms = _pair(OBS_PATHS[path], faults)
+    for step in range(6):
+        sl = slice(step * 5, (step + 1) * 5)
+        for d, m in models.items():
+            s = torch.tensor(step, device=d) if step % 2 else step
+            params[d], moms[d], _ = m.train_step_faults(
+                params[d], x[sl], y[sl], s, moms[d])
+        _codes_equal(params["cuda"], params["cpu"], f"@{step}")
+        _codes_equal(moms["cuda"], moms["cpu"], f"momentum @{step}")
+
+
+def test_threefry_on_card_equals_cpu(cuda):
+    from repro_torch.resil import prng
+    for seed in (0, 3, 42):
+        key = {d: prng.fold_in(prng.prng_key(seed),
+                               torch.tensor(7, dtype=torch.int32, device=d))
+               for d in ("cuda", "cpu")}
+        for shape in ((784, 100), (5, 100), (7, 13, 3)):
+            u = {d: prng.uniform(k, shape) for d, k in key.items()}
+            assert u["cuda"].is_cuda
+            assert torch.equal(u["cuda"].cpu(), u["cpu"])
+            for span in (1, 7, 16):
+                r = {d: prng.randint(k, shape, 0, span)
+                     for d, k in key.items()}
+                assert torch.equal(r["cuda"].cpu(), r["cpu"])
+
+
+def test_drills_card_equal_cpu(cuda):
+    """The three drills on the card give the CPU lane's rows but for
+    ``lane``, launching the kernels of their steps."""
+    from repro_torch.launch.drill import run_scenarios
+    TKS.reset_launch_counts()
+    card = run_scenarios(device="cuda")
+    counts = TKS.launch_counts()
+    cpu = run_scenarios(device="cpu")
+    for c, h in zip(card, cpu):
+        assert (c.pop("lane"), h.pop("lane")) == ("cuda", "cpu")
+        assert c == h
+    assert counts["lns_matmul_dw_update"] and counts["lns_boxsum"]
+
+
+def test_lut_fault_tables_on_card(cuda):
+    """A corrupted engine's tables on the card are its own; the shared
+    engine's stay clean."""
+    from repro_torch.core.delta import cached_engine
+    m = make_mlp("lns", MLPConfig(faults="seed=3;hidden=lut:3"), "cuda")
+    shared = cached_engine(T.DELTA_DEFAULT, T.LNS16)
+    got = m.engs["hidden"].tables("cuda")[0].cpu()
+    assert torch.equal(got, torch.from_numpy(m.engs["hidden"]._tab_plus))
+    assert torch.equal(shared.tables("cuda")[0].cpu(),
+                       torch.from_numpy(shared._tab_plus))
+    assert not torch.equal(got, shared.tables("cuda")[0].cpu())

@@ -182,11 +182,13 @@ def test_run_experiment_cpu_lane():
 
 
 def test_unported_paths_raise():
-    """Fault injection is not ported and raises; what the slices ported
-    constructs: the float and fixed-point models, and the spec keys that
-    route nothing here."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What the slices ported constructs: fault plans (a malformed one
+    raises as in the reference), the float and fixed-point models, and the
+    spec keys that route nothing here."""
+    with pytest.raises(ValueError, match="head token"):
         MLPConfig(faults="bitflip")
+    assert str(MLPConfig(faults="seed=1;hidden=flip_w:0.5").faults) \
+        == "seed=1;hidden=flip_w:0.5"
     for kw in (dict(spec="lns16-train-pallas,interpret=on"),
                dict(spec="lns16-train-pallas;hidden=metrics:full")):
         MLPConfig(**kw)
