@@ -65,7 +65,19 @@ the result line:
    so the threefry on the card draws the CPU's bits; the three drills of
    ``repro_torch.launch.drill`` on the card must give the CPU lane's rows
    but for ``lane``; then ms per step of ``train_step``,
-   ``train_step_metrics`` and ``train_step_faults`` in turns.
+   ``train_step_metrics`` and ``train_step_faults`` in turns;
+9. the LM training path (``lns_matmul_trainable``): (a) kernel rows 5, 2
+   and 6 at LM shapes (a forward over 2048, dX over 8192 and over 50 432,
+   dW over 256 tokens, ragged R and C, and the full-width head's three
+   products) bit for bit against their plain versions on the card; (b) the four ``reduced()`` dense configs under
+   ``fp32`` and ``lns16-train-pallas``, 3 AdamW steps on the card against
+   the CPU lane (fp32: every step's loss within rtol 1e-5; lns16-train:
+   the first step's within 1e-2), each row launched once per LNS linear
+   and CE chunk a step; (c) olmo-1b at full width, 2 layers, batch 2 ×
+   seq 128: losses, ms per step, a profiled step, peak memory and each
+   row's card ms against its bound at the step's shapes; (d) ``python -m
+   repro_torch.launch.train`` with checkpoints and metrics, relaunched to
+   resume at step 4.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Runs in well under the 1200 s limit
@@ -85,11 +97,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks: 3.35 TB/s of HBM (NVIDIA data sheet).  int32 ALU ops:
-# 64 INT32 lanes per SM (Hopper white paper) x 132 SMs x 1.98 GHz, the
-# boost clock behind the data sheet's 67 TFLOP/s float32.
+# H100 SXM peaks: 3.35 TB/s of HBM (NVIDIA data sheet).  int32 ops: an
+# SM issues at most one warp instruction a clock in each of its 4
+# sub-partitions, 128 lanes a clock, at the 1.98 GHz boost clock behind
+# the data sheet's 67 TFLOP/s float32, on 132 SMs.  The INT32 pipe's 64
+# lanes a clock are no ceiling: IMAD issues on the FMA pipe beside it.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # int32 operations per ⊞-MAC step, counted from csrc/lns_mac.cu: the
 # product (stage_product, 5) and mac_step with a LUT Δ (18, its table load
 # included).  The ⊞ of the epilogues (boxplus with a LUT Δ) is 30.  Per
@@ -98,7 +112,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # and weight decay).  The ⊞-reduce (boxsum_kernel) folds a row's steps
 # after the first with mac_step (18, plus the zero code's compare and
 # select and the sign's shift: 21); the first step and the result's sign
-# take a compare, a select and a shift each (6 a row).
+# take a compare, a select and a shift each (6 a row).  Phase 9c counts
+# the tiled chain's steps from its SASS instead (mac_step_instructions).
 OPS_PER_MAC = 23
 OPS_BOXPLUS = 30
 OPS_BOXSUM_STEP = 18 + 3
@@ -1322,6 +1337,464 @@ def phase8(torch, card):
     return counts
 
 
+# ------------------------------------------------------------- phase 9 --
+
+LM_DENSE = ("olmo-1b", "qwen3-1.7b", "yi-6b", "command-r-35b")
+#: The ⊞-MAC rows of ``lns_matmul_trainable``: forward, dX, dW.
+LM_ROWS = ("lns_matmul", "lns_matmul_dx", "lns_matmul_dw")
+LM_STEPS = 3
+#: 9b, lns16-train: the card's teacher-forced parameter update against the
+#: CPU lane's, relative L2 over the tree (the CPU tests' bound against the
+#: JAX package, tests/test_torch_lm_lns_steps.py).
+LM_UPDATE_RTOL = 0.5
+#: 9c: olmo-1b at full width, depth cut to 2 layers, batch 2 × seq 128.
+FULL_LAYERS, FULL_BATCH, FULL_SEQ = 2, 2, 128
+
+
+def lm_operands(torch, device, row, r, c, ct, fmt=None):
+    """Seeded operands of one ⊞-MAC launch of ``row`` with an (R, C)
+    output over CT steps, drawn and encoded on ``device``, in the layouts
+    the LM step passes: forward x (R, CT) and w (CT, C); dX dy (R, CT) and
+    w (C, CT); dW x (CT, R) and dy (CT, C)."""
+    from repro_torch.core import LNS16, encode
+    fmt = fmt or LNS16
+    rk = torch.Generator(device=device).manual_seed(SEED + r + c + ct)
+    a_shape = (ct, r) if row == "lns_matmul_dw" else (r, ct)
+    b_shape = (c, ct) if row == "lns_matmul_dx" else (ct, c)
+    a = torch.randn(a_shape, generator=rk, device=device)
+    b = torch.randn(b_shape, generator=rk, device=device) * 0.05
+    return encode(a, fmt), encode(b, fmt)
+
+
+def full_width_cfg():
+    """9c's model: olmo-1b as published, depth cut to ``FULL_LAYERS``."""
+    from repro_torch.configs import get_config
+    return get_config("olmo-1b").with_(
+        n_layers=FULL_LAYERS, numerics="lns16-train-pallas", remat="none")
+
+
+def lm_kernels(torch, device):
+    """9a: rows 5, 2 and 6 at LM shapes on the card, bit for bit against
+    their plain versions on the card.  Returns {row: max |diff|}, the
+    number of cases and the plain version's ms at each of 9c's
+    shapes."""
+    from repro_torch.core import DELTA_DEFAULT, LNS12, LNS16
+    from repro_torch.kernels import lns_matmul as K
+    rk = torch.Generator().manual_seed(SEED + 9)
+    worst = dict.fromkeys(LM_ROWS, 0)
+    # (row, label, a shape, b shape, a / b contracted axis, format)
+    cases = [
+        ("lns_matmul", "fwd (64x2048).(2048x200)", (64, 2048), (2048, 200),
+         1, 0, LNS16),
+        ("lns_matmul_dw", "dW over 256 tokens into 2048x160", (256, 2048),
+         (256, 160), 0, 0, LNS16),
+        ("lns_matmul", "ragged fwd (37x203).(203x45)", (37, 203), (203, 45),
+         1, 0, LNS16),
+        ("lns_matmul_dx", "ragged dX (37x45).(203x45)T", (37, 45),
+         (203, 45), 1, 1, LNS12),
+        ("lns_matmul_dw", "ragged dW (61x203)T.(61x45)", (61, 203), (61, 45),
+         0, 0, LNS12),
+    ]
+    for row, label, ashape, bshape, aa, ba, fmt in cases:
+        a = operands(torch, rk, ashape, scale=1.0, zero_frac=0.2, fmt=fmt,
+                     device=device)
+        b = operands(torch, rk, bshape, scale=0.05, zero_frac=0.05, fmt=fmt,
+                     device=device)
+        kw = dict(fmt=fmt, spec=DELTA_DEFAULT)
+        got = getattr(K, row)(a.code, a.sign, b.code, b.sign, **kw)
+        want = K.mac_plain(a.code, a.sign, b.code, b.sign,
+                           a_contract_axis=aa, b_contract_axis=ba, **kw)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"9a {label}: {g.dtype}{tuple(g.shape)}"
+                                     f" vs {w.dtype}{tuple(w.shape)}")
+            err = int((g.long() - w.long()).abs().max())
+            worst[row] = max(worst[row], err)
+            if err:
+                raise AssertionError(f"9a {label}: max |diff| {err}")
+        log("9a lm kernels", f"{row} {label}: bit-exact against the plain "
+            f"version on the card")
+    # Every distinct product of 9c's full-width step (olmo-1b, 256
+    # tokens): the blocks' (d_model 2048, d_ff 8192; their dX over 8192
+    # among them) and the head's (vocab 50 432), each row at its shape;
+    # the plain version is timed once each (host clock ending in a
+    # synchronize).  A narrow dX over the head's 50 432 steps, (4 x 8),
+    # shares the head dX's plain run, whose loop costs the same at any
+    # width: each output of the plain version depends only on its row
+    # and column, so the narrow operands are appended to the head's and
+    # their block of the result is read back.
+    plain_ms = {}
+    cfg = full_width_cfg()
+    kw = dict(fmt=LNS16, spec=DELTA_DEFAULT)
+    for row, r, c, ct, _ in lm_products(cfg, FULL_BATCH, FULL_SEQ):
+        a, b = lm_operands(torch, device, row, r, c, ct)
+        aa = 0 if row == "lns_matmul_dw" else 1
+        ba = 1 if row == "lns_matmul_dx" else 0
+        got = getattr(K, row)(a.code, a.sign, b.code, b.sign, **kw)
+        narrow = row == "lns_matmul_dx" and ct == cfg.padded_vocab
+        if narrow:
+            na = operands(torch, rk, (4, ct), scale=1.0, zero_frac=0.2,
+                          fmt=LNS16, device=device)
+            nb = operands(torch, rk, (8, ct), scale=0.05, zero_frac=0.05,
+                          fmt=LNS16, device=device)
+            ngot = K.lns_matmul_dx(na.code, na.sign, nb.code, nb.sign, **kw)
+            a = type(a)(torch.cat([a.code, na.code]),
+                        torch.cat([a.sign, na.sign]))
+            b = type(b)(torch.cat([b.code, nb.code]),
+                        torch.cat([b.sign, nb.sign]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = K.mac_plain(a.code, a.sign, b.code, b.sign,
+                           a_contract_axis=aa, b_contract_axis=ba, **kw)
+        torch.cuda.synchronize()
+        plain_ms[row, r, c, ct] = (time.perf_counter() - t0) * 1e3
+        if narrow:
+            nerr = max(int((g.long() - w[r:, c:].long()).abs().max())
+                       for g, w in zip(ngot, want))
+            worst[row] = max(worst[row], nerr)
+            if nerr:
+                raise AssertionError(f"9a narrow dX (4 x 8) over {ct}: max "
+                                     f"|diff| {nerr}")
+            log("9a lm kernels", f"{row} narrow dX (4 x 8) over {ct}: "
+                f"bit-exact against the plain version on the card")
+            want = [w[:r, :c] for w in want]
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        worst[row] = max(worst[row], err)
+        if err:
+            raise AssertionError(f"9a {row} ({r} x {c}) over {ct} at full "
+                                 f"width: max |diff| {err}")
+        log("9a lm kernels", f"{row} 9c's ({r} x {c}) over {ct}: bit-exact "
+            f"against the plain version on the card (plain "
+            f"{plain_ms[row, r, c, ct]:.1f} ms)")
+        del got, want
+    return worst, len(cases) + len(plain_ms) + 1, plain_ms
+
+
+def lm_train(torch, arch, numerics, device, steps=LM_STEPS, cfg=None,
+             params=None, batch=2, seq=32, forced=None, keep=False):
+    """``steps`` AdamW steps of ``arch`` on ``device``, from the seeded
+    CPU init (the same parameters on both lanes); returns the losses, the
+    launch counts (counters set to 0 just before the steps, read just
+    after), each step's host ms and (the last state, or with ``keep``
+    the state before the first step and after each, the step function,
+    the dataset).  ``forced``: states (of another lane) to start each step
+    from, in place of the last step's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.nn import init_params
+    from repro_torch.nn.config import ShapeCell
+    from repro_torch.optim.optimizers import AdamWConfig
+    from repro_torch.pytree import tree_map
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    if cfg is None:
+        cfg = reduced(get_config(arch)).with_(numerics=numerics,
+                                              remat="none")
+    if params is None:
+        params = init_params(SEED, cfg, device=device)
+    opt, tc = AdamWConfig(lr=1e-3), TrainConfig(grad_clip=1.0)
+    state = init_train_state(params, opt, tc)
+    step = make_train_step(cfg, opt, tc=tc)
+    ds = SyntheticLMDataset(cfg, ShapeCell("lm", seq, batch, "train"),
+                            DataConfig(seed=SEED))
+    losses, ms = [], []
+    states = [state] if keep else None
+    reset_launch_counts()
+    for i in range(steps):
+        b = ds.batch_on(i, device)
+        if forced is not None:
+            state = tree_map(lambda t: t.to(device), forced[i])
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        if keep:
+            states.append(state)
+        losses.append(float(m["loss"]))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{arch} {numerics}: losses {losses}")
+    return losses, counts, ms, (states if keep else state, step, ds)
+
+
+def lm_products(cfg, batch, seq):
+    """(row, R, C, CT, launches) of every ⊞-MAC launch of one dense train
+    step under ``lns16-train`` with ``remat="none"``: per LNS linear
+    (K → N over M tokens) the forward (M, N) over K, dX (M, K) over N and
+    dW (K, N) over M; the head once per CE chunk."""
+    d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.d_head, cfg.d_ff)
+    linears = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d)]
+    linears += [(d, ff)] * (2 if cfg.mlp_kind == "glu" else 1) + [(ff, d)]
+    linears = linears * cfg.layers
+    chunks = max(seq // cfg.ce_chunk, 1)
+    out = {}
+    for k, n, m, times in [(k, n, batch * seq, 1) for k, n in linears] + [
+            (d, cfg.padded_vocab, batch * (seq // chunks), chunks)]:
+        for key in (("lns_matmul", m, n, k), ("lns_matmul_dx", m, k, n),
+                    ("lns_matmul_dw", k, n, m)):
+            out[key] = out.get(key, 0) + times
+    return [key + (c,) for key, c in out.items()]
+
+
+def lm_expected(cfg, seq):
+    """Launches of each row in one train step: once per LNS linear (4 in
+    attention, 3 or 2 in the MLP, per layer) and once per CE chunk."""
+    per_layer = 4 + (3 if cfg.mlp_kind == "glu" else 2)
+    return dict.fromkeys(LM_ROWS, cfg.layers * per_layer
+                         + max(seq // cfg.ce_chunk, 1))
+
+
+def mac_step_instructions():
+    """Instructions a thread of the tiled ``mac_kernel<kLut>`` issues per
+    ⊞-MAC step: its SASS inner loop in the built library (``lut_loop`` of
+    ``scripts/ab_fused_step.py``, by ``cuobjdump``) over the ``kTileK``
+    steps that loop unrolls, and the loop."""
+    import re
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from ab_fused_step import lut_loop
+    from repro_torch.kernels import build
+    src = (build.CSRC / "lns_mac.cu").read_text()
+    tile_k = int(re.search(r"constexpr int kTileK = (\d+);", src).group(1))
+    loop = lut_loop(build)
+    return loop["instructions"] / tile_k, loop
+
+
+def lm_time_products(torch, device, products, card, plain_ms):
+    """Card ms of each row's launches in one full-width step (CUDA events
+    around each distinct shape, times its launches), the plain version's
+    (9a's time at that shape, times its launches), and each row's bound
+    from this step's shapes: the bytes, and the instructions the tiled
+    chain issues per step, at one warp instruction a clock per SM
+    sub-partition."""
+    from repro_torch.core import DELTA_DEFAULT, LNS16
+    from repro_torch.kernels import lns_matmul as K
+    per_step, loop = mac_step_instructions()
+    log("9c lm times", f"mac_kernel<kLut>'s inner loop {loop['range']}: "
+        f"{loop['instructions']} instructions, {per_step:.4f} a ⊞-MAC step "
+        f"a thread; opcodes {loop['opcodes']}")
+    rows = {r: dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, launches=0)
+            for r in LM_ROWS}
+    for row, r, c, ct, times in products:
+        a, b = lm_operands(torch, device, row, r, c, ct)
+        fn = getattr(K, row)
+
+        def call():
+            fn(a.code, a.sign, b.code, b.sign, fmt=LNS16,
+               spec=DELTA_DEFAULT)
+        call()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 2
+        ops = r * c * ct * per_step
+        nbytes = (r * ct + ct * c + r * c) * 5
+        log("9c lm times", f"{row} R={r} C={c} CT={ct}: {ms:.4f} ms a "
+            f"launch x {times} (bound {max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f} ms) on {card}")
+        q = rows[row]
+        q["ms"] += ms * times
+        q["plain_ms"] += plain_ms[row, r, c, ct] * times
+        q["bytes"] += nbytes * times
+        q["ops"] += ops * times
+        q["launches"] += times
+    for q in rows.values():
+        tb, to = q["bytes"] / HBM_BYTES_PER_S, q["ops"] / INT32_OPS_PER_S
+        q["bound_ms"] = max(tb, to) * 1e3
+        q["bound_by"] = "bytes" if tb > to else "operations"
+    return rows
+
+
+def lm_full_width(torch, device, card, plain_ms):
+    """9c: olmo-1b as published (d_model 2048, 16 × 128 heads, d_ff 8192,
+    vocab 50 304 padded to 50 432), depth cut to 2 layers, batch 2 × seq
+    128, lns16-train-pallas, AdamW, 3 steps on the card.  ``plain_ms``:
+    9a's plain time at each of the step's shapes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.nn import init_params
+    cfg = full_width_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device=device).manual_seed(SEED),
+                         cfg, device=device)
+    losses, counts, ms, (state, step, ds) = lm_train(
+        torch, "olmo-1b", None, device, cfg=cfg, params=params,
+        batch=FULL_BATCH, seq=FULL_SEQ)
+    want = {k: v * LM_STEPS for k, v in lm_expected(cfg, FULL_SEQ).items()}
+    if counts != want:
+        raise AssertionError(f"9c launch counts {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    fp32, _, fp32_ms, _ = lm_train(
+        torch, "olmo-1b", None, device, cfg=cfg.with_(numerics="fp32"),
+        params=params, batch=FULL_BATCH, seq=FULL_SEQ)
+    log("9c full width", f"the same steps under fp32 (cuBLAS, no LNS "
+        f"kernel): losses {fp32}; ms per step {fp32_ms}")
+    log("9c full width", f"olmo-1b d_model {cfg.d_model}, {cfg.n_heads} x "
+        f"{cfg.d_head} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} -> "
+        f"{cfg.padded_vocab}, {cfg.layers} layers, batch {FULL_BATCH} x seq "
+        f"{FULL_SEQ}: losses {losses}; ms per step {ms} (host clock ending "
+        f"in a synchronize; the first includes warm-up); launches {counts}; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB on {card}")
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, ds.batch_on(LM_STEPS, device))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    one = {k: v for k, v in launch_counts().items() if v}
+    dev_us, kern = 0.0, []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0:
+            dev_us += dev
+            kern.append((dev, e.count, e.key))
+    kern.sort(reverse=True)
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    if dev_us:
+        log("9c profile", f"one step: {dev_us:.1f} us of device time in "
+            f"{sum(k[1] for k in kern)} kernel launches ({one} of the ⊞-MAC "
+            f"rows); busy share {dev_us / (step_ms * 1e3):.4f} of the "
+            f"unprofiled step ({step_ms:.3f} ms, the mean of steps 2-"
+            f"{LM_STEPS}; {dev_us / wall_us:.4f} of the {wall_us:.1f} us "
+            f"profiled step) on {card}")
+        for dev, count, key in kern[:6]:
+            log("9c profile", f"{dev:12.1f} us {count:5d} launches  "
+                f"{key[:70]}")
+    else:
+        log("9c profile", "torch.profiler saw no device time: not measured")
+    rows = lm_time_products(torch, device,
+                            lm_products(cfg, FULL_BATCH, FULL_SEQ), card,
+                            plain_ms)
+    for row, q in rows.items():
+        log("9c lm times", f"{row} per full-width step: {q['ms']:.3f} ms on "
+            f"the card in {q['launches']} launches; plain "
+            f"{q['plain_ms']:.1f} ms; bound {q['bound_ms']:.3f} ms by "
+            f"{q['bound_by']} on {card}")
+    return rows, dict(counts)
+
+
+def lm_cli(torch, tmp):
+    """9d: the train CLI on the card with checkpoints and metrics, then a
+    relaunch that resumes at step 4."""
+    import json as _json
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as train_cli
+    common = ["--arch", "qwen3-1.7b", "--ckpt-every", "2", "--numerics",
+              "lns16-train-pallas", "--batch", "2", "--seq", "32",
+              "--log-every", "1", "--ckpt-dir", f"{tmp}/ckpt"]
+    reset_launch_counts()
+    first = train_cli.main(["--steps", "4", "--metrics", f"{tmp}/a.jsonl"]
+                           + common)
+    second = train_cli.main(["--steps", "6", "--metrics", f"{tmp}/b.jsonl"]
+                            + common)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if len(first) != 4 or len(second) != 2:
+        raise AssertionError(f"9d: {len(first)} then {len(second)} steps; "
+                             f"the relaunch must resume at step 4")
+    rows = [_json.loads(x) for x in open(f"{tmp}/b.jsonl")]
+    keys = {"kind", "name", "value", "component", "arch", "spec", "layer",
+            "op", "lane", "step", "loss", "step_time_ms"}
+    counters = [r for r in rows if r["kind"] == "counter"]
+    # Parameters outside the known layer paths (final_norm) carry no lane,
+    # as in the reference.
+    if not counters or any(set(r) - {"lane"} != keys - {"lane"}
+                           for r in counters) \
+            or {r["step"] for r in counters} != {5, 6} \
+            or {r["lane"] for r in counters if "lane" in r} != {"cuda"}:
+        raise AssertionError(f"9d: metrics rows {rows[:2]}")
+    if rows[-1]["kind"] != "summary":
+        raise AssertionError("9d: no summary row")
+    log("9d train cli", f"4 steps then a relaunch to 6 that resumed at step "
+        f"4: losses {first} / {second}; {len(rows)} JSONL rows with the "
+        f"reference's keys; launches {counts}")
+    return counts
+
+
+def update_gap(before, after_cpu, after_card):
+    """Relative L2 distance, over the whole tree, of the card's parameter
+    update from the CPU lane's, both from the same state ``before``."""
+    from repro_torch.pytree import tree_leaves
+    num = den = 0.0
+    for p0, p1, q1 in zip(tree_leaves(before["params"]),
+                          tree_leaves(after_cpu["params"]),
+                          tree_leaves(after_card["params"])):
+        u = p1.double() - p0.double()
+        num += float(((q1.cpu().double() - p0.double() - u) ** 2).sum())
+        den += float((u ** 2).sum())
+    return math.sqrt(num / den)
+
+
+def phase9(torch, device, card):
+    """Phase 9; returns ({row: max |diff|}, {row: LM step timing},
+    {row: launches of the LM runs on the card})."""
+    from repro_torch.configs import get_config, reduced
+    t0 = time.time()
+    worst, n, plain_ms = lm_kernels(torch, device)
+    log("9a lm kernels", f"{n} cases in {time.time() - t0:.1f} s")
+    launches = dict.fromkeys(LM_ROWS, 0)
+    cpu = torch.device("cpu")
+    for arch in LM_DENSE:
+        for numerics, rtols in (("fp32", (1e-5, 1e-5)),
+                                ("lns16-train-pallas", (1e-3, 1e-2))):
+            t1 = time.time()
+            # fp32: both lanes free-running, every step's loss held at
+            # 1e-5.  lns16-train: teacher-forced, each card step from the
+            # CPU lane's state before it (free-running, float ulps part the
+            # lanes after the first update); the first step's loss held at
+            # 1e-3, every step's at 1e-2 (a later step's start is no
+            # longer the seeded init, and its gap reads up to 1.26e-3:
+            # ROADMAP queue 3 item 7) and its update at LM_UPDATE_RTOL.
+            forced = numerics != "fp32"
+            hl, _, _, (hstates, _, _) = lm_train(torch, arch, numerics, cpu,
+                                                 keep=True)
+            cl, counts, ms, (cstates, _, _) = lm_train(
+                torch, arch, numerics, device, keep=True,
+                forced=hstates if forced else None)
+            cfg = reduced(get_config(arch))
+            want = {} if numerics == "fp32" else {
+                k: v * LM_STEPS for k, v in lm_expected(cfg, 32).items()}
+            if counts != want:
+                raise AssertionError(f"9b {arch} {numerics}: launch counts "
+                                     f"{counts}, expected {want}")
+            gaps = [abs(a - b) / abs(b) for a, b in zip(cl, hl)]
+            upd = [update_gap(h0, h1, c1) for h0, h1, c1 in
+                   zip(hstates, hstates[1:], cstates[1:])] if forced else []
+            if gaps[0] > rtols[0] or max(gaps) > rtols[1] \
+                    or max(upd, default=0.0) > LM_UPDATE_RTOL:
+                raise AssertionError(f"9b {arch} {numerics}: card {cl} vs "
+                                     f"cpu {hl}; update gaps {upd}")
+            for k, v in counts.items():
+                launches[k] += v
+            log("9b lm card vs cpu", f"{arch} {numerics}"
+                f"{' (teacher-forced)' if forced else ''}: losses card {cl} "
+                f"cpu {hl} (rel gaps {gaps}); update relative L2 {upd}; "
+                f"launches {counts}; card ms per step "
+                f"{[round(x, 1) for x in ms]}; {time.time() - t1:.1f} s")
+            del hstates, cstates
+    rows, counts = lm_full_width(torch, device, card, plain_ms)
+    for k, v in counts.items():
+        launches[k] += v
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, v in lm_cli(torch, tmp).items():
+            launches[k] += v
+    log("9 lm", f"phase 9 in {time.time() - t0:.1f} s")
+    return worst, rows, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1468,10 +1941,23 @@ def main() -> int:
     t0 = time.time()
     phase8(torch, card)
     log("8 obs+resil", f"phase 8 in {time.time() - t0:.1f} s")
+    lm_worst, lm_rows, lm_launches = phase9(torch, device, card)
+    for k in kernels:
+        if k["name"] in LM_ROWS:
+            row = k["name"]
+            q = lm_rows[row]
+            k["max_abs_err"] = max(k["max_abs_err"], lm_worst[row])
+            k["launches"] += lm_launches[row]
+            k.update(lm_route="lns_matmul_trainable",
+                     lm_launches_per_step=q["launches"], lm_ms=q["ms"],
+                     lm_plain_ms=q["plain_ms"], lm_bound_ms=q["bound_ms"],
+                     lm_bound_by=q["bound_by"])
+    log("9 lm", "JSON lm_ms / lm_plain_ms / lm_bound_ms are per full-width "
+        "olmo-1b step (phase 9c); launches include phase 9's card runs")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -20,5 +20,6 @@ from .sgd import (LogSGDConfig, UpdateEpilogue, apply_update,
                   apply_update_codes, init_momentum)
 from .softmax import ce_grad_init, ce_loss_readout, log_softmax_lns
 from .spec import (ALIASES, BLOCK_MODES, INTERPRET_MODES, METRICS_MODES,
-                   REDUCE_MODES, REDUCE_SCHEDULES, NumericsSpec, ReduceSpec,
-                   parse_blocks, resolve_blocks_arg)
+                   REDUCE_MODES, REDUCE_SCHEDULES, LNSRuntime, NumericsSpec,
+                   ReduceSpec, parse_blocks, resolve_blocks_arg,
+                   resolve_kernel_args)

@@ -11,9 +11,9 @@ spec-string vocabulary.  Patterns are ``fnmatch`` globs over layer paths
 (the paper MLP has ``hidden`` and ``out``).  :meth:`NumericsPlan.resolve`
 applies every matching rule on top of the default, in declaration order.
 A plan with no rules reads through to its default spec, so it can stand
-wherever a spec does.  The JAX package's ``runtime_for`` / ``runtime``
-(its ``LNSRuntime``) are not ported: the port's products take a format and
-a Δ spec, and their lane follows the device.
+wherever a spec does.  :meth:`NumericsPlan.runtime_for` gives a layer's
+resolved :class:`~repro_torch.core.spec.LNSRuntime`; layers whose specs are
+equal share one cached runtime.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import fnmatch
 import functools
 from typing import Tuple
 
-from .spec import NumericsSpec, apply_kv_overrides
+from .spec import LNSRuntime, NumericsSpec, apply_kv_overrides
 
 _PATTERN_FORBIDDEN = set(";=,:")
 
@@ -94,6 +94,19 @@ class NumericsPlan:
     def resolve(self, path: str) -> NumericsSpec:
         """The spec layer ``path`` runs under (default + matching rules)."""
         return _resolve_cached(self, path)
+
+    def runtime_for(self, path: str, block_m: int = 128, block_n: int = 128,
+                    block_k: int = 128) -> LNSRuntime:
+        """The resolved runtime of layer ``path``; layers whose resolved
+        specs are equal share one cached runtime."""
+        return self.resolve(path).runtime(block_m=block_m, block_n=block_n,
+                                          block_k=block_k)
+
+    def runtime(self, block_m: int = 128, block_n: int = 128,
+                block_k: int = 128) -> LNSRuntime:
+        """The default spec's runtime (what un-planned call sites use)."""
+        return self.default.runtime(block_m=block_m, block_n=block_n,
+                                    block_k=block_k)
 
     def resolve_layers(self, paths) -> dict:
         """``{path: resolved spec}`` for every path, after validation."""

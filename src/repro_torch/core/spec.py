@@ -1,18 +1,27 @@
-"""``NumericsSpec``: the serializable descriptor of the LNS arithmetic.
+"""``NumericsSpec`` → ``LNSRuntime``: the serializable descriptor of the
+LNS arithmetic, and the spec resolved once.
 
-The JAX package's spec without its runtime: format, Δ approximation, which
-tensors are quantized, compute dtype, backend, interpret mode, kernel
-blocks, telemetry and the data-parallel gradient reduce
-(:class:`ReduceSpec`).  ``parse`` accepts a registry alias
-(``"lns16-train-pallas"``), a ``key=value`` list, or an alias plus
-overrides (``"lns16-train-pallas,delta=bitshift"``); ``str`` gives the same
+:class:`NumericsSpec` holds format, Δ approximation, which tensors are
+quantized, compute dtype, backend, interpret mode, kernel blocks,
+telemetry and the data-parallel gradient reduce (:class:`ReduceSpec`).
+``parse`` accepts a registry alias (``"lns16-train-pallas"``), a
+``key=value`` list, or an alias plus overrides
+(``"lns16-train-pallas,delta=bitshift"``); ``str`` gives the same
 canonical text as the JAX package does.
 
+:class:`LNSRuntime` is what the LM layers call: ``q_param`` / ``q_act`` /
+``linear`` dispatch each weight product to the ⊞-MAC path the spec names,
+with the shared ⊞-MAC backend and Δ engine.
+
 Three keys are parsed, validated and printed so that reference strings
-load unchanged, but route nothing here:
+load unchanged, but route no lane here:
 
 * ``backend`` and ``interpret``: the device of the operands chooses the
-  lane (see :class:`~repro_torch.core.lns.LNSMatmulBackend`);
+  lane (see :class:`~repro_torch.core.lns.LNSMatmulBackend`).  ``backend``
+  still picks the *arithmetic* of a forward-only product, as in the JAX
+  package: ``emulate`` is the pairwise tree of ``lns_dot_exact``, ``pallas``
+  the sequential ⊞-MAC of ``lns_dot_dispatch`` (see
+  :meth:`LNSRuntime.linear`);
 * ``blocks``: the CUDA kernels keep a fixed launch shape of their own.
 
 ``metrics`` sets a layer's telemetry as in the JAX package: ``off``,
@@ -21,13 +30,17 @@ histogram), read by the metrics entry points of ``paper/mlp.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional
 
+import torch
+
 from .delta import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT, DELTA_SOFTMAX,
                     DeltaSpec)
 from .formats import FORMATS, LNS12, LNS16, LNSFormat
+from .lns import LNSMatmulBackend
 
 MATMUL_BACKENDS = ("emulate", "pallas")
 QUANTIZE_AXES = ("params", "acts", "grads")
@@ -230,6 +243,11 @@ class NumericsSpec:
                 **reduce_kw)
         return dataclasses.replace(self, **flat)
 
+    def runtime(self, block_m: int = 128, block_n: int = 128,
+                block_k: int = 128) -> "LNSRuntime":
+        """This spec resolved once into a cached :class:`LNSRuntime`."""
+        return _cached_runtime(self, block_m, block_n, block_k)
+
     def _flat(self) -> dict:
         """Serialized ``key → value-string`` view (parse's inverse)."""
         return {
@@ -382,3 +400,209 @@ ALIASES = {
         fmt=LNS16, quantize="params+acts+grads", delta_spec=DELTA_DEFAULT,
         compute_dtype="float32", backend="pallas"),
 }
+
+
+def resolve_kernel_args(numerics, *, fmt=None, spec=None, backend=None,
+                        interpret=None, blocks=None, op: str = "kernel",
+                        layer: "str | None" = None):
+    """Fill a kernel entry point's config pieces from a spec or plan.
+
+    Explicit arguments win over the spec; a missing fmt or Δ raises naming
+    ``op``.  ``numerics`` may be a :class:`NumericsSpec`, a
+    :class:`~repro_torch.core.plan.NumericsPlan` or their string; with a
+    plan, ``layer`` picks the layer path whose resolved spec applies
+    (default: the plan's default spec).  Returns ``(fmt, spec, backend,
+    interpret, blocks)``, ``blocks`` the spec's tiling string.
+    """
+    if numerics is not None:
+        from .plan import NumericsPlan  # plan.py imports this module
+        pl = NumericsPlan.parse(numerics)
+        ns = pl.resolve(layer) if layer is not None else pl.default
+        fmt = fmt if fmt is not None else ns.fmt
+        spec = spec if spec is not None else ns.delta_spec
+        backend = backend if backend is not None else ns.backend
+        interpret = interpret if interpret is not None else ns.interpret_flag
+        blocks = blocks if blocks is not None else ns.blocks
+    if fmt is None or spec is None:
+        raise ValueError(
+            f"{op} needs fmt + spec (pass them explicitly or via "
+            f"numerics=<NumericsSpec/spec string> with fmt and delta set)")
+    return fmt, spec, backend, interpret, \
+        (blocks if blocks is not None else "default")
+
+
+#: The compute dtypes as torch dtypes.
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class LNSRuntime:
+    """A :class:`NumericsSpec` resolved into live execution objects.
+
+    * :attr:`matmul` — the :class:`~repro_torch.core.lns.LNSMatmulBackend`
+      of the spec's format and Δ: the forward and backward ⊞-MAC products,
+      kernel on the card, plain version on the CPU;
+    * :attr:`delta_engine` — the shared Δ engine of (Δ spec, fmt);
+    * :meth:`q_param` / :meth:`q_act` / :meth:`linear` — what the LM layers
+      call;
+    * :meth:`dp_config` — the data-parallel reduce plan of ``spec.reduce``.
+
+    The block sizes are kept so that the JAX package's calls carry across;
+    they route nothing.  The JAX package's ``NumericsPolicy`` attribute
+    names (``param_lns``, ``exact_spec``, ``lns_grad``, ``matmul_backend``
+    ...) read through to the spec.
+    """
+
+    spec: NumericsSpec
+    block_m: int = 128
+    block_n: int = 128
+    block_k: int = 128
+
+    @functools.cached_property
+    def matmul(self) -> LNSMatmulBackend:
+        s = self.spec
+        if s.fmt is None or s.delta_spec is None:
+            raise ValueError(
+                f"spec {str(s)!r} has no ⊞-MAC path (needs fmt + delta); "
+                f"set e.g. fmt=lns16,delta=lut20")
+        return LNSMatmulBackend(fmt=s.fmt, spec=s.delta_spec)
+
+    @functools.cached_property
+    def delta_engine(self):
+        s = self.spec
+        if s.fmt is None or s.delta_spec is None:
+            raise ValueError(
+                f"spec {str(s)!r} has no Δ engine (needs fmt + delta)")
+        from .delta import cached_engine
+        return cached_engine(s.delta_spec, s.fmt)
+
+    def dp_config(self, num_devices: int = 1, **kw):
+        """The data-parallel reduce plan: a ``DPConfig`` from this spec."""
+        from ..distributed.lns_dp import DPConfig
+        return DPConfig(num_devices=num_devices, reduce=self.spec.reduce,
+                        **kw)
+
+    @property
+    def name(self) -> str:
+        return str(self.spec)
+
+    def lane_on(self, device) -> str:
+        """The lane of this runtime's products on ``device``, for metrics
+        rows: ``"cuda"`` (the kernels on a card) or ``"cpu"`` (their plain
+        versions), or ``"float-<dtype>"`` off the ⊞-MAC path."""
+        s = self.spec
+        if s.delta_spec is None or s.fmt is None:
+            return f"float-{s.compute_dtype}"
+        return torch.device(device).type
+
+    @property
+    def lane(self) -> str:
+        """:meth:`lane_on` the entry points' default device: the card where
+        there is one, else the CPU."""
+        return self.lane_on("cuda" if torch.cuda.is_available() else "cpu")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return TORCH_DTYPES[self.spec.compute_dtype]
+
+    def q_param(self, w):
+        if self.spec.quantize_params:
+            from .qat import lns_quantize_ste
+            w = lns_quantize_ste(w, self.spec.fmt)
+        return w.to(self.dtype)
+
+    def q_act(self, x):
+        if self.spec.quantize_acts:
+            from .qat import lns_quantize_ste
+            x = lns_quantize_ste(x, self.spec.fmt)
+        return x.to(self.dtype)
+
+    def linear(self, x, w):
+        """Contract x's last axis against w's first under this spec.
+
+        A Δ spec runs the ⊞-MAC path: end-to-end log-domain gradients
+        (``lns_matmul_trainable``) when ``quantize`` holds ``grads``, else
+        a forward-only ⊞-MAC with straight-through gradients, sequential
+        (``lns_dot_dispatch``, ``backend=pallas``) or the pairwise tree
+        (``lns_dot_exact``, ``backend=emulate``).  Without a Δ spec the
+        product is a float matmul of the STE-quantized operands in the
+        compute dtype.
+        """
+        with self._tapping(op="linear") as observe:
+            s = self.spec
+            if s.delta_spec is not None:
+                if s.quantize_grads:
+                    from ..kernels.lns_matmul import lns_matmul_trainable
+                    out = lns_matmul_trainable(
+                        x, w, numerics=s, block_m=self.block_m,
+                        block_n=self.block_n, block_k=self.block_k)
+                elif s.backend != "emulate":
+                    from .qat import lns_dot_dispatch
+                    out = lns_dot_dispatch(x, w, self.matmul)
+                else:
+                    from .qat import lns_dot_exact
+                    out = lns_dot_exact(x, w, s.fmt, s.delta_spec)
+            else:
+                out = torch.matmul(self.q_act(x), self.q_param(w))
+        observe(out)
+        return out
+
+    @contextlib.contextmanager
+    def _tapping(self, *, op: str):
+        """Yields ``observe(out)``, the float-view health tap of a linear
+        output, and suspends collection inside the product.  It records
+        only when this spec opted in (``metrics != "off"``), a collector is
+        live and an ambient ``obs.scope`` names the layer.  Pure reads."""
+        from ..obs import metrics as _obs
+        if self.spec.metrics == "off" or not _obs.scope_active():
+            yield lambda out: None
+            return
+        with _obs.suspended():
+            yield lambda out: _obs.observe_float(out, self.spec.fmt, op=op)
+
+    @property
+    def matmul_path(self) -> str:
+        """What :meth:`linear` runs, in words."""
+        s = self.spec
+        if s.delta_spec is None:
+            return f"float torch.matmul ({s.compute_dtype})"
+        if s.quantize_grads or s.backend != "emulate":
+            return "LNS ⊞-MAC via LNSMatmulBackend (lane by device)"
+        return "LNS ⊞-MAC via lns_dot_exact (pairwise-tree order)"
+
+    # -- the JAX package's NumericsPolicy names ----------------------------
+    @property
+    def compute_dtype(self) -> str:
+        return self.spec.compute_dtype
+
+    @property
+    def param_lns(self) -> Optional[LNSFormat]:
+        return self.spec.fmt if self.spec.quantize_params else None
+
+    @property
+    def act_lns(self) -> Optional[LNSFormat]:
+        return self.spec.fmt if self.spec.quantize_acts else None
+
+    @property
+    def exact_spec(self) -> Optional[DeltaSpec]:
+        return self.spec.delta_spec
+
+    @property
+    def lns_grad(self) -> bool:
+        return self.spec.quantize_grads
+
+    @property
+    def matmul_backend(self) -> str:
+        return self.spec.backend
+
+
+_RUNTIME_CACHE: dict = {}
+
+
+def _cached_runtime(spec: NumericsSpec, block_m: int, block_n: int,
+                    block_k: int) -> LNSRuntime:
+    key = (spec, block_m, block_n, block_k)
+    if key not in _RUNTIME_CACHE:
+        _RUNTIME_CACHE[key] = LNSRuntime(spec, block_m, block_n, block_k)
+    return _RUNTIME_CACHE[key]

@@ -5,7 +5,7 @@ from .lns_matmul import (FwdEpilogue, lns_matmul, lns_matmul_dw,
 from .ops import (lns_fused_update_kernel, lns_matmul_dw_kernel,
                   lns_matmul_dw_partials_kernel, lns_matmul_dw_update_kernel,
                   lns_matmul_dx_kernel, lns_matmul_fused_kernel,
-                  lns_matmul_kernel)
+                  lns_matmul_kernel, lns_matmul_trainable)
 from .ref import (lns_matmul_dw_partials_ref, lns_matmul_dw_ref,
                   lns_matmul_dw_update_ref, lns_matmul_dx_ref,
                   lns_matmul_fused_ref, lns_matmul_ref)
@@ -31,7 +31,7 @@ __all__ = ["FwdEpilogue", "KERNEL_WRAPPERS",
            "lns_matmul_kernel", "lns_matmul_fused_kernel",
            "lns_matmul_dx_kernel", "lns_matmul_dw_kernel",
            "lns_matmul_dw_partials_kernel", "lns_matmul_dw_update_kernel",
-           "lns_fused_update_kernel",
+           "lns_fused_update_kernel", "lns_matmul_trainable",
            "lns_matmul_ref", "lns_matmul_fused_ref", "lns_matmul_dx_ref",
            "lns_matmul_dw_ref", "lns_matmul_dw_partials_ref",
            "lns_matmul_dw_update_ref"]

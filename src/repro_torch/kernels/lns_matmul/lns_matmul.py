@@ -209,6 +209,37 @@ def sgd_args(ep: UpdateEpilogue) -> build.SgdArgs:
         wd_code=ep.weight_decay_code or 0)
 
 
+#: The launcher's limits (``lns_mac_launch`` in ``csrc/lns_mac.cu``):
+#: operand strides below 2^26, at most 65535 segments (grid z), and for the
+#: tiled form (CT > ``lns_short_steps()``) at most 65535 row blocks of
+#: ``MAC_TILE_ROWS`` rows (grid y); the short form's S·R·C outputs fit an
+#: int32.
+MAC_MAX_STRIDE = 1 << 26
+MAC_MAX_GRID = 65535
+MAC_TILE_ROWS = 4
+
+
+def check_launch_limits(r: int, c: int, ct: int, n_seg: int,
+                        strides, short_steps: int) -> None:
+    """Raise ``ValueError`` for a launch outside the kernel's limits, so
+    that no grid or offset wraps: ``strides`` are the operands' element
+    strides, ``ct`` the whole contraction."""
+    if n_seg > MAC_MAX_GRID:
+        raise ValueError(f"{n_seg} segments; the kernel takes at most "
+                         f"{MAC_MAX_GRID}")
+    if max(strides) >= MAC_MAX_STRIDE:
+        raise ValueError(f"operand stride {max(strides)} >= 2^26: the "
+                         f"kernel's offsets would overflow")
+    if ct // n_seg > short_steps:
+        if -(-r // MAC_TILE_ROWS) > MAC_MAX_GRID:
+            raise ValueError(
+                f"{r} output rows; the tiled ⊞-MAC takes at most "
+                f"{MAC_MAX_GRID * MAC_TILE_ROWS} (grid y)")
+    elif n_seg * r * c > 2**31 - 1:
+        raise ValueError(f"{n_seg * r * c} outputs; the short ⊞-MAC takes "
+                         f"at most 2^31 - 1")
+
+
 def mac_cuda(a_code, a_sign, b_code, b_sign, *, a_contract_axis: int,
              b_contract_axis: int, fmt: LNSFormat, spec: DeltaSpec,
              segments: Optional[int] = None,
@@ -235,6 +266,8 @@ def mac_cuda(a_code, a_sign, b_code, b_sign, *, a_contract_axis: int,
     b_sign = checked(b_sign, torch.int8, b_code.shape, "b_sign", dev)
     a_rows = a_code.shape[1]  # row-major stride of axis 0
     b_rows = b_code.shape[1]
+    check_launch_limits(r, c, ct, n_seg, (a_rows, b_rows),
+                        lib.lns_short_steps())
     p = build.MacParams(
         lns=lns_args(fmt, spec, dev),
         a_code=ptr(a_code), a_sign=ptr(a_sign),

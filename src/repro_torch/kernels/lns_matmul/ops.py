@@ -1,4 +1,5 @@
-"""``LNSArray``-level entry points of the ⊞-MAC and ⊞-SGD kernels.
+"""``LNSArray``-level entry points of the ⊞-MAC and ⊞-SGD kernels, and
+the differentiable ``lns_matmul_trainable``.
 
 Each takes and returns :class:`~repro_torch.core.lns.LNSArray`\\ s and
 routes by device like the wrappers it calls: the CUDA kernel for tensors
@@ -6,9 +7,11 @@ on the card, the plain PyTorch version for tensors on the CPU.
 """
 from __future__ import annotations
 
+import torch
+
 from ...core.delta import DeltaSpec
 from ...core.formats import LNSFormat
-from ...core.lns import LNSArray
+from ...core.lns import LNSArray, LNSMatmulBackend, decode, encode
 from ...core.sgd import UpdateEpilogue
 from .lns_matmul import (FwdEpilogue, lns_matmul, lns_matmul_dw,
                          lns_matmul_dw_partials, lns_matmul_dw_update,
@@ -102,3 +105,68 @@ def lns_fused_update_kernel(w: LNSArray, g: LNSArray, *,
         m_sign=None if m is None else m.sign)
     m_new = LNSArray(outs[2], outs[3]) if epilogue.has_momentum else None
     return LNSArray(outs[0], outs[1]), m_new
+
+
+# ------------------------------------------------------------------------
+# Differentiable op: the ⊞-MAC forward and backward under autograd
+# ------------------------------------------------------------------------
+class _Trainable(torch.autograd.Function):
+    """Forward: encode both operands, ⊞-MAC (``lns_matmul``, kernel row 5),
+    decode.  Saves the encoded operands, not the floats.  Backward: encode
+    the cotangent, dX = dY ⊞ Wᵀ (``lns_matmul_dx``, row 2) and dW = Xᵀ ⊞ dY
+    (``lns_matmul_dw``, row 6), each reading its transposed operand
+    through the kernel's strides, and decode."""
+
+    @staticmethod
+    def forward(ctx, x, w, be: LNSMatmulBackend):
+        f = be.fmt
+        xq, wq = encode(x, f), encode(w, f)
+        # A transposed view (the tied embedding's head) encodes to
+        # transposed planes; the kernels take row-major operands.
+        wq = LNSArray(wq.code.contiguous(), wq.sign.contiguous())
+        ctx.be = be
+        ctx.save_for_backward(xq.code, xq.sign, wq.code, wq.sign)
+        return decode(be.matmul(xq, wq), f)
+
+    @staticmethod
+    def backward(ctx, g):
+        be = ctx.be
+        xc, xs, wc, ws = ctx.saved_tensors
+        dy = encode(g, be.fmt)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = decode(be.matmul_dx(dy, LNSArray(wc, ws)), be.fmt)
+        if ctx.needs_input_grad[1]:
+            dw = decode(be.matmul_dw(LNSArray(xc, xs), dy), be.fmt)
+        return dx, dw, None
+
+
+def lns_matmul_trainable(x, w, *, fmt: "LNSFormat | None" = None,
+                         spec: "DeltaSpec | None" = None,
+                         backend: "str | None" = None,
+                         block_m: int = 128, block_n: int = 128,
+                         block_k: int = 128,
+                         interpret: "bool | None" = None,
+                         numerics=None, layer: "str | None" = None):
+    """Differentiable float-view matmul on the log-domain ⊞-MAC path.
+
+    ``x``: (..., K) float, ``w``: (K, N) float.  The forward encodes both
+    operands, runs the ⊞-MAC and decodes; the backward encodes the
+    cotangent and runs the transposed ⊞-MACs (dX = dY ⊞ Wᵀ, dW = Xᵀ ⊞ dY):
+    no float matmul in either direction.  The lane follows the device of
+    the operands: the kernels on the card, their plain versions on the CPU.
+
+    The arithmetic comes from explicit ``fmt`` / ``spec`` or from one
+    ``numerics`` (a spec, a per-layer plan or their string; with a plan,
+    ``layer`` picks the layer path); explicit pieces win.  ``backend``,
+    ``interpret`` and the block sizes are taken so that the JAX package's
+    calls carry across; they route nothing.
+    """
+    from ...core.spec import resolve_kernel_args
+    fmt, spec, _, _, _ = resolve_kernel_args(
+        numerics, fmt=fmt, spec=spec, backend=backend, interpret=interpret,
+        op="lns_matmul_trainable", layer=layer)
+    be = LNSMatmulBackend(fmt=fmt, spec=spec)
+    lead = x.shape[:-1]
+    z = _Trainable.apply(x.reshape(-1, x.shape[-1]), w, be)
+    return z.reshape(lead + (w.shape[-1],))

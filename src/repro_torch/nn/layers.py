@@ -1,0 +1,176 @@
+"""Shared layers: norms, MLPs, embeddings, rotary embedding, chunked CE.
+
+Pure functions over the JAX package's nested parameter dict, holding
+tensors.  Weight products route through per-layer resolved numerics
+runtimes (:class:`~repro_torch.core.spec.LNSRuntime`): ``nn/model.py``
+parses the config's ``numerics`` as a plan and hands every component
+(``layers.attn``, ``layers.mlp``, ``emb``, ``head``, ...) the runtime its
+layer path resolves to.  Only the single-device branches are ported: a
+runtime with a mesh raises (ROADMAP queue 1 item 13).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.numerics import NumericsPolicy  # = core.spec.LNSRuntime
+from .config import ModelConfig
+
+
+def _single_device(rt, what: str) -> None:
+    if rt is not None and getattr(rt, "mesh", None) is not None:
+        raise NotImplementedError(
+            f"{what} with a mesh (the shard_map branch) is not ported "
+            f"(ROADMAP queue 1 item 13)")
+
+
+def _normal(gen, shape, dtype, std: float):
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=dtype) * std
+
+
+# ----------------------------------------------------------- norms -------
+def init_norm(cfg: ModelConfig, dtype, device=None):
+    if cfg.norm_kind == "rmsnorm":
+        return {"scale": torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device)}
+    if cfg.norm_kind == "layernorm":
+        return {"scale": torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device),
+                "bias": torch.zeros((cfg.d_model,), dtype=dtype,
+                                    device=device)}
+    if cfg.norm_kind == "nonparam_ln":   # OLMo: no learnable params
+        return {}
+    raise ValueError(cfg.norm_kind)
+
+
+def _rsqrt_norm(xf, eps):
+    return xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+
+
+def apply_norm(p, x, cfg: ModelConfig, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    if cfg.norm_kind == "rmsnorm":
+        return (_rsqrt_norm(xf, eps) * p["scale"].to(torch.float32)
+                ).to(x.dtype)
+    mu = torch.mean(xf, -1, keepdim=True)
+    var = torch.var(xf, -1, keepdim=True, unbiased=False)
+    nrm = (xf - mu) * torch.rsqrt(var + eps)
+    if cfg.norm_kind == "layernorm":
+        nrm = nrm * p["scale"].to(torch.float32) \
+            + p["bias"].to(torch.float32)
+    return nrm.to(x.dtype)
+
+
+def rms_head_norm(x, scale, eps: float = 1e-6):
+    """Per-head RMS norm for qk-norm (Qwen3): x (..., d_head)."""
+    xf = x.to(torch.float32)
+    return (_rsqrt_norm(xf, eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+# ------------------------------------------------------------- mlp -------
+def init_mlp(gen, cfg: ModelConfig, d_hidden: int, dtype):
+    d = cfg.d_model
+    s_in, s_out = (2.0 / d) ** 0.5, (2.0 / d_hidden) ** 0.5
+    if cfg.mlp_kind == "glu":
+        return {"w_gate": _normal(gen, (d, d_hidden), dtype, s_in),
+                "w_up": _normal(gen, (d, d_hidden), dtype, s_in),
+                "w_down": _normal(gen, (d_hidden, d), dtype, s_out)}
+    return {"w_up": _normal(gen, (d, d_hidden), dtype, s_in),
+            "w_down": _normal(gen, (d_hidden, d), dtype, s_out)}
+
+
+def _act(x, kind: str):
+    if kind == "silu":
+        return torch.nn.functional.silu(x)
+    if kind == "gelu":   # jax.nn.gelu's default: the tanh form
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    if kind == "relu":
+        return torch.relu(x)
+    raise ValueError(kind)
+
+
+def apply_mlp(p, x, cfg: ModelConfig, pol: NumericsPolicy):
+    if cfg.mlp_kind == "glu":
+        h = _act(pol.linear(x, p["w_gate"]), cfg.act) \
+            * pol.linear(x, p["w_up"])
+    else:
+        h = _act(pol.linear(x, p["w_up"]), cfg.act)
+    return pol.linear(h, p["w_down"])
+
+
+# ------------------------------------------------------- embeddings ------
+def init_embeddings(gen, cfg: ModelConfig, dtype):
+    v, d = cfg.padded_vocab, cfg.d_model
+    p = {"tok": _normal(gen, (v, d), dtype, d ** -0.5)}
+    if not cfg.tie_embeddings:
+        p["head"] = _normal(gen, (d, v), dtype, d ** -0.5)
+    return p
+
+
+def embed_tokens(p, tokens, pol: NumericsPolicy, rt=None):
+    """Embedding lookup of the (STE-quantized) table: a gather."""
+    _single_device(rt, "embed_tokens")
+    return pol.q_param(p["tok"])[tokens.long()]
+
+
+def _mask_pad(logits, cfg: ModelConfig):
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+        >= cfg.vocab_size
+    return torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
+                                         device=logits.device), logits)
+
+
+def _head_weight(emb_params, cfg: ModelConfig):
+    """(d, V): the tied table's transposed view, or the head."""
+    return emb_params["tok"].T if cfg.tie_embeddings else emb_params["head"]
+
+
+def lm_logits(p, x, pol: NumericsPolicy, cfg: ModelConfig):
+    return _mask_pad(pol.linear(x, _head_weight(p, cfg)), cfg)
+
+
+# ----------------------------------------------------------- rotary ------
+def rope_freqs(cfg: ModelConfig, d_rot: int, device=None):
+    return _freqs(cfg.rope_theta, d_rot, device)
+
+
+def _freqs(theta: float, d: int, device):
+    return torch.pow(torch.tensor(theta, dtype=torch.float32),
+                     -torch.arange(0, d, 2, dtype=torch.float32,
+                                   device=device) / d)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D) with D even; positions: (B, S) int."""
+    d = x.shape[-1]
+    freqs = _freqs(theta, d, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs   # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------- chunked cross-entropy ---
+def chunked_ce_loss(x, emb_params, labels, pol: NumericsPolicy,
+                    cfg: ModelConfig, chunk: "int | None" = None, rt=None):
+    """Mean CE over (B, S) without the (B, S, V) logits at once: a loop
+    over sequence chunks, logits and LSE in float32 per chunk."""
+    _single_device(rt, "chunked_ce_loss")
+    chunk = chunk or cfg.ce_chunk
+    b, s, d = x.shape
+    n = max(s // chunk, 1)
+    c = s // n
+    xs = x[:, :n * c].reshape(b, n, c, d)
+    ys = labels[:, :n * c].reshape(b, n, c).long()
+    w = _head_weight(emb_params, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        logits = _mask_pad(pol.linear(xs[:, i], w), cfg).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, ys[:, i, :, None])[..., 0]
+        total = total + torch.sum(lse - ll)
+    return total / (b * n * c)

@@ -70,6 +70,7 @@ from ..core.plan import NumericsPlan
 from ..core.sgd import LogSGDConfig, UpdateEpilogue, apply_update
 from ..core.softmax import ce_grad_init, ce_loss_readout, log_softmax_lns
 from ..core.spec import NumericsSpec
+from ..devices import resolve_device as _device
 from ..obs import metrics as _obs
 from ..obs.trace import phase_scope
 from ..resil import inject as _inj
@@ -173,6 +174,20 @@ class MLPConfig:
             plan = plan.with_(fmt=self.lns_fmt, delta_spec=self.delta_spec)
         return plan
 
+    def layer_runtime(self, path: str):
+        """The resolved :class:`~repro_torch.core.spec.LNSRuntime` of layer
+        ``path`` (``matmul_block`` is carried; it routes nothing)."""
+        return self.plan().runtime_for(path, block_m=self.matmul_block,
+                                       block_n=self.matmul_block,
+                                       block_k=self.matmul_block)
+
+    def runtime(self):
+        """The default resolved runtime, shared by every layer no plan rule
+        overrides; per-layer consumers use :meth:`layer_runtime`."""
+        return self.plan().runtime(block_m=self.matmul_block,
+                                   block_n=self.matmul_block,
+                                   block_k=self.matmul_block)
+
 
 # Read-back of the deprecated keywords, as views of the spec.  The names
 # double as InitVars above, so the properties are attached after the class.
@@ -180,17 +195,6 @@ MLPConfig.matmul_backend = property(lambda self: self.spec.backend)
 MLPConfig.reduce_mode = property(lambda self: self.spec.reduce.mode)
 MLPConfig.grad_segments = property(
     lambda self: self.spec.reduce.grad_segments)
-
-
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} needs a CUDA card and none is "
-            f"available; pass device='cpu' for the plain PyTorch lane")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 class _PaperMLP:

@@ -1,0 +1,6 @@
+"""Training loop substrate: step factory, state, config."""
+from .step import (TrainConfig, init_train_state, make_train_step,
+                   resolve_numerics)
+
+__all__ = ["TrainConfig", "init_train_state", "make_train_step",
+           "resolve_numerics"]

@@ -1,0 +1,188 @@
+"""Train-step factory: loss → grads → optimizer update, with microbatch
+gradient accumulation, global-norm clipping, log-domain gradient
+compression and a non-finite guard.
+
+``make_train_step`` returns a function ``(state, batch) → (state,
+metrics)``.  The train state is a plain dict, ``{"params", "opt", "step"
+[, "residual"]}``, the JAX package's tree, holding tensors on one device;
+gradients come from ``torch.autograd`` through the model's
+``LNSRuntime`` products (the ⊞-MAC kernels under ``lns16-train-*``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Optional
+
+import torch
+
+from ..core.plan import NumericsPlan
+from ..core.spec import NumericsSpec
+from ..nn import Runtime, loss_fn
+from ..nn.config import ModelConfig
+from ..optim import fake_compress_roundtrip, make_optimizer
+from ..optim.optimizers import OptimizerConfig
+from ..pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Execution config of the LM train step.
+
+    Numerics axes belong to the model's spec (``ModelConfig.numerics``).
+    The loose ``matmul_backend=`` and ``reduce_mode=`` keywords are the
+    JAX package's deprecated spelling: they still fold into the spec
+    (:func:`resolve_numerics`), with a ``DeprecationWarning``.
+    """
+
+    microbatches: int = 1            # gradient-accumulation splits
+    grad_clip: float = 0.0           # global-norm clip; 0 = off
+    compress_grads: bool = False     # log-int8 roundtrip + error feedback
+    loss_dtype: str = "float32"
+    matmul_backend: Optional[str] = None  # DEPRECATED → 'backend='
+    data_parallel: int = 1           # ranks; only 1 is ported
+    nan_guard: bool = False          # skip the update (params and opt
+                                     # state unchanged, step advances) when
+                                     # the loss or a grad is non-finite;
+                                     # metrics report 'update_skipped'
+    reduce_mode: Optional[str] = None  # DEPRECATED → 'reduce.mode='
+
+    def __post_init__(self):
+        legacy = [f"{k}={v!r}" for k, v in
+                  (("matmul_backend", self.matmul_backend),
+                   ("reduce_mode", self.reduce_mode)) if v is not None]
+        if legacy:
+            hints = []
+            if self.matmul_backend is not None:
+                hints.append(f"backend={self.matmul_backend}")
+            if self.reduce_mode is not None:
+                hints.append(f"reduce.mode={self.reduce_mode}")
+            warnings.warn(
+                f"TrainConfig({', '.join(legacy)}) is deprecated; append "
+                f"the override to the numerics spec instead, e.g. "
+                f"ModelConfig.numerics='<spec>,{','.join(hints)}'",
+                DeprecationWarning, stacklevel=3)
+
+
+def resolve_numerics(cfg: ModelConfig, tc: "TrainConfig" = None
+                     ) -> "tuple[ModelConfig, NumericsPlan]":
+    """Fold TrainConfig's deprecated numerics overrides into one plan:
+    ``(cfg with the canonical numerics string, plan)``."""
+    plan = NumericsPlan.parse(cfg.numerics)
+    if tc is not None and tc.matmul_backend is not None:
+        if not plan.lns_grad:
+            raise ValueError(
+                f"the matmul-backend override requires an LNS end-to-end "
+                f"training spec (quantize includes 'grads'), got "
+                f"{cfg.numerics!r}")
+        plan = plan.with_(backend=tc.matmul_backend)
+    if tc is not None and tc.reduce_mode is not None:
+        plan = plan.with_(**{"reduce.mode": tc.reduce_mode})
+    return cfg.with_(numerics=str(plan)), plan
+
+
+def init_train_state(params, opt_cfg: OptimizerConfig,
+                     tc: TrainConfig = TrainConfig()):
+    """``{"params", "opt", "step"[, "residual"]}`` on the parameters'
+    device; ``step`` a 0-d int32 tensor."""
+    opt_init, _ = make_optimizer(opt_cfg)
+    device = tree_leaves(params)[0].device
+    state = {"params": params, "opt": opt_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if tc.compress_grads:
+        state["residual"] = tree_map(torch.zeros_like, params)
+    return state
+
+
+def _split_batch(batch, n):
+    return [{k: v[i::n] for k, v in batch.items()} for i in range(n)]
+
+
+def _clip(grads, max_norm):
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                        for g in tree_leaves(grads)))
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                    rt: Runtime = Runtime(),
+                    tc: TrainConfig = TrainConfig()):
+    """The step function ``(state, batch) → (new_state, metrics)``; the
+    state it is given is not modified."""
+    # The LM step reduces float gradients; only an explicit request for
+    # the ⊞ reduce (the paper MLP's) trips the guard, as in the JAX
+    # package.
+    default_seg = str(cfg.numerics).split(";", 1)[0]
+    requested_boxplus = (
+        tc.reduce_mode == "boxplus"
+        or ("reduce.mode" in NumericsSpec.explicit_keys(default_seg)
+            and NumericsPlan.parse(cfg.numerics).reduce.mode == "boxplus"))
+    cfg, _ = resolve_numerics(cfg, tc)
+    if requested_boxplus and tc.data_parallel > 1:
+        raise NotImplementedError(
+            "reduce.mode='boxplus' applies to the end-to-end LNS paper-MLP "
+            "path (distributed/lns_dp.LNSDataParallelMLP / "
+            "run_experiment(..., data_parallel=...)); the LM train step "
+            "reduces float gradients — use reduce.mode='float-psum'")
+    if tc.data_parallel > 1:
+        raise NotImplementedError(
+            "the LM train step on several ranks is not ported (ROADMAP "
+            "queue 1 items 5 and 13)")
+    _, opt_update = make_optimizer(opt_cfg)
+
+    def grads_of(params, batch):
+        leaves, treedef = tree_flatten(params)
+        live = [p.detach().requires_grad_() for p in leaves]
+        loss = loss_fn(tree_unflatten(treedef, live), batch, cfg, rt)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(live, grads)]
+        return loss.detach(), tree_unflatten(treedef, grads)
+
+    def step(state, batch):
+        params = state["params"]
+        if tc.microbatches > 1:
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=state["step"].device)
+            grads = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=p.device), params)
+            for mb in _split_batch(batch, tc.microbatches):
+                l_mb, g_mb = grads_of(params, mb)
+                loss = loss + l_mb
+                grads = tree_map(torch.add, grads, g_mb)
+            inv = 1.0 / tc.microbatches
+            loss = loss * inv
+            grads = tree_map(lambda g: g * inv, grads)
+        else:
+            loss, grads = grads_of(params, batch)
+        metrics = {"loss": loss}
+        if tc.grad_clip:
+            grads, gn = _clip(grads, tc.grad_clip)
+            metrics["grad_norm"] = gn
+        if tc.compress_grads:
+            grads, res = fake_compress_roundtrip(grads, state["residual"])
+        with torch.no_grad():
+            new_params, new_opt = opt_update(params, grads, state["opt"],
+                                             state["step"])
+        if tc.nan_guard:
+            # A non-finite loss or gradient would poison the params and
+            # the optimizer state for good: keep the old ones instead,
+            # selected on the device (no host read).
+            finite = torch.isfinite(loss)
+            for g in tree_leaves(grads):
+                finite = finite & torch.all(torch.isfinite(
+                    g.to(torch.float32)))
+            keep = lambda new, old: tree_map(
+                lambda n, o: torch.where(finite, n, o), new, old)
+            new_params = keep(new_params, params)
+            new_opt = keep(new_opt, state["opt"])
+            metrics["update_skipped"] = (~finite).to(torch.int32)
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        if tc.compress_grads:
+            new_state["residual"] = res
+        return new_state, metrics
+
+    return step

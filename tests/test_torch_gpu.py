@@ -671,3 +671,171 @@ def test_lut_fault_tables_on_card(cuda):
     assert torch.equal(shared.tables("cuda")[0].cpu(),
                        torch.from_numpy(shared._tab_plus))
     assert not torch.equal(got, shared.tables("cuda")[0].cpu())
+
+
+# ------------------------------------------------ the LM training path --
+# (row, a shape, b shape, a / b contracted axis, format): rows 5, 2 and 6
+# at LM shapes (chip_smoke.py phase 9a).
+LM_CASES = {
+    "fwd-64x2048x200": ("lns_matmul", (64, 2048), (2048, 200), 1, 0,
+                        "lns16"),
+    "dx-over-8192": ("lns_matmul_dx", (16, 8192), (96, 8192), 1, 1,
+                     "lns16"),
+    "dx-over-50432": ("lns_matmul_dx", (4, 50432), (8, 50432), 1, 1,
+                      "lns16"),
+    "dw-256-tokens-2048x160": ("lns_matmul_dw", (256, 2048), (256, 160), 0,
+                               0, "lns16"),
+    "ragged-fwd": ("lns_matmul", (37, 203), (203, 45), 1, 0, "lns16"),
+    "ragged-dx": ("lns_matmul_dx", (37, 45), (203, 45), 1, 1, "lns12"),
+    "ragged-dw": ("lns_matmul_dw", (61, 203), (61, 45), 0, 0, "lns12"),
+}
+# Every distinct product of phase 9c's full-width olmo-1b step (256
+# tokens; d_model 2048, d_ff 8192, vocab 50 432) as (row, R, C, CT): the
+# forward (R, C) = (tokens, N) over K, dX (tokens, K) over N, dW (K, N)
+# over the tokens.
+for _row, _r, _c, _ct in (
+        ("lns_matmul", 256, 2048, 2048), ("lns_matmul_dx", 256, 2048, 2048),
+        ("lns_matmul_dw", 2048, 2048, 256), ("lns_matmul", 256, 8192, 2048),
+        ("lns_matmul_dx", 256, 2048, 8192), ("lns_matmul_dw", 2048, 8192, 256),
+        ("lns_matmul", 256, 2048, 8192), ("lns_matmul_dx", 256, 8192, 2048),
+        ("lns_matmul_dw", 8192, 2048, 256), ("lns_matmul", 256, 50432, 2048),
+        ("lns_matmul_dx", 256, 2048, 50432),
+        ("lns_matmul_dw", 2048, 50432, 256)):
+    _dw, _dx = _row == "lns_matmul_dw", _row == "lns_matmul_dx"
+    LM_CASES[f"9c-{_row}-{_r}x{_c}-over-{_ct}"] = (
+        _row, (_ct, _r) if _dw else (_r, _ct), (_c, _ct) if _dx else (_ct, _c),
+        0 if _dw else 1, 1 if _dx else 0, "lns16")
+
+
+@pytest.mark.parametrize("case", list(LM_CASES))
+def test_lm_shapes_equal_plain_on_card(cuda, case):
+    row, ashape, bshape, aa, ba, fmt_name = LM_CASES[case]
+    fmt = T.FORMATS[fmt_name]
+    gen = torch.Generator().manual_seed(len(case))
+    a = _operand(gen, ashape, fmt, cuda)
+    b = _operand(gen, bshape, fmt, cuda, scale=0.05, zero_frac=0.05)
+    kw = dict(fmt=fmt, spec=T.DELTA_DEFAULT)
+    _same(getattr(TK, row)(a.code, a.sign, b.code, b.sign, **kw),
+          TK.mac_plain(a.code, a.sign, b.code, b.sign, a_contract_axis=aa,
+                       b_contract_axis=ba, **kw))
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_trainable_on_card_equals_cpu(cuda, tied):
+    """``lns_matmul_trainable``'s forward and both gradients on the card
+    equal the CPU lane's (codes and signs; the decoded floats within one
+    ulp), one launch of rows 5, 2 and 6 each; a tied head's transposed
+    view as the weight."""
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(2, 9, 40, generator=gen)
+    w = torch.randn(50, 40, generator=gen) * 0.1
+    g = torch.randn(2, 9, 50, generator=gen) * 0.01
+    out = {}
+    for dev in ("cpu", cuda):
+        xt = x.to(dev).detach().requires_grad_()
+        wt = w.to(dev).detach().requires_grad_()
+        TKS.reset_launch_counts()
+        z = TK.lns_matmul_trainable(xt, wt.T if tied else wt.T.contiguous(),
+                                    numerics="lns16-train-pallas")
+        z.backward(g.to(dev))
+        out[str(dev)] = (z.detach().cpu(), xt.grad.cpu(), wt.grad.cpu(),
+                         TKS.launch_counts())
+    card, cpu = out[str(cuda)], out["cpu"]
+    for c, h in zip(card[:3], cpu[:3]):
+        np.testing.assert_array_max_ulp(c.numpy(), h.numpy(), maxulp=1)
+        assert torch.equal(T.encode(c, T.LNS16).code,
+                           T.encode(h, T.LNS16).code)
+    assert {k: v for k, v in card[3].items() if v} == dict(
+        lns_matmul=1, lns_matmul_dx=1, lns_matmul_dw=1)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-1.7b"])
+def test_lm_train_steps_on_card_equal_cpu(cuda, arch):
+    """Three AdamW steps of a ``reduced()`` dense config under
+    ``lns16-train-pallas``: each row launched once per LNS linear and CE
+    chunk a step (remat off).  Teacher-forced: each card step starts from
+    the CPU lane's state before it (float ops on the two devices round
+    differently, so free-running lanes part after the first update);
+    the first step's loss within rtol 1e-3 of the CPU lane's, every
+    step's within 1e-2 (a later step's gap reads up to 1.26e-3, ROADMAP
+    queue 3 item 7), its parameter update within a relative L2 distance
+    of 0.5 over the tree (``chip_smoke.py`` phase 9b)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.nn import init_params
+    from repro_torch.nn.config import ShapeCell
+    from repro_torch.optim.optimizers import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    cfg = reduced(get_config(arch)).with_(numerics="lns16-train-pallas",
+                                          remat="none")
+    ds = SyntheticLMDataset(cfg, ShapeCell("t", 32, 2, "train"),
+                            DataConfig())
+    from repro_torch.pytree import tree_leaves, tree_map
+    opt = AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt, tc=TrainConfig(grad_clip=1.0))
+    states = [init_train_state(init_params(0, cfg, device="cpu"), opt)]
+    cpu = []
+    for i in range(3):
+        state, m = step(states[-1], ds.batch_on(i, "cpu"))
+        states.append(state)
+        cpu.append(float(m["loss"]))
+    TKS.reset_launch_counts()
+    for i in range(3):
+        card, m = step(tree_map(lambda t: t.to(cuda), states[i]),
+                       ds.batch_on(i, cuda))
+        loss = float(m["loss"])
+        rtol = 1e-3 if i == 0 else 1e-2
+        assert abs(loss - cpu[i]) <= rtol * abs(cpu[i]), (i, loss, cpu[i])
+        num = den = 0.0
+        for p0, p1, q1 in zip(tree_leaves(states[i]["params"]),
+                              tree_leaves(states[i + 1]["params"]),
+                              tree_leaves(card["params"])):
+            u = p1.double() - p0.double()
+            num += float(((q1.cpu().double() - p0.double() - u) ** 2).sum())
+            den += float((u ** 2).sum())
+        assert (num / den) ** 0.5 <= 0.5, i
+    counts = {k: v for k, v in TKS.launch_counts().items() if v}
+    assert counts == dict.fromkeys(
+        ("lns_matmul", "lns_matmul_dx", "lns_matmul_dw"), 3 * 15)
+
+
+def test_train_cli_on_card(cuda, tmp_path):
+    """The train CLI on the card resumes from its checkpoint."""
+    from repro_torch.launch import train as train_cli
+    common = ["--arch", "qwen3-1.7b", "--ckpt-every", "2", "--numerics",
+              "lns16-train-pallas", "--batch", "2", "--seq", "16",
+              "--log-every", "100", "--ckpt-dir", str(tmp_path)]
+    assert len(train_cli.main(["--steps", "2"] + common)) == 2
+    assert len(train_cli.main(["--steps", "3"] + common)) == 1
+
+
+def test_remat_block_on_card_changes_nothing(cuda):
+    """Under ``remat="block"`` the forward runs twice: the deterministic
+    kernels give the loss and gradients of ``remat="none"`` bit for bit,
+    with one more forward launch per LNS linear."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.nn import init_params, loss_fn
+    from repro_torch.nn.config import ShapeCell
+    from repro_torch.pytree import tree_flatten, tree_unflatten
+    cfg = reduced(get_config("qwen3-1.7b")).with_(
+        numerics="lns16-train-pallas")
+    params = init_params(3, cfg, device=cuda)
+    b = SyntheticLMDataset(cfg, ShapeCell("t", 32, 2, "train"),
+                           DataConfig()).batch_on(0, cuda)
+    out = {}
+    for remat in ("none", "block"):
+        leaves, treedef = tree_flatten(params)
+        live = [t.detach().requires_grad_() for t in leaves]
+        TKS.reset_launch_counts()
+        loss = loss_fn(tree_unflatten(treedef, live), b,
+                       cfg.with_(remat=remat))
+        grads = torch.autograd.grad(loss, live)
+        out[remat] = (loss.detach(), grads, TKS.launch_counts())
+    assert torch.equal(out["none"][0], out["block"][0])
+    for a, c in zip(out["none"][1], out["block"][1]):
+        assert torch.equal(a, c)
+    # 2 layers × 7 linears are recomputed; the head is outside the blocks.
+    assert out["block"][2]["lns_matmul"] == out["none"][2]["lns_matmul"] + 14
+    assert out["block"][2]["lns_matmul_dx"] == out["none"][2]["lns_matmul_dx"]

@@ -37,14 +37,16 @@ def test_sources_found():
             / "lns_mac.cu").exists()
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for pkg in ("distributed", "kernels/lns_boxsum", "obs", "resil",
-                "launch"):
+                "launch", "nn", "configs", "optim", "data", "train", "ckpt"):
         assert f"src/repro_torch/{pkg}/__init__.py" in names, pkg
 
 
 @pytest.mark.parametrize("module", [
     "repro_torch.paper", "repro_torch.distributed",
     "repro_torch.kernels.lns_boxsum", "repro_torch.kernels.lns_matmul",
-    "repro_torch.obs", "repro_torch.resil", "repro_torch.launch.drill"])
+    "repro_torch.obs", "repro_torch.resil", "repro_torch.launch.drill",
+    "repro_torch.launch.train", "repro_torch.core.qat",
+    "repro_torch.core.numerics"])
 def test_import_loads_no_jax(module):
     """Importing the module in a fresh interpreter loads neither JAX nor
     the JAX package."""
