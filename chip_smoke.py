@@ -77,7 +77,27 @@ the result line:
    seq 128: losses, ms per step, a profiled step, peak memory and each
    row's card ms against its bound at the step's shapes; (d) ``python -m
    repro_torch.launch.train`` with checkpoints and metrics, relaunched to
-   resume at step 4.
+   resume at step 4;
+10. MoE, MLA and serving: (a) every distinct shape of rows 5, 2 and 6 in
+   (c)'s step and of row 1 (the fused forward with no epilogue, which
+   ``linear_infer`` runs) at (d)'s decode and prefill shapes, held bit for
+   bit against the plain version: every output over a contraction cut to
+   40 steps, and, launched at full shape, the outputs of the first, last
+   and one interior row and column tile; (b) ``reduced()``
+   deepseek-moe-16b and deepseek-v2-lite-16b card vs CPU as 9b; (c)
+   deepseek-v2-lite-16b at full width, 1 dense + 1 MoE layer, batch 2 ×
+   seq 128, 3 AdamW steps: losses, ms per step, a profiled step, peak
+   memory and each row's card ms against its bound; (d) a
+   ``ServingEngine`` on the card, greedy, over the full-width 2-layer
+   deepseek-v2-lite-16b (paged MLA, MoE) and ``reduced(olmo-1b)`` (paged
+   GQA): two runs equal to each other and to the port's
+   ``reference_generate`` on the card, the pool conserved, tokens a
+   second, a timed decode step and row 1's card ms and bound, and the
+   plain version timed at the largest decode shape (the head); then
+   ``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+   --numerics lns16-train-pallas``.
+
+Phase 3 also holds the tiled ⊞-MAC past 65535 row tiles (262 149 rows).
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``.  Runs in well under the 1200 s limit
@@ -516,6 +536,25 @@ def compare_forms(torch, device, rk, check):
                           K.update_plain(w.code, w.sign, g.code, g.sign,
                                          **uk),
                           f"{spec.kind}/{fmt.name}/n{n}/{gname}")
+    # The tiled form past the 65535 row tiles of 4 that grid y once held
+    # (ROADMAP queue 3 item 10): R = 262 149 rows, the forward and the dX
+    # (W through strides), one launch each, over one column tile (C = 8)
+    # and over two (C = 40: grid x's row tile and column tile are the
+    # block index's quotient and remainder).
+    r, ct = 262149, 40
+    kw = dict(fmt=LNS16, spec=DELTA_DEFAULT)
+    x = operands(torch, rk, (r, ct), scale=1.0, zero_frac=0.2, fmt=LNS16,
+                 device=device)
+    for c in (8, 40):
+        for row, bshape, ba in (("lns_matmul", (ct, c), 0),
+                                ("lns_matmul_dx", (c, ct), 1)):
+            w = operands(torch, rk, bshape, scale=0.05, zero_frac=0.05,
+                         fmt=LNS16, device=device)
+            check(row, getattr(K, row)(x.code, x.sign, w.code, w.sign,
+                                       **kw),
+                  K.mac_plain(x.code, x.sign, w.code, w.sign,
+                              a_contract_axis=1, b_contract_axis=ba, **kw),
+                  f"R{r}/C{c}/CT{ct} past 65535 row tiles")
 
 
 def sweep_operands(torch, fmt, swap, device):
@@ -1520,20 +1559,48 @@ def lm_train(torch, arch, numerics, device, steps=LM_STEPS, cfg=None,
     return losses, counts, ms, (states if keep else state, step, ds)
 
 
+def lm_linears(cfg, serving=False):
+    """(K, N) of every LNS linear of one train step's forward, in order:
+    per layer the attention's (GQA: wq, wk, wv, wo; MLA: wq, w_dkv, w_ukv,
+    wo) and the MLP's (dense layers) or the shared experts' (MoE layers;
+    the routed experts are float einsums, no ⊞-MAC).  ``serving``: those
+    of one serving forward (``linear_infer``) below the head instead, where
+    MLA is absorbed (its w_ukv a float einsum) and the moe family's dense
+    stack runs all its layers, as the reference's decode does."""
+    d = cfg.d_model
+    if cfg.attn_kind == "mla":
+        m, h = cfg.mla, cfg.n_heads
+        attn = [(d, h * (m.nope_head_dim + m.rope_head_dim)),
+                (d, m.kv_lora_rank + m.rope_head_dim)]
+        if not serving:
+            attn.append((m.kv_lora_rank,
+                         h * (m.nope_head_dim + m.v_head_dim)))
+        attn.append((h * m.v_head_dim, d))
+    else:
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        attn = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d)]
+    ff = cfg.d_ff
+    mlp = [(d, ff)] * (2 if cfg.mlp_kind == "glu" else 1) + [(ff, d)]
+    if cfg.family != "moe":
+        return (attn + mlp) * cfg.layers
+    fd = cfg.moe.first_dense_layers
+    sh = cfg.moe.n_shared * cfg.moe.d_expert
+    shared = [(d, sh), (d, sh), (sh, d)] if sh else []
+    return (attn + mlp) * (max(fd, 1) if serving else fd) \
+        + (attn + shared) * max(cfg.layers - fd, 1)
+
+
 def lm_products(cfg, batch, seq):
-    """(row, R, C, CT, launches) of every ⊞-MAC launch of one dense train
-    step under ``lns16-train`` with ``remat="none"``: per LNS linear
-    (K → N over M tokens) the forward (M, N) over K, dX (M, K) over N and
-    dW (K, N) over M; the head once per CE chunk."""
-    d, h, kv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.d_head, cfg.d_ff)
-    linears = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d)]
-    linears += [(d, ff)] * (2 if cfg.mlp_kind == "glu" else 1) + [(ff, d)]
-    linears = linears * cfg.layers
+    """(row, R, C, CT, launches) of every ⊞-MAC launch of one train step
+    under ``lns16-train`` with ``remat="none"``: per LNS linear (K → N over
+    M tokens) the forward (M, N) over K, dX (M, K) over N and dW (K, N)
+    over M; the head once per CE chunk."""
     chunks = max(seq // cfg.ce_chunk, 1)
     out = {}
-    for k, n, m, times in [(k, n, batch * seq, 1) for k, n in linears] + [
-            (d, cfg.padded_vocab, batch * (seq // chunks), chunks)]:
+    for k, n, m, times in [(k, n, batch * seq, 1)
+                           for k, n in lm_linears(cfg)] + [
+            (cfg.d_model, cfg.padded_vocab, batch * (seq // chunks),
+             chunks)]:
         for key in (("lns_matmul", m, n, k), ("lns_matmul_dx", m, k, n),
                     ("lns_matmul_dw", k, n, m)):
             out[key] = out.get(key, 0) + times
@@ -1541,10 +1608,9 @@ def lm_products(cfg, batch, seq):
 
 
 def lm_expected(cfg, seq):
-    """Launches of each row in one train step: once per LNS linear (4 in
-    attention, 3 or 2 in the MLP, per layer) and once per CE chunk."""
-    per_layer = 4 + (3 if cfg.mlp_kind == "glu" else 2)
-    return dict.fromkeys(LM_ROWS, cfg.layers * per_layer
+    """Launches of each row in one train step: once per LNS linear and
+    once per CE chunk."""
+    return dict.fromkeys(LM_ROWS, len(lm_linears(cfg))
                          + max(seq // cfg.ce_chunk, 1))
 
 
@@ -1563,28 +1629,30 @@ def mac_step_instructions():
     return loop["instructions"] / tile_k, loop
 
 
-def lm_time_products(torch, device, products, card, plain_ms):
+def lm_time_products(torch, device, products, card, plain_ms, tag="9c lm"):
     """Card ms of each row's launches in one full-width step (CUDA events
     around each distinct shape, times its launches), the plain version's
-    (9a's time at that shape, times its launches), and each row's bound
+    (9a's time at that shape, times its launches; None where ``plain_ms``
+    is None: not measured), and each row's bound
     from this step's shapes: the bytes, and the instructions the tiled
     chain issues per step, at one warp instruction a clock per SM
     sub-partition."""
     from repro_torch.core import DELTA_DEFAULT, LNS16
     from repro_torch.kernels import lns_matmul as K
     per_step, loop = mac_step_instructions()
-    log("9c lm times", f"mac_kernel<kLut>'s inner loop {loop['range']}: "
+    log(f"{tag} times", f"mac_kernel<kLut>'s inner loop {loop['range']}: "
         f"{loop['instructions']} instructions, {per_step:.4f} a ⊞-MAC step "
         f"a thread; opcodes {loop['opcodes']}")
-    rows = {r: dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, launches=0)
-            for r in LM_ROWS}
+    rows = {}
     for row, r, c, ct, times in products:
         a, b = lm_operands(torch, device, row, r, c, ct)
         fn = getattr(K, row)
+        kw = dict(epilogue=K.FwdEpilogue()) \
+            if row == "lns_matmul_fused" else {}
 
         def call():
             fn(a.code, a.sign, b.code, b.sign, fmt=LNS16,
-               spec=DELTA_DEFAULT)
+               spec=DELTA_DEFAULT, **kw)
         call()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -1597,11 +1665,15 @@ def lm_time_products(torch, device, products, card, plain_ms):
         ms = start.elapsed_time(end) / 2
         ops = r * c * ct * per_step
         nbytes = (r * ct + ct * c + r * c) * 5
-        log("9c lm times", f"{row} R={r} C={c} CT={ct}: {ms:.4f} ms a "
+        log(f"{tag} times", f"{row} R={r} C={c} CT={ct}: {ms:.4f} ms a "
             f"launch x {times} (bound {max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3:.4f} ms) on {card}")
-        q = rows[row]
+        q = rows.setdefault(row, dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0,
+                                      launches=0))
         q["ms"] += ms * times
-        q["plain_ms"] += plain_ms[row, r, c, ct] * times
+        if plain_ms is None:
+            q["plain_ms"] = None
+        else:
+            q["plain_ms"] += plain_ms[row, r, c, ct] * times
         q["bytes"] += nbytes * times
         q["ops"] += ops * times
         q["launches"] += times
@@ -1612,78 +1684,68 @@ def lm_time_products(torch, device, products, card, plain_ms):
     return rows
 
 
-def lm_full_width(torch, device, card, plain_ms):
+def lm_full_width(torch, device, card, plain_ms, cfg=None, name="olmo-1b",
+                  tag="9c", fp32=True):
     """9c: olmo-1b as published (d_model 2048, 16 × 128 heads, d_ff 8192,
     vocab 50 304 padded to 50 432), depth cut to 2 layers, batch 2 × seq
-    128, lns16-train-pallas, AdamW, 3 steps on the card.  ``plain_ms``:
-    9a's plain time at each of the step's shapes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    128, lns16-train-pallas, AdamW, 3 steps on the card; 10c the same for
+    ``cfg`` (``name``).  ``plain_ms``: the plain version's time at each of
+    the step's shapes.  ``fp32``: the same steps under fp32 too."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.nn import init_params
-    cfg = full_width_cfg()
+    cfg = cfg or full_width_cfg()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(torch.Generator(device=device).manual_seed(SEED),
                          cfg, device=device)
     losses, counts, ms, (state, step, ds) = lm_train(
-        torch, "olmo-1b", None, device, cfg=cfg, params=params,
+        torch, name, None, device, cfg=cfg, params=params,
         batch=FULL_BATCH, seq=FULL_SEQ)
     want = {k: v * LM_STEPS for k, v in lm_expected(cfg, FULL_SEQ).items()}
     if counts != want:
-        raise AssertionError(f"9c launch counts {counts}, expected {want}")
+        raise AssertionError(f"{tag} launch counts {counts}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
-    fp32, _, fp32_ms, _ = lm_train(
-        torch, "olmo-1b", None, device, cfg=cfg.with_(numerics="fp32"),
-        params=params, batch=FULL_BATCH, seq=FULL_SEQ)
-    log("9c full width", f"the same steps under fp32 (cuBLAS, no LNS "
-        f"kernel): losses {fp32}; ms per step {fp32_ms}")
-    log("9c full width", f"olmo-1b d_model {cfg.d_model}, {cfg.n_heads} x "
-        f"{cfg.d_head} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} -> "
+    if fp32:
+        fp, _, fp_ms, _ = lm_train(
+            torch, name, None, device, cfg=cfg.with_(numerics="fp32"),
+            params=params, batch=FULL_BATCH, seq=FULL_SEQ)
+        log(f"{tag} full width", f"the same steps under fp32 (cuBLAS, no "
+            f"LNS kernel): losses {fp}; ms per step {fp_ms}")
+    log(f"{tag} full width", f"{name} d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} -> "
         f"{cfg.padded_vocab}, {cfg.layers} layers, batch {FULL_BATCH} x seq "
         f"{FULL_SEQ}: losses {losses}; ms per step {ms} (host clock ending "
         f"in a synchronize; the first includes warm-up); launches {counts}; "
         f"max_memory_allocated {peak / 2**30:.3f} GiB on {card}")
     reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, ds.batch_on(LM_STEPS, device))
-        float(m["loss"])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def one_step():
+        float(step(state, ds.batch_on(LM_STEPS, device))[1]["loss"])
+    dev_us, kern, wall_us = profile_call(torch, one_step)
     one = {k: v for k, v in launch_counts().items() if v}
-    dev_us, kern = 0.0, []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0)
-        if dev > 0:
-            dev_us += dev
-            kern.append((dev, e.count, e.key))
-    kern.sort(reverse=True)
     step_ms = sum(ms[1:]) / len(ms[1:])
     if dev_us:
-        log("9c profile", f"one step: {dev_us:.1f} us of device time in "
+        log(f"{tag} profile", f"one step: {dev_us:.1f} us of device time in "
             f"{sum(k[1] for k in kern)} kernel launches ({one} of the ⊞-MAC "
             f"rows); busy share {dev_us / (step_ms * 1e3):.4f} of the "
             f"unprofiled step ({step_ms:.3f} ms, the mean of steps 2-"
             f"{LM_STEPS}; {dev_us / wall_us:.4f} of the {wall_us:.1f} us "
             f"profiled step) on {card}")
         for dev, count, key in kern[:6]:
-            log("9c profile", f"{dev:12.1f} us {count:5d} launches  "
+            log(f"{tag} profile", f"{dev:12.1f} us {count:5d} launches  "
                 f"{key[:70]}")
     else:
-        log("9c profile", "torch.profiler saw no device time: not measured")
+        log(f"{tag} profile", "torch.profiler saw no device time: not "
+            "measured")
+    del state, params
     rows = lm_time_products(torch, device,
                             lm_products(cfg, FULL_BATCH, FULL_SEQ), card,
-                            plain_ms)
+                            plain_ms, tag=f"{tag} lm")
     for row, q in rows.items():
-        log("9c lm times", f"{row} per full-width step: {q['ms']:.3f} ms on "
-            f"the card in {q['launches']} launches; plain "
-            f"{q['plain_ms']:.1f} ms; bound {q['bound_ms']:.3f} ms by "
-            f"{q['bound_by']} on {card}")
+        plain = "not measured" if q["plain_ms"] is None \
+            else f"{q['plain_ms']:.1f} ms"
+        log(f"{tag} lm times", f"{row} per full-width step: {q['ms']:.3f} "
+            f"ms on the card in {q['launches']} launches; plain {plain}; "
+            f"bound {q['bound_ms']:.3f} ms by {q['bound_by']} on {card}")
     return rows, dict(counts)
 
 
@@ -1738,16 +1800,15 @@ def update_gap(before, after_cpu, after_card):
     return math.sqrt(num / den)
 
 
-def phase9(torch, device, card):
-    """Phase 9; returns ({row: max |diff|}, {row: LM step timing},
-    {row: launches of the LM runs on the card})."""
+def card_vs_cpu(torch, device, archs, tag):
+    """9b / 10b: each ``reduced()`` config of ``archs`` under ``fp32`` and
+    ``lns16-train-pallas``, 3 AdamW steps on the card against the CPU lane,
+    each row's launches against the products the code predicts; returns
+    the launches of the card runs."""
     from repro_torch.configs import get_config, reduced
-    t0 = time.time()
-    worst, n, plain_ms = lm_kernels(torch, device)
-    log("9a lm kernels", f"{n} cases in {time.time() - t0:.1f} s")
     launches = dict.fromkeys(LM_ROWS, 0)
     cpu = torch.device("cpu")
-    for arch in LM_DENSE:
+    for arch in archs:
         for numerics, rtols in (("fp32", (1e-5, 1e-5)),
                                 ("lns16-train-pallas", (1e-3, 1e-2))):
             t1 = time.time()
@@ -1768,23 +1829,33 @@ def phase9(torch, device, card):
             want = {} if numerics == "fp32" else {
                 k: v * LM_STEPS for k, v in lm_expected(cfg, 32).items()}
             if counts != want:
-                raise AssertionError(f"9b {arch} {numerics}: launch counts "
-                                     f"{counts}, expected {want}")
+                raise AssertionError(f"{tag} {arch} {numerics}: launch "
+                                     f"counts {counts}, expected {want}")
             gaps = [abs(a - b) / abs(b) for a, b in zip(cl, hl)]
             upd = [update_gap(h0, h1, c1) for h0, h1, c1 in
                    zip(hstates, hstates[1:], cstates[1:])] if forced else []
             if gaps[0] > rtols[0] or max(gaps) > rtols[1] \
                     or max(upd, default=0.0) > LM_UPDATE_RTOL:
-                raise AssertionError(f"9b {arch} {numerics}: card {cl} vs "
-                                     f"cpu {hl}; update gaps {upd}")
+                raise AssertionError(f"{tag} {arch} {numerics}: card {cl} "
+                                     f"vs cpu {hl}; update gaps {upd}")
             for k, v in counts.items():
                 launches[k] += v
-            log("9b lm card vs cpu", f"{arch} {numerics}"
+            log(f"{tag} lm card vs cpu", f"{arch} {numerics}"
                 f"{' (teacher-forced)' if forced else ''}: losses card {cl} "
                 f"cpu {hl} (rel gaps {gaps}); update relative L2 {upd}; "
                 f"launches {counts}; card ms per step "
                 f"{[round(x, 1) for x in ms]}; {time.time() - t1:.1f} s")
             del hstates, cstates
+    return launches
+
+
+def phase9(torch, device, card):
+    """Phase 9; returns ({row: max |diff|}, {row: LM step timing},
+    {row: launches of the LM runs on the card})."""
+    t0 = time.time()
+    worst, n, plain_ms = lm_kernels(torch, device)
+    log("9a lm kernels", f"{n} cases in {time.time() - t0:.1f} s")
+    launches = card_vs_cpu(torch, device, LM_DENSE, "9b")
     rows, counts = lm_full_width(torch, device, card, plain_ms)
     for k, v in counts.items():
         launches[k] += v
@@ -1793,6 +1864,406 @@ def phase9(torch, device, card):
             launches[k] += v
     log("9 lm", f"phase 9 in {time.time() - t0:.1f} s")
     return worst, rows, launches
+
+
+# ------------------------------------------------------------ phase 10 --
+
+MOE_ARCHS = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
+#: 10c / 10d: deepseek-v2-lite-16b as published, depth cut to 1 dense + 1
+#: MoE layer.
+MOE_FULL_ARCH, MOE_FULL_LAYERS = "deepseek-v2-lite-16b", 2
+#: 10a: every output of each shape is held over a contraction cut to
+#: ``SHORT_CT`` steps (past ``kShortSteps``: the tiled form, one whole tile
+#: of 32 steps and a remainder); the plain version is timed over the
+#: first ``PLAIN_STEPS`` steps of the full contraction (logged as an
+#: extrapolation, not measured at the full length).
+SHORT_CT, PLAIN_STEPS = 40, 32
+#: 10d: the engine's geometry and requests.
+SERVE_BATCH, SERVE_CHUNK, SERVE_BLOCK, SERVE_NEW = 4, 16, 16, 16
+SERVE_PROMPTS = (5, 12, 23, 40, 31, 8)
+SERVE_MAX_LEN = 64
+
+
+def moe_full_cfg(numerics="lns16-train-pallas"):
+    from repro_torch.configs import get_config
+    return get_config(MOE_FULL_ARCH).with_(
+        n_layers=MOE_FULL_LAYERS, numerics=numerics, remat="none")
+
+
+def serve_products(cfg, rows, head_rows):
+    """(row 1, R, C, CT, launches) of one serving forward at ``rows``
+    tokens: every linear, and the head at ``head_rows`` (``rows`` in a
+    decode step; 1 in a prefill chunk, which keeps its last valid
+    position)."""
+    out = {}
+    for k, n, r in [(k, n, rows) for k, n in lm_linears(cfg, True)] + [
+            (cfg.d_model, cfg.padded_vocab, head_rows)]:
+        key = ("lns_matmul_fused", r, n, k)
+        out[key] = out.get(key, 0) + 1
+    return [key + (c,) for key, c in out.items()]
+
+
+def _tile_rows(n, w, rng):
+    """The first and last ``w`` indices of ``range(n)`` and those of one
+    interior tile of ``w`` drawn by ``rng``: a kernel's first, last and
+    one middle tile."""
+    picked = set(range(min(w, n))) | set(range(max(n - w, 0), n))
+    if n > 3 * w:
+        t = int(rng.integers(1, n // w - 1)) * w
+        picked |= set(range(t, t + w))
+    return sorted(picked)
+
+
+def moe_kernels(torch, device):
+    """10a: every distinct ⊞-MAC shape of 10c's full-width step (rows 5,
+    2 and 6 on deepseek-v2-lite-16b's MLA, dense-FFN, shared-expert and
+    head products over 256 tokens) and of 10d's serving (row 1, the fused
+    forward with no epilogue, at decode (4 rows) and prefill (16 rows)
+    shapes), on the card against the plain version, bit for bit, twice:
+
+    * every output, at the shape's (R, C) over a contraction cut to
+      ``SHORT_CT`` steps (the tiled form still: whole tiles of steps and a
+      remainder), against the plain version on the card: every block's
+      row and column tile;
+    * at the full contraction, the outputs of the first, last and one
+      random interior row and column tile.  Each output of the plain
+      version depends only on its row and column, so those rows and
+      columns of every shape of one form and contraction length are
+      stacked into one plain run, and each shape's block is read back.
+      That run is the CPU lane's, on the same operands copied to the
+      host: on blocks this small each step of the plain loop is
+      launch-bound on the card, and the head's dX walks 102 400 steps
+      (the two lanes are bit-exact, phases 3 and 9a).
+
+    The plain version of row 1 with the empty epilogue is row 5's (the
+    epilogue is the identity).  The plain version's time at the full
+    contraction is not measured here: each shape's plain run over its
+    first ``PLAIN_STEPS`` steps is timed on the card and logged, with
+    that time scaled to the contraction as an extrapolation.  Returns
+    ({row: max |diff|}, the number of shapes)."""
+    import numpy as np
+    from repro_torch.core import DELTA_DEFAULT, LNS16
+    from repro_torch.kernels import lns_matmul as K
+    cfg = moe_full_cfg()
+    kw = dict(fmt=LNS16, spec=DELTA_DEFAULT)
+    rng = np.random.default_rng(SEED + 10)
+    groups = {}
+    for row, r, c, ct, _ in (lm_products(cfg, FULL_BATCH, FULL_SEQ)
+                             + serve_products(cfg, SERVE_BATCH, SERVE_BATCH)
+                             + serve_products(cfg, SERVE_CHUNK, 1)):
+        form = {"lns_matmul_fused": "lns_matmul"}.get(row, row)
+        groups.setdefault((form, ct), {})[row, r, c, ct] = None
+    worst, n = {}, 0
+
+    def fail_on(err, row, what):
+        worst[row] = max(worst.get(row, 0), err)
+        if err:
+            raise AssertionError(f"10a {row} {what}: max |diff| {err}")
+
+    for (form, ct), shapes in groups.items():
+        dw, dx = form == "lns_matmul_dw", form == "lns_matmul_dx"
+        pk = dict(a_contract_axis=0 if dw else 1,
+                  b_contract_axis=1 if dx else 0, **kw)
+        if form == "lns_matmul":
+            pk["fwd_epilogue"] = K.FwdEpilogue()
+        a_parts, b_parts, blocks = [], [], []
+        for row, r, c, _ in shapes:
+            fn = getattr(K, row)
+            ep = dict(epilogue=K.FwdEpilogue()) \
+                if row == "lns_matmul_fused" else {}
+            a, b = lm_operands(torch, device, form, r, c, SHORT_CT)
+            got = fn(a.code, a.sign, b.code, b.sign, **ep, **kw)
+            want = K.mac_plain(a.code, a.sign, b.code, b.sign, **pk)
+            fail_on(max(int((g.long() - w.long()).abs().max())
+                        for g, w in zip(got, want)),
+                    row, f"({r} x {c}) over {SHORT_CT}, every output")
+            del a, b, got, want
+            a, b = lm_operands(torch, device, form, r, c, ct)
+            got = fn(a.code, a.sign, b.code, b.sign, **ep, **kw)
+            ri = torch.tensor(_tile_rows(r, 4, rng), device=device)
+            ci = torch.tensor(_tile_rows(c, 32, rng), device=device)
+            blocks.append((row, r, c, [g[ri][:, ci].cpu() for g in got]))
+            a_parts.append([t.index_select(1 if dw else 0, ri).cpu()
+                            for t in (a.code, a.sign)])
+            b_parts.append([t.index_select(0 if dx else 1, ci).cpu()
+                            for t in (b.code, b.sign)])
+            steps = min(ct, PLAIN_STEPS)
+            a_cut = [t[:steps] if dw else t[:, :steps]
+                     for t in (a.code, a.sign)]
+            b_cut = [t[:, :steps] if dx else t[:steps]
+                     for t in (b.code, b.sign)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            K.mac_plain(*a_cut, *b_cut, **pk)
+            torch.cuda.synchronize()
+            cut_ms = (time.perf_counter() - t0) * 1e3
+            log("10a moe kernels", f"{row} ({r} x {c}) over {ct}: the plain "
+                f"version on the card over its first {steps} steps "
+                f"{cut_ms:.3f} ms (extrapolated to the whole contraction, "
+                f"not measured: {cut_ms * ct / steps:.1f} ms)")
+            del a, b, got, a_cut, b_cut
+        a_axis, b_axis = (1 if dw else 0), (0 if dx else 1)
+        want = K.mac_plain(
+            *[torch.cat([p[i] for p in a_parts], a_axis) for i in (0, 1)],
+            *[torch.cat([p[i] for p in b_parts], b_axis) for i in (0, 1)],
+            **pk)
+        r0 = c0 = 0
+        for row, r, c, got in blocks:
+            h, w = got[0].shape
+            fail_on(max(int((g.long() - q[r0:r0 + h, c0:c0 + w].long()
+                             ).abs().max()) for g, q in zip(got, want)),
+                    row, f"({r} x {c}) over {ct}")
+            log("10a moe kernels", f"{row} ({r} x {c}) over {ct}: bit-exact "
+                f"against the plain version (CPU lane) at {h} x {w} outputs "
+                f"of the first, last and one interior row and column tile; "
+                f"every output bit-exact over {SHORT_CT} steps (card)")
+            r0, c0 = r0 + h, c0 + w
+        n += len(shapes)
+    return worst, n
+
+
+def _serve_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(3, cfg.vocab_size, size=n) for n in SERVE_PROMPTS]
+
+
+def serve_engine(torch, device, card, cfg, params, name):
+    """10d: a ``ServingEngine`` on the card (greedy, ``SERVE_BATCH``
+    slots, chunk ``SERVE_CHUNK``, blocks of ``SERVE_BLOCK``), run twice
+    over ``SERVE_PROMPTS``: the same outputs, equal to the port's
+    ``reference_generate`` on the card for every request, the pool
+    conserved, row 1 launched once per serving linear per decode step and
+    prefill chunk and nothing else.  Returns the row-1 launches, the
+    engine's stats and its tokens a second."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ServeConfig, ServingEngine, \
+        reference_generate
+    sc = ServeConfig(max_batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                     block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK)
+    prompts = _serve_prompts(cfg)
+    outs, launches = [], 0
+    n_lin = len(lm_linears(cfg, True)) + 1
+    for rep in range(2):
+        eng = ServingEngine(cfg, params, sc)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.run(prompts, max_new=SERVE_NEW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        eng.bm.check_conserved()
+        st = eng.stats
+        want = {"lns_matmul_fused": n_lin * (st["decode_steps"]
+                                             + st["prefill_chunks"])}
+        if counts != want:
+            raise AssertionError(f"10d {name}: launches {counts}, expected "
+                                 f"{want}")
+        launches += counts["lns_matmul_fused"]
+        tokens = sum(len(o) for o in out)
+        log("10d serve", f"{name} run {rep + 1}: {len(prompts)} requests, "
+            f"{tokens} tokens in {dt:.3f} s ({tokens / dt:.2f} tokens a "
+            f"second, host clock ending in a synchronize); "
+            f"{st['decode_steps']} decode steps, {st['prefill_chunks']} "
+            f"prefill chunks, occupancy {eng.occupancy:.2f}; row-1 launches "
+            f"{counts['lns_matmul_fused']} ({n_lin} a forward) on {card}")
+        outs.append(out)
+    if outs[0] != outs[1]:
+        raise AssertionError(f"10d {name}: the engine's two runs differ: "
+                             f"{outs}")
+    t0 = time.perf_counter()
+    refs = [reference_generate(cfg, params, p, SERVE_NEW,
+                               max_len=SERVE_MAX_LEN) for p in prompts]
+    if outs[0] != refs:
+        raise AssertionError(f"10d {name}: engine {outs[0]} vs "
+                             f"reference_generate {refs}")
+    log("10d serve", f"{name}: the engine's outputs equal the port's "
+        f"reference_generate on the card for all {len(prompts)} requests "
+        f"(the oracle in {time.perf_counter() - t0:.1f} s); outputs "
+        f"{outs[0]}")
+    return launches, eng.stats
+
+
+def serve_decode_times(torch, device, card, cfg, params):
+    """10d: ms of one ``decode_step_paged`` with every slot active (CUDA
+    events and host clock), its row-1 launches, and row 1's card ms,
+    plain ms and bound at each decode shape, the largest (the head) on its
+    own line."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.nn import decode_step_paged, init_paged_caches
+    from repro_torch.core.spec import TORCH_DTYPES
+    w = -(-SERVE_MAX_LEN // SERVE_BLOCK)
+    caches = init_paged_caches(cfg, 1 + SERVE_BATCH * w, SERVE_BLOCK,
+                               TORCH_DTYPES[cfg.param_dtype], device=device)
+    bt = torch.arange(1, 1 + SERVE_BATCH * w, dtype=torch.int32,
+                      device=device).reshape(SERVE_BATCH, w)
+    pos = torch.arange(20, 20 + SERVE_BATCH, dtype=torch.int32,
+                       device=device)
+    tok = torch.arange(3, 3 + SERVE_BATCH, dtype=torch.int32,
+                       device=device)[:, None]
+    act = torch.ones(SERVE_BATCH, dtype=torch.bool, device=device)
+
+    def call():
+        with torch.no_grad():
+            return decode_step_paged(params, tok, caches, bt, pos, act, cfg)
+    call()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    call()
+    one = {k: v for k, v in launch_counts().items() if v}
+    host_ms = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 3
+    log("10d serve", f"decode_step_paged, {SERVE_BATCH} slots active at "
+        f"positions 20-{19 + SERVE_BATCH}: {step_ms:.3f} ms a step by CUDA "
+        f"events, host clock {host_ms} ms; launches {one} on {card}")
+    dev_us, kern, _ = profile_call(torch, call)
+    if dev_us:
+        log("10d profile", f"one decode step: {dev_us:.1f} us of device "
+            f"time in {sum(k[1] for k in kern)} kernel launches; busy share "
+            f"{dev_us / (step_ms * 1e3):.4f} on {card}")
+        for dev, count, key in kern[:6]:
+            log("10d profile", f"{dev:12.1f} us {count:5d} launches  "
+                f"{key[:70]}")
+    else:
+        log("10d profile", "torch.profiler saw no device time: not "
+            "measured")
+    return one, step_ms
+
+
+def serve_head_plain(torch, device, head):
+    """10d: the plain version's ms at the largest decode shape (the head),
+    over its whole contraction on the card (host clock ending in a
+    synchronize), its every output held bit for bit against row 1's."""
+    from repro_torch.core import DELTA_DEFAULT, LNS16
+    from repro_torch.kernels import lns_matmul as K
+    row, r, c, ct, _ = head
+    kw = dict(fmt=LNS16, spec=DELTA_DEFAULT)
+    a, b = lm_operands(torch, device, "lns_matmul", r, c, ct)
+    got = K.lns_matmul_fused(a.code, a.sign, b.code, b.sign,
+                             epilogue=K.FwdEpilogue(), **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = K.mac_plain(a.code, a.sign, b.code, b.sign, a_contract_axis=1,
+                       b_contract_axis=0, fwd_epilogue=K.FwdEpilogue(), **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"10d {row} ({r} x {c}) over {ct}: max |diff| "
+                             f"{err}")
+    log("10d row 1", f"{row} ({r} x {c}) over {ct}: every output bit-exact "
+        f"against the plain version on the card; plain {ms:.1f} ms")
+    return ms
+
+
+def profile_call(torch, fn):
+    """(device µs, [(µs, launches, kernel)] largest first, wall µs) of one
+    call of ``fn`` under torch.profiler, the wall time ending in a
+    synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_us, kern = 0.0, []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0:
+            dev_us += dev
+            kern.append((dev, e.count, e.key))
+    kern.sort(reverse=True)
+    return dev_us, kern, wall_us
+
+
+def phase10(torch, device, card):
+    """Phase 10; returns ({row: max |diff|}, {row: 10c step timing},
+    {row 1 serving timing}, {row: launches of phase 10's card runs})."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.nn import init_params
+    t0 = time.time()
+    worst, n = moe_kernels(torch, device)
+    log("10a moe kernels", f"{n} shapes in {time.time() - t0:.1f} s")
+    launches = card_vs_cpu(torch, device, MOE_ARCHS, "10b")
+    log("10b lm card vs cpu", f"in {time.time() - t0:.1f} s")
+    cfg = moe_full_cfg()
+    rows, counts = lm_full_width(torch, device, card, None, cfg=cfg,
+                                 name=MOE_FULL_ARCH, tag="10c", fp32=False)
+    for k, v in counts.items():
+        launches[k] += v
+    log("10c full width", f"in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator(device=device).manual_seed(SEED),
+                         cfg, device=device)
+    served, stats = serve_engine(torch, device, card, cfg, params,
+                                 f"{MOE_FULL_ARCH} full width, "
+                                 f"{MOE_FULL_LAYERS} layers")
+    one, step_ms = serve_decode_times(torch, device, card, cfg, params)
+    served += one.get("lns_matmul_fused", 0)
+    decode = serve_products(cfg, SERVE_BATCH, SERVE_BATCH)
+    prefill = serve_products(cfg, SERVE_CHUNK, 1)
+    serve_rows = {}
+    for what, prods in (("decode", decode), ("prefill", prefill)):
+        q = lm_time_products(torch, device, prods, card, None,
+                             tag="10d row 1")["lns_matmul_fused"]
+        serve_rows[what] = q
+        log("10d row 1", f"per {what} forward at full width: {q['ms']:.4f} "
+            f"ms on the card in {q['launches']} launches; plain not "
+            f"measured; bound {q['bound_ms']:.4f} ms by {q['bound_by']} on "
+            f"{card}")
+    head = max(decode, key=lambda p: p[1] * p[2] * p[3])
+    head_plain_ms = serve_head_plain(torch, device, head)
+    q = lm_time_products(torch, device, [head], card,
+                         {head[:4]: head_plain_ms},
+                         tag="10d row 1")["lns_matmul_fused"]
+    serve_rows["largest_decode"] = dict(q, shape=head[1:4])
+    log("10d row 1", f"largest decode shape (R, C, CT) = {head[1:4]}: "
+        f"{q['ms']:.4f} ms on the card, bound {q['bound_ms']:.4f} ms by "
+        f"{q['bound_by']}, plain {q['plain_ms']:.1f} ms (measured at the "
+        f"full shape); the decode step {step_ms:.3f} ms makes "
+        f"{one.get('lns_matmul_fused', 0)} row-1 launches on {card}")
+    del params
+    torch.cuda.empty_cache()
+    small = reduced(get_config("olmo-1b")).with_(
+        numerics="lns16-train-pallas", remat="none", param_dtype="float32")
+    s_params = init_params(SEED, small, device=device)
+    n_small, _ = serve_engine(torch, device, card, small, s_params,
+                              "reduced(olmo-1b), paged GQA")
+    served += n_small
+    reset_launch_counts()
+    outs = serve_cli.main(["--arch", MOE_FULL_ARCH, "--numerics",
+                           "lns16-train-pallas"])
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if not outs or set(counts) != {"lns_matmul_fused"}:
+        raise AssertionError(f"10d serve CLI: outputs {outs}, launches "
+                             f"{counts}")
+    served += counts["lns_matmul_fused"]
+    log("10d serve cli", f"repro_torch.launch.serve.main (the CLI's entry "
+        f"point) with --arch {MOE_FULL_ARCH} --numerics lns16-train-pallas: "
+        f"{len(outs)} requests served on the card; launches {counts}")
+    launches["lns_matmul_fused"] = served
+    log("10", f"phase 10 in {time.time() - t0:.1f} s")
+    return worst, rows, serve_rows, launches
 
 
 def main() -> int:
@@ -1954,6 +2425,32 @@ def main() -> int:
                      lm_bound_by=q["bound_by"])
     log("9 lm", "JSON lm_ms / lm_plain_ms / lm_bound_ms are per full-width "
         "olmo-1b step (phase 9c); launches include phase 9's card runs")
+    moe_worst, moe_rows, serve_rows, moe_launches = phase10(torch, device,
+                                                            card)
+    for k in kernels:
+        row = k["name"]
+        if row in moe_worst:
+            k["max_abs_err"] = max(k["max_abs_err"], moe_worst[row])
+        k["launches"] += moe_launches.get(row, 0)
+        if row in moe_rows:
+            q = moe_rows[row]
+            k.update(moe_route="lns_matmul_trainable (MLA, MoE shared "
+                               "experts, head)",
+                     moe_launches_per_step=q["launches"], moe_ms=q["ms"],
+                     moe_bound_ms=q["bound_ms"], moe_bound_by=q["bound_by"])
+        if row == "lns_matmul_fused":
+            for what, q in serve_rows.items():
+                k.update({f"serve_{what}_launches": q["launches"],
+                          f"serve_{what}_ms": q["ms"],
+                          f"serve_{what}_bound_ms": q["bound_ms"],
+                          f"serve_{what}_bound_by": q["bound_by"]})
+            k["serve_largest_decode_plain_ms"] = \
+                serve_rows["largest_decode"]["plain_ms"]
+    log("10", "JSON moe_* are per full-width deepseek-v2-lite-16b step "
+        "(phase 10c); serve_* are row 1 per serving forward (10d: decode at "
+        f"{SERVE_BATCH} rows, prefill at {SERVE_CHUNK}, and the largest "
+        "decode shape, whose plain version alone is timed at full length); "
+        "launches include phase 10's card runs")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@
 * :func:`lns_dot_dispatch` — the same with the forward on the ⊞-MAC
   backend, sequential over the contraction: the kernel on the card, its
   plain version on the CPU.
+* :func:`lns_dot_fused` — the serving forward: the fused ⊞-MAC with no
+  epilogue (kernel row 1), no gradient.
 
 For log-domain *gradients* use ``kernels.lns_matmul.lns_matmul_trainable``.
 """
@@ -99,3 +101,16 @@ def lns_dot_dispatch(x, w, be: LNSMatmulBackend):
     """(..., K) @ (K, N) forward on the ⊞-MAC backend (sequential, lane by
     device); straight-through float gradients, as :func:`lns_dot_exact`."""
     return _DotDispatch.apply(x, w, be)
+
+
+def lns_dot_fused(x, w, be: LNSMatmulBackend):
+    """(..., K) @ (K, N) forward-only through the *fused* ⊞-MAC
+    (:meth:`~repro_torch.core.lns.LNSMatmulBackend.matmul_fused` with an
+    empty epilogue, kernel row 1), for decode and prefill.  Bit-identical
+    to :func:`lns_dot_dispatch`'s forward by the fusion contract; it runs
+    under ``torch.no_grad`` and has no backward."""
+    fmt = be.fmt
+    with torch.no_grad():
+        x2 = x.reshape(-1, x.shape[-1])
+        z = be.matmul_fused(encode(x2, fmt), encode(w, fmt))
+        return decode(z, fmt).reshape(x.shape[:-1] + (w.shape[-1],))

@@ -548,6 +548,33 @@ class LNSRuntime:
         observe(out)
         return out
 
+    def linear_infer(self, x, w):
+        """Forward-only :meth:`linear` for serving (decode / prefill).
+
+        Bit-identical to :meth:`linear`'s forward on every spec, but a Δ
+        spec with a kernel path (``quantize`` holding ``grads``, or
+        ``backend=pallas``) runs the *fused* forward ⊞-MAC
+        (:meth:`~repro_torch.core.lns.LNSMatmulBackend.matmul_fused` with
+        no epilogue, kernel row 1) under ``torch.no_grad``, with no
+        autograd Function.  The emulate-backend exact mode keeps
+        :meth:`linear`'s pairwise-tree ``lns_dot_exact``.  No gradient:
+        training uses :meth:`linear`.
+        """
+        s = self.spec
+        if s.delta_spec is not None and (s.quantize_grads
+                                         or s.backend != "emulate"):
+            with self._tapping(op="linear_infer") as observe:
+                from .qat import lns_dot_fused
+                out = lns_dot_fused(x, w, self.matmul)
+            observe(out)
+            return out
+        if s.delta_spec is None:
+            with self._tapping(op="linear_infer") as observe:
+                out = torch.matmul(self.q_act(x), self.q_param(w))
+            observe(out)
+            return out
+        return self.linear(x, w)  # observed under op="linear"
+
     @contextlib.contextmanager
     def _tapping(self, *, op: str):
         """Yields ``observe(out)``, the float-view health tap of a linear
@@ -570,6 +597,19 @@ class LNSRuntime:
         if s.quantize_grads or s.backend != "emulate":
             return "LNS ⊞-MAC via LNSMatmulBackend (lane by device)"
         return "LNS ⊞-MAC via lns_dot_exact (pairwise-tree order)"
+
+    @property
+    def infer_path(self) -> str:
+        """What :meth:`linear_infer` runs (serving), in the JAX package's
+        words: the same text for the same spec."""
+        s = self.spec
+        if s.delta_spec is None:
+            return f"float XLA matmul ({s.compute_dtype})"
+        if s.quantize_grads or s.backend != "emulate":
+            return (f"LNS ⊞-MAC via matmul_fused "
+                    f"(fused forward-epilogue surface, "
+                    f"backend='{s.backend}')")
+        return "LNS ⊞-MAC via lns_dot_exact (emulated, pairwise-tree order)"
 
     # -- the JAX package's NumericsPolicy names ----------------------------
     @property

@@ -561,8 +561,10 @@ __device__ __forceinline__ void flush(const MacParams& p, const Lns& k,
 
 // _mac_kernel (lns_matmul.py:236) with the epilogues of :165 and :214, and
 // its partial flush (:300, :343): grid z walks contraction segment z alone
-// into its own output slot.  Warp w of block (x, y, z) holds output row
-// y * kWarps + w, lane l column x * kTileC + l.
+// into its own output slot.  Grid x holds the row tiles times the column
+// tiles, columns fastest (grid y would cap the rows at 65535 tiles): warp
+// w of block (x, 0, z), with x = y' * ceil(C / kTileC) + x', holds output
+// row y' * kWarps + w, lane l column x' * kTileC + l.
 //
 // The block stages tiles of kTileK steps of A's kWarps rows and B's kTileC
 // columns in two shared buffers: while the warps walk one tile, each
@@ -579,8 +581,9 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
   load_table<KIND>(p.lns, tid, kThreads);
   Lns k = make_lns(p.lns);
   if (tid == 0) pin_store(k, s_pin);
-  const int64_t r0 = (int64_t)blockIdx.y * kWarps;
-  const int64_t c0 = (int64_t)blockIdx.x * kTileC;
+  const unsigned col_tiles = (unsigned)((p.C + kTileC - 1) / kTileC);
+  const int64_t r0 = (int64_t)(blockIdx.x / col_tiles) * kWarps;
+  const int64_t c0 = (int64_t)(blockIdx.x % col_tiles) * kTileC;
   const int64_t t_lo = (int64_t)blockIdx.z * p.CT;
   const int ct = (int)p.CT;
 
@@ -972,7 +975,8 @@ const char* lns_error_string(int err) {
 int lns_mac_launch(const MacParams* p, void* stream) {
   // Segments take no epilogue; the grid z extent holds at most 65535; a
   // tile's offsets and the steps are int32; the short form's flattened
-  // output index is int32.
+  // output index is int32; the tiled form's row tiles times column tiles
+  // fit grid x.
   if (p->S < 1 || p->S > 65535 || (p->S > 1 && p->epilogue != kEpiNone) ||
       p->CT < 0 || p->CT >= INT_MAX - kTileK || p->a_st < 0 ||
       p->a_st >= (1 << 26) || p->b_st < 0 || p->b_st >= (1 << 26) ||
@@ -994,8 +998,10 @@ int lns_mac_launch(const MacParams* p, void* stream) {
     }
     if (rc != 0) return rc;
   } else {
-    dim3 grid((unsigned)((p->C + kTileC - 1) / kTileC),
-              (unsigned)((p->R + kWarps - 1) / kWarps), (unsigned)p->S);
+    const int64_t tiles = ((p->C + kTileC - 1) / kTileC) *
+                          ((p->R + kWarps - 1) / kWarps);
+    if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned)tiles, 1, (unsigned)p->S);
     LNS_DISPATCH(mac_kernel, kind, grid, kThreads, (cudaStream_t)stream,
                  *p);
   }

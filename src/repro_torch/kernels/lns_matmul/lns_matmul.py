@@ -211,12 +211,15 @@ def sgd_args(ep: UpdateEpilogue) -> build.SgdArgs:
 
 #: The launcher's limits (``lns_mac_launch`` in ``csrc/lns_mac.cu``):
 #: operand strides below 2^26, at most 65535 segments (grid z), and for the
-#: tiled form (CT > ``lns_short_steps()``) at most 65535 row blocks of
-#: ``MAC_TILE_ROWS`` rows (grid y); the short form's S·R·C outputs fit an
-#: int32.
+#: tiled form (CT > ``lns_short_steps()``) at most 2^31 - 1 tiles of
+#: ``MAC_TILE_ROWS`` rows by ``MAC_TILE_COLS`` columns (grid x holds the
+#: row tiles times the column tiles); the short form's S·R·C outputs fit
+#: an int32.
 MAC_MAX_STRIDE = 1 << 26
 MAC_MAX_GRID = 65535
+MAC_MAX_TILES = 2**31 - 1
 MAC_TILE_ROWS = 4
+MAC_TILE_COLS = 32
 
 
 def check_launch_limits(r: int, c: int, ct: int, n_seg: int,
@@ -231,10 +234,11 @@ def check_launch_limits(r: int, c: int, ct: int, n_seg: int,
         raise ValueError(f"operand stride {max(strides)} >= 2^26: the "
                          f"kernel's offsets would overflow")
     if ct // n_seg > short_steps:
-        if -(-r // MAC_TILE_ROWS) > MAC_MAX_GRID:
+        tiles = -(-r // MAC_TILE_ROWS) * -(-c // MAC_TILE_COLS)
+        if tiles > MAC_MAX_TILES:
             raise ValueError(
-                f"{r} output rows; the tiled ⊞-MAC takes at most "
-                f"{MAC_MAX_GRID * MAC_TILE_ROWS} (grid y)")
+                f"{r} x {c} outputs make {tiles} tiles; the tiled ⊞-MAC "
+                f"takes at most {MAC_MAX_TILES} (grid x)")
     elif n_seg * r * c > 2**31 - 1:
         raise ValueError(f"{n_seg * r * c} outputs; the short ⊞-MAC takes "
                          f"at most 2^31 - 1")

@@ -27,9 +27,10 @@ Scenarios, at the reference's shape (8 × 12–9–4):
   the gather); :func:`~repro_torch.resil.guard.recover_segment_partials`
   recomputes the lost slot and the recombined gradients are asserted
   bit-identical to the undamaged combine.
-
-The reference's ``serve`` drill needs the serve engine, which is not
-ported (ROADMAP queue 1 item 12): asking for it raises.
+* ``serve``    — an injected hung engine step (``serve=hang_step:4``) on a
+  tiny dense model under fp32; the step watchdog aborts the batch, the
+  retry budget re-admits it, every request finishes, the block pool is
+  conserved, and the greedy outputs are compared with a fault-free run.
 
 Initial weights come from the port's generator (``torch.Generator``
 seeded with ``--seed``), which is held to the JAX package's in law, not in
@@ -63,9 +64,6 @@ B, N_IN, N_HID, N_OUT = 8, 12, 9, 4
 SHAPE = f"{B}x{N_IN}x{N_HID}x{N_OUT}"
 #: The default seed of the drills and of ``--smoke`` (see the docstring).
 SEED = 1
-#: The reference's drill that needs the unported serve engine.
-UNPORTED = {"serve": "the serve engine is not ported (ROADMAP queue 1 "
-                     "item 12)"}
 
 
 # ---------------------------------------------------------------- helpers --
@@ -252,40 +250,108 @@ def drill_dp_drop(steps, seed, backend="pallas", *, device="cuda",
                 lane=_lane(device))
 
 
+def _tiny_serve_cfg():
+    from ..nn.config import ModelConfig
+    return ModelConfig(name="tiny-drill", family="dense", n_layers=2,
+                       d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
+                       vocab_size=64, d_head=16, vocab_pad_to=64,
+                       numerics="fp32", param_dtype="float32",
+                       remat="none", q_chunk=8)
+
+
+def drill_serve(steps, seed, backend="engine", *, device="cuda",
+                params=None):
+    """Injected hung step → watchdog abort → retry → all requests done.
+
+    ``steps`` is taken for the common signature; the drill runs the
+    engine until its requests finish.  ``params``: the tiny model's
+    weights in numpy form (the JAX package's, for a parity check), else
+    the port's draw from seed 0."""
+    from ..nn import init_params
+    from ..nn.model import params_from_numpy
+    from ..serve import TERMINAL, ServeConfig, ServingEngine
+    tiny = _tiny_serve_cfg()
+    weights = (params_from_numpy(params, device) if params is not None
+               else init_params(0, tiny, device=device))
+    sc = ServeConfig(max_batch=2, max_len=32, block_size=8,
+                     prefill_chunk=8, retry_budget=1)
+    hang_at = 4
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(3, tiny.vocab_size, size=6) for _ in range(3)]
+
+    def drain(faults):
+        eng = ServingEngine(tiny, weights, sc, faults=faults)
+        rids = [eng.submit(p, max_new=8) for p in prompts]
+        detect = None
+        for _ in range(400):
+            eng.step()
+            if detect is None and any(
+                    r["name"] == "serve.watchdog_fired"
+                    for r in eng.registry.rows()):
+                detect = eng.step_count
+            if all(eng.poll(r).state in TERMINAL for r in rids):
+                break
+        eng.bm.check_conserved()  # raises if an abort leaked blocks
+        outs = [tuple(eng.poll(r).output) for r in rids]
+        states = [eng.poll(r).state for r in rids]
+        retries = sum(eng.poll(r).retries for r in rids)
+        return outs, states, retries, detect
+
+    outs, states, retries, detect = drain(
+        f"seed={seed};serve=hang_step:{hang_at}")
+    if not all(s == "DONE" for s in states):
+        raise AssertionError(f"states after drill: {states}")
+    if retries == 0:
+        raise AssertionError("watchdog abort never exercised the retry "
+                             "budget")
+    if detect is None:
+        raise AssertionError("watchdog never fired")
+    clean_outs, _, _, _ = drain(None)
+    mismatch = sum(a != b for a, b in zip(outs, clean_outs)) / len(outs)
+    return _row("serve", "fp32", backend, shape="tiny-drill",
+                inject_step=hang_at, detect_step=detect,
+                faults_injected=1, recovery_action="watchdog-abort+retry",
+                acc_delta_post=mismatch,  # greedy outputs vs fault-free
+                note=f"hang_step:{hang_at} fault; watchdog aborts the "
+                     f"batch, retry budget re-admits it ({retries} "
+                     f"retries), block pool conserved", lane=_lane(device))
+
+
 SCENARIOS = {
     "bitflip": drill_bitflip,
     "satstorm": drill_satstorm,
     "dp-drop": drill_dp_drop,
+    "serve": drill_serve,
 }
 
 
 def run_scenarios(names=None, *, steps=10, seed=SEED, device="cuda",
                   backend="pallas"):
-    """Run the named drills (every ported one by default); returns the
-    rows."""
+    """Run the named drills (all by default); returns the rows.  The
+    serve drill keeps its own backend label, ``engine``, as the
+    reference's row does."""
     rows = []
     for name in names or list(SCENARIOS):
-        if name in UNPORTED:
-            raise NotImplementedError(f"drill {name!r}: {UNPORTED[name]}")
         if name not in SCENARIOS:
             raise ValueError(
                 f"unknown drill {name!r}; have {sorted(SCENARIOS)}")
-        rows.append(SCENARIOS[name](steps, seed, backend, device=device))
+        rows.append(SCENARIOS[name](
+            steps, seed, "engine" if name == "serve" else backend,
+            device=device))
     return rows
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenarios", default=None,
-                    help="comma list (default: every ported one); see "
-                         "SCENARIOS")
+                    help="comma list (default: all); see SCENARIOS")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--smoke", action="store_true",
                     help=f"the reference-sized run: steps=10, "
-                         f"seed={SEED}, every ported scenario")
+                         f"seed={SEED}, every scenario")
     ap.add_argument("--selfcheck", action="store_true",
                     help="run every drill twice and assert the rows are "
                          "byte-identical (determinism contract)")
@@ -293,9 +359,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     names = args.scenarios.split(",") if args.scenarios else None
     steps, seed = (10, SEED) if args.smoke else (args.steps, args.seed)
-    if names is None:
-        for name, why in UNPORTED.items():
-            print(f"[drill] {name}: not run, {why}")
     rows = run_scenarios(names, steps=steps, seed=seed, device=args.device)
     if args.selfcheck:
         again = run_scenarios(names, steps=steps, seed=seed,

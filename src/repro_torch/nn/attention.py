@@ -1,11 +1,24 @@
-"""Attention for training and prefill: GQA, query-chunked and causal-exact.
+"""Attention: GQA (query-chunked, causal-exact) and MLA (DeepSeek-V2).
 
-A loop over key bands, each with a loop over query chunks: chunk ``i`` of
-band ``j`` attends only to keys ``[0, end of band j)``, so only one (c ×
-band end) score block is live at a time.  Scores and softmax are float32.
-Plain tensor ops (no fused attention), as the JAX package computes them in
-jnp, so that the float results stay close to the reference's.  Decode,
-the paged cache and MLA are not ported (ROADMAP queue 1 items 11 and 12).
+Training/prefill attention is query-chunked: a loop over key bands, each
+with a loop over query chunks, chunk ``i`` of band ``j`` attending only to
+keys ``[0, end of band j)``, so only one (c × band end) score block is live
+at a time.  Scores and softmax are float32, in plain tensor ops (no fused
+attention), as the JAX package computes them in jnp, so that the float
+results stay close to the reference's.
+
+Decode uses a fixed-capacity KV cache written at each slot's position
+with a length mask, or a paged cache (``nn/paged.py``); chunked prefill
+splices a chunk's lines into a slot's pages and attends causally over
+them.  MLA decode is *absorbed* (q projected into the latent space).
+
+Every function takes its float reductions (norms, score and value
+contractions, softmax) from its numerics runtime (``layers.float_ops``):
+float32 for training, and the order-free float64 form when the serving
+paths hand in their view, so that a token's output does not depend on how
+many queries, slots or keys share its call.  A float32 matmul's order, and
+so its rounding, changes with the shape on both the CPU and the card;
+under the LNS modes an ulp can move a code, and the ⊞-MAC carries it on.
 """
 from __future__ import annotations
 
@@ -15,12 +28,13 @@ import torch
 
 from ..core.numerics import NumericsPolicy
 from .config import ModelConfig
-from .layers import _normal, apply_rope, rms_head_norm
+from .layers import _normal, apply_rope, float_ops, rms_head_norm
+from .paged import paged_gather, paged_write_chunk, paged_write_token
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor          # GQA: (B, S, KV, hd)
-    v: torch.Tensor          # GQA: (B, S, KV, hd)
+    k: torch.Tensor          # GQA: (B, S, KV, hd) | MLA: (B, S, lora)
+    v: torch.Tensor          # GQA: (B, S, KV, hd) | MLA: (B, S, rope)
 
 
 # ------------------------------------------------------------- GQA -------
@@ -37,14 +51,21 @@ def init_gqa(gen, cfg: ModelConfig, dtype):
     return p
 
 
-def _sdpa_block(q, k, v, scale, mask):
-    """q: (B,c,KV,G,hd), k/v: (B,t,KV,hd) → (B,c,KV,G,hd); fp32 softmax."""
-    sc = torch.einsum("bckgh,btkh->bkgct", q, k).to(torch.float32) * scale
+_NEG = -1e30
+
+
+def _masked(sc, mask):
+    return torch.where(mask, sc, torch.tensor(_NEG, dtype=torch.float32,
+                                              device=sc.device))
+
+
+def _sdpa_block(q, k, v, scale, mask, fl):
+    """q: (B,c,KV,G,hd), k/v: (B,t,KV,hd) → (B,c,KV,G,hd); fp32 softmax,
+    the reductions taken by ``fl``."""
+    sc = fl.einsum("bckgh,btkh->bkgct", q, k).to(torch.float32) * scale
     if mask is not None:
-        sc = torch.where(mask, sc, torch.tensor(-1e30, dtype=torch.float32,
-                                                device=sc.device))
-    p = torch.softmax(sc, dim=-1).to(v.dtype)
-    return torch.einsum("bkgct,btkh->bckgh", p, v)
+        sc = _masked(sc, mask)
+    return fl.einsum("bkgct,btkh->bckgh", fl.softmax(sc).to(v.dtype), v)
 
 
 def gqa_qkv(p, x, cfg: ModelConfig, pol: NumericsPolicy, positions):
@@ -54,14 +75,14 @@ def gqa_qkv(p, x, cfg: ModelConfig, pol: NumericsPolicy, positions):
     k = pol.linear(x, p["wk"]).reshape(b, s, kv, hd)
     v = pol.linear(x, p["wv"]).reshape(b, s, kv, hd)
     if cfg.qk_norm:
-        q = rms_head_norm(q, p["q_norm"])
-        k = rms_head_norm(k, p["k_norm"])
+        q = rms_head_norm(q, p["q_norm"], fl=float_ops(pol))
+        k = rms_head_norm(k, p["k_norm"], fl=float_ops(pol))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _banded_causal(qg, k, v, scale, cfg: ModelConfig):
+def _banded_causal(qg, k, v, scale, cfg: ModelConfig, fl):
     """Banded-causal SDPA: ``attn_bands`` bands of queries, band ``j``
     against the keys up to its end (exact FLOPs at band granularity), a
     loop over query chunks of ``q_chunk`` inside each band."""
@@ -83,7 +104,8 @@ def _banded_causal(qg, k, v, scale, cfg: ModelConfig):
                 mask = (qpos[:, None] >= torch.arange(hi, device=qg.device
                                                       )[None, :])
                 mask = mask[None, None, None]
-            outs.append(_sdpa_block(qg[:, off:off + c], kj, vj, scale, mask))
+            outs.append(_sdpa_block(qg[:, off:off + c], kj, vj, scale, mask,
+                                    fl))
     return torch.cat(outs, dim=1)
 
 
@@ -99,6 +121,275 @@ def gqa_attention(p, x, cfg: ModelConfig, pol: NumericsPolicy,
     kr = torch.repeat_interleave(k, h // kv, dim=2)
     vr = torch.repeat_interleave(v, h // kv, dim=2)
     qg = q.reshape(b, s, h, 1, hd)
-    o = _banded_causal(qg, kr, vr, hd ** -0.5, cfg)
+    o = _banded_causal(qg, kr, vr, hd ** -0.5, cfg, float_ops(pol))
     o = o.reshape(b, s, h * hd)
     return pol.linear(o, p["wo"]), KVCache(k, v)
+
+
+def gqa_decode(p, x, cfg: ModelConfig, pol: NumericsPolicy, cache: KVCache,
+               pos) -> "tuple[torch.Tensor, KVCache]":
+    """One-token decode against a fixed-capacity cache.
+
+    x: (B, 1, d); pos: (B,) current positions; cache tensors (B, S, KV,
+    hd).
+    """
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, k_new, v_new = gqa_qkv(p, x, cfg, pol, pos[:, None])
+    smax = cache.k.shape[1]
+    ar = torch.arange(smax, device=x.device)
+    at = (ar[None, :] == pos[:, None])[:, :, None, None]
+    k = torch.where(at, k_new.to(cache.k.dtype), cache.k)
+    v = torch.where(at, v_new.to(cache.v.dtype), cache.v)
+    qg = q.reshape(b, 1, kv, h // kv, hd)
+    mask = (ar[None, :] <= pos[:, None])[:, None, None, None, :]
+    o = _sdpa_block(qg, k, v, hd ** -0.5, mask, float_ops(pol)
+                    ).reshape(b, 1, h * hd)
+    return pol.linear(o, p["wo"]), KVCache(k, v)
+
+
+# --------------------------------------------------------- paged GQA -----
+def gqa_decode_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
+                     cache: KVCache, bt, pos, active
+                     ) -> "tuple[torch.Tensor, KVCache]":
+    """One-token batched decode against a paged (block) KV cache.
+
+    cache tensors: (NB, bs, KV, hd) shared page pool; bt: (B, W) block
+    tables; pos: (B,) logical positions; active: (B,) bool — inactive
+    slots write to the null block and their outputs carry no meaning.
+    Attention runs over the gathered (B, W·bs) logical view with the same
+    length mask as the dense path, so unallocated pages contribute
+    exactly-zero softmax weight.
+    """
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, k_new, v_new = gqa_qkv(p, x, cfg, pol, pos[:, None])
+    k_pages = paged_write_token(cache.k, bt, pos, k_new[:, 0], active)
+    v_pages = paged_write_token(cache.v, bt, pos, v_new[:, 0], active)
+    k = paged_gather(k_pages, bt)                   # (B, W·bs, KV, hd)
+    v = paged_gather(v_pages, bt)
+    ar = torch.arange(k.shape[1], device=x.device)
+    mask = (ar[None, :] <= pos[:, None])[:, None, None, None, :]
+    qg = q.reshape(b, 1, kv, h // kv, hd)
+    o = _sdpa_block(qg, k, v, hd ** -0.5, mask, float_ops(pol)
+                    ).reshape(b, 1, h * hd)
+    return pol.linear(o, p["wo"]), KVCache(k_pages, v_pages)
+
+
+def gqa_prefill_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
+                      cache: KVCache, bt_row, pos_base, n_valid
+                      ) -> "tuple[torch.Tensor, KVCache]":
+    """Chunked-prefill attention for ONE slot: splice then attend.
+
+    x: (1, C, d) — a prompt chunk at logical positions ``pos_base +
+    arange(C)`` (entries ≥ ``n_valid`` are padding).  The chunk's K/V
+    lines are written directly into the slot's pages, then the C queries
+    attend causally over the gathered logical view — which already holds
+    every previous chunk's lines, so cross-chunk attention needs no extra
+    state.
+    """
+    c = x.shape[1]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    lpos = pos_base + torch.arange(c, device=x.device)
+    q, k_new, v_new = gqa_qkv(p, x, cfg, pol, lpos[None])
+    k_pages = paged_write_chunk(cache.k, bt_row, pos_base, k_new[0], n_valid)
+    v_pages = paged_write_chunk(cache.v, bt_row, pos_base, v_new[0], n_valid)
+    k = paged_gather(k_pages, bt_row[None])         # (1, W·bs, KV, hd)
+    v = paged_gather(v_pages, bt_row[None])
+    ar = torch.arange(k.shape[1], device=x.device)
+    mask = (ar[None, :] <= lpos[:, None])[None, None, None]
+    qg = q.reshape(1, c, kv, h // kv, hd)
+    o = _sdpa_block(qg, k, v, hd ** -0.5, mask, float_ops(pol)
+                    ).reshape(1, c, h * hd)
+    return pol.linear(o, p["wo"]), KVCache(k_pages, v_pages)
+
+
+# ------------------------------------------------------------- MLA -------
+def init_mla(gen, cfg: ModelConfig, dtype):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    s = d ** -0.5
+    return {
+        "wq": _normal(gen, (d, h * (m.nope_head_dim + m.rope_head_dim)),
+                      dtype, s),
+        "w_dkv": _normal(gen, (d, m.kv_lora_rank + m.rope_head_dim), dtype,
+                         s),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype,
+                              device=gen.device),
+        "w_ukv": _normal(gen, (m.kv_lora_rank,
+                               h * (m.nope_head_dim + m.v_head_dim)), dtype,
+                         m.kv_lora_rank ** -0.5),
+        "wo": _normal(gen, (h * m.v_head_dim, d), dtype,
+                      (h * m.v_head_dim) ** -0.5),
+    }
+
+
+def _mla_latents(p, x, cfg, pol, positions):
+    """Compressed KV latents + positional key: (B,S,lora), (B,S,rope)."""
+    m = cfg.mla
+    dkv = pol.linear(x, p["w_dkv"])
+    c_kv = rms_head_norm(dkv[..., :m.kv_lora_rank], p["kv_norm"],
+                         fl=float_ops(pol))
+    k_pe = dkv[..., m.kv_lora_rank:][:, :, None, :]   # single rope head
+    k_pe = apply_rope(k_pe, positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def _mla_q(p, x, cfg, pol, positions):
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q = pol.linear(x, p["wq"]).reshape(
+        b, s, h, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_pe = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    return q_nope, q_pe
+
+
+def mla_attention(p, x, cfg: ModelConfig, pol: NumericsPolicy,
+                  positions, rt=None) -> "tuple[torch.Tensor, KVCache]":
+    """Full-sequence MLA (train / prefill): up-project the latents through
+    ``pol.linear`` (a ⊞-MAC under the LNS train modes), then the banded
+    SDPA with one group per head."""
+    from .layers import _single_device
+    _single_device(rt, "mla_attention")
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    c_kv, k_pe = _mla_latents(p, x, cfg, pol, positions)
+    ukv = pol.linear(c_kv, p["w_ukv"]).reshape(
+        b, s, h, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = ukv[..., :m.nope_head_dim], ukv[..., m.nope_head_dim:]
+    q_nope, q_pe = _mla_q(p, x, cfg, pol, positions)
+    k_pe_b = k_pe[:, :, None, :].expand(b, s, h, m.rope_head_dim)
+    q = torch.cat([q_nope, q_pe], -1)
+    k = torch.cat([k_nope, k_pe_b], -1)
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    qg = q.reshape(b, s, h, 1, q.shape[-1])  # the grouped SDPA, G=1
+    o = _banded_causal(qg, k, v, scale, cfg, float_ops(pol))
+    o = o.reshape(b, s, h * m.v_head_dim)
+    return pol.linear(o, p["wo"]), KVCache(c_kv, k_pe)
+
+
+def _mla_absorbed(p, x, cfg: ModelConfig, pol: NumericsPolicy, ck, kpe,
+                  positions, mask):
+    """Absorbed MLA attention of (B, Q, d) queries over latent caches.
+
+    ck: (B, S, lora) compressed latents; kpe: (B, S, rope) positional
+    keys; mask: bool broadcastable to (B, H, Q, S).  ``w_ukv`` enters as
+    float einsums of ``pol.q_param(w_ukv)``, not as a ⊞-MAC, so its
+    logits differ from :func:`mla_attention`'s under LNS, as the JAX
+    package's do.  Shared by one-token decode (Q=1, length mask) and
+    chunked prefill (Q=C, causal mask).
+    """
+    m = cfg.mla
+    b, qn = x.shape[0], x.shape[1]
+    h = cfg.n_heads
+    q_nope, q_pe = _mla_q(p, x, cfg, pol, positions)
+    w_ukv = pol.q_param(p["w_ukv"]).reshape(
+        m.kv_lora_rank, h, m.nope_head_dim + m.v_head_dim)
+    w_uk = w_ukv[..., :m.nope_head_dim]             # (lora, H, nope)
+    w_uv = w_ukv[..., m.nope_head_dim:]             # (lora, H, v)
+    fl = float_ops(pol)
+    q_lat = fl.einsum("bqhn,lhn->bqhl", q_nope, w_uk)
+    sc = fl.einsum("bqhl,bsl->bhqs", q_lat, ck)
+    sc = sc + fl.einsum("bqhr,bsr->bhqs", q_pe, kpe)
+    sc = sc.to(torch.float32) * (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    pr = fl.softmax(_masked(sc, mask)).to(x.dtype)
+    ctx = fl.einsum("bhqs,bsl->bqhl", pr, ck)
+    o = fl.einsum("bqhl,lhv->bqhv", ctx, w_uv).reshape(b, qn, -1)
+    return pol.linear(o, p["wo"])
+
+
+def mla_decode(p, x, cfg: ModelConfig, pol: NumericsPolicy, cache: KVCache,
+               pos) -> "tuple[torch.Tensor, KVCache]":
+    """Absorbed one-token MLA decode on the latent cache.
+
+    cache.k: (B, S, lora) compressed latents; cache.v: (B, S, rope) k_pe.
+    """
+    c_new, pe_new = _mla_latents(p, x, cfg, pol, pos[:, None])
+    smax = cache.k.shape[1]
+    ar = torch.arange(smax, device=x.device)
+    at = (ar[None, :] == pos[:, None])[:, :, None]
+    ck = torch.where(at, c_new.to(cache.k.dtype), cache.k)
+    kpe = torch.where(at, pe_new.to(cache.v.dtype), cache.v)
+    mask = (ar[None, :] <= pos[:, None])[:, None, None, :]
+    o = _mla_absorbed(p, x, cfg, pol, ck, kpe, pos[:, None], mask)
+    return o, KVCache(ck, kpe)
+
+
+def mla_decode_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
+                     cache: KVCache, bt, pos, active
+                     ) -> "tuple[torch.Tensor, KVCache]":
+    """Absorbed one-token MLA decode on paged latent caches.
+
+    cache.k: (NB, bs, lora) latent pages; cache.v: (NB, bs, rope) k_pe
+    pages; bt/pos/active as in :func:`gqa_decode_paged`.
+    """
+    c_new, pe_new = _mla_latents(p, x, cfg, pol, pos[:, None])
+    ck_pages = paged_write_token(cache.k, bt, pos, c_new[:, 0], active)
+    pe_pages = paged_write_token(cache.v, bt, pos, pe_new[:, 0], active)
+    ck = paged_gather(ck_pages, bt)                 # (B, W·bs, lora)
+    kpe = paged_gather(pe_pages, bt)
+    ar = torch.arange(ck.shape[1], device=x.device)
+    mask = (ar[None, :] <= pos[:, None])[:, None, None, :]
+    o = _mla_absorbed(p, x, cfg, pol, ck, kpe, pos[:, None], mask)
+    return o, KVCache(ck_pages, pe_pages)
+
+
+def mla_prefill_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
+                      cache: KVCache, bt_row, pos_base, n_valid
+                      ) -> "tuple[torch.Tensor, KVCache]":
+    """Chunked-prefill MLA for one slot: splice latents, attend absorbed.
+
+    Same contract as :func:`gqa_prefill_paged`; the chunk's compressed
+    latents + positional keys are written straight into the slot's pages
+    and the C queries run the absorbed attention causally over them.
+    """
+    c = x.shape[1]
+    lpos = pos_base + torch.arange(c, device=x.device)
+    c_new, pe_new = _mla_latents(p, x, cfg, pol, lpos[None])
+    ck_pages = paged_write_chunk(cache.k, bt_row, pos_base, c_new[0],
+                                 n_valid)
+    pe_pages = paged_write_chunk(cache.v, bt_row, pos_base, pe_new[0],
+                                 n_valid)
+    ck = paged_gather(ck_pages, bt_row[None])       # (1, W·bs, lora)
+    kpe = paged_gather(pe_pages, bt_row[None])
+    ar = torch.arange(ck.shape[1], device=x.device)
+    mask = (ar[None, :] <= lpos[:, None])[None, None]
+    o = _mla_absorbed(p, x, cfg, pol, ck, kpe, lpos[None], mask)
+    return o, KVCache(ck_pages, pe_pages)
+
+
+def _zeros(shape, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device="cpu"):
+    """Empty per-layer KV cache (dense, fixed capacity)."""
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return KVCache(_zeros((batch, max_len, m.kv_lora_rank), dtype,
+                              device),
+                       _zeros((batch, max_len, m.rope_head_dim), dtype,
+                              device))
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return KVCache(_zeros(shape, dtype, device), _zeros(shape, dtype, device))
+
+
+def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     dtype, device="cpu"):
+    """Empty per-layer *paged* KV cache: a shared pool of KV blocks.
+
+    Capacity is a token budget (``num_blocks · block_size`` lines, block 0
+    reserved as the null sink) rather than a dense (B, max_len)
+    allocation; slots map into it via block tables (see ``nn/paged.py``).
+    """
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return KVCache(
+            _zeros((num_blocks, block_size, m.kv_lora_rank), dtype, device),
+            _zeros((num_blocks, block_size, m.rope_head_dim), dtype, device))
+    shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.d_head)
+    return KVCache(_zeros(shape, dtype, device), _zeros(shape, dtype, device))

@@ -43,28 +43,94 @@ def init_norm(cfg: ModelConfig, dtype, device=None):
     raise ValueError(cfg.norm_kind)
 
 
-def _rsqrt_norm(xf, eps):
-    return xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+class FloatOps:
+    """The float reductions beside the weight products: norm means and
+    variances, attention's contractions and softmax, the MoE router and
+    routed experts.  A path takes them in one of two forms:
+
+    * :data:`FLOAT32` — float32 ops, as the JAX package runs them (the
+      training and full-sequence paths);
+    * :data:`ORDER_FREE` — each op in float64, rounded once to its
+      operands' dtype (the decode and prefill paths).  Products of float32
+      values are exact in float64, so a token's result does not depend on
+      the summation order, which a float32 reduction picks by shape (a
+      chunk of C queries against one query, a batch of slots) and by
+      device.
+
+    The serving views of the numerics runtimes carry ``ORDER_FREE``
+    (:func:`float_ops`)."""
+
+    __slots__ = ("wide",)
+
+    def __init__(self, wide):
+        self.wide = wide
+
+    def _up(self, t):
+        return t if self.wide is None else t.to(self.wide)
+
+    def einsum(self, eq: str, *ops):
+        dtype = torch.result_type(*ops)
+        return torch.einsum(eq, *(self._up(o) for o in ops)).to(dtype)
+
+    def matmul(self, a, b):
+        return (self._up(a) @ self._up(b)).to(torch.result_type(a, b))
+
+    def softmax(self, x):
+        """Over the last axis."""
+        return torch.softmax(self._up(x), dim=-1).to(x.dtype)
+
+    def mean(self, x):
+        """Over the last axis, kept."""
+        return torch.mean(self._up(x), -1, keepdim=True).to(x.dtype)
+
+    def sum(self, x):
+        """Over the last axis, kept."""
+        return torch.sum(self._up(x), -1, keepdim=True).to(x.dtype)
+
+    def var(self, x):
+        """The biased variance over the last axis, kept."""
+        if self.wide is None:
+            return torch.var(x, -1, keepdim=True, unbiased=False)
+        d = x - self.mean(x)
+        return self.mean(d * d)
 
 
-def apply_norm(p, x, cfg: ModelConfig, eps: float = 1e-5):
+FLOAT32 = FloatOps(None)
+ORDER_FREE = FloatOps(torch.float64)
+
+
+def float_ops(pol) -> FloatOps:
+    """The float reductions a component runs beside ``pol``'s products:
+    the serving view's (``nn/model.py: _ServePol``) ``ORDER_FREE``, else
+    ``FLOAT32``."""
+    return getattr(pol, "fl", FLOAT32)
+
+
+def _rsqrt_norm(xf, eps, fl):
+    return xf * torch.rsqrt(fl.mean(xf * xf) + eps)
+
+
+def apply_norm(p, x, cfg: ModelConfig, eps: float = 1e-5,
+               fl: FloatOps = FLOAT32):
+    """The config's norm over the last axis, in float32, its means taken
+    by ``fl``."""
     xf = x.to(torch.float32)
     if cfg.norm_kind == "rmsnorm":
-        return (_rsqrt_norm(xf, eps) * p["scale"].to(torch.float32)
+        return (_rsqrt_norm(xf, eps, fl) * p["scale"].to(torch.float32)
                 ).to(x.dtype)
-    mu = torch.mean(xf, -1, keepdim=True)
-    var = torch.var(xf, -1, keepdim=True, unbiased=False)
-    nrm = (xf - mu) * torch.rsqrt(var + eps)
+    nrm = (xf - fl.mean(xf)) * torch.rsqrt(fl.var(xf) + eps)
     if cfg.norm_kind == "layernorm":
         nrm = nrm * p["scale"].to(torch.float32) \
             + p["bias"].to(torch.float32)
     return nrm.to(x.dtype)
 
 
-def rms_head_norm(x, scale, eps: float = 1e-6):
-    """Per-head RMS norm for qk-norm (Qwen3): x (..., d_head)."""
+def rms_head_norm(x, scale, eps: float = 1e-6, fl: FloatOps = FLOAT32):
+    """Per-head RMS norm for qk-norm (Qwen3) and MLA's latents: x (...,
+    d_head)."""
     xf = x.to(torch.float32)
-    return (_rsqrt_norm(xf, eps) * scale.to(torch.float32)).to(x.dtype)
+    return (_rsqrt_norm(xf, eps, fl) * scale.to(torch.float32)
+            ).to(x.dtype)
 
 
 # ------------------------------------------------------------- mlp -------
@@ -108,9 +174,12 @@ def init_embeddings(gen, cfg: ModelConfig, dtype):
 
 
 def embed_tokens(p, tokens, pol: NumericsPolicy, rt=None):
-    """Embedding lookup of the (STE-quantized) table: a gather."""
+    """Embedding lookup of the (STE-quantized) table: a gather.  The
+    quantizer is elementwise, so the gathered rows are quantized, not the
+    whole table: the same values and the same straight-through
+    gradient."""
     _single_device(rt, "embed_tokens")
-    return pol.q_param(p["tok"])[tokens.long()]
+    return pol.q_param(p["tok"][tokens.long()])
 
 
 def _mask_pad(logits, cfg: ModelConfig):

@@ -46,8 +46,8 @@ This module imports nothing of ``repro_torch.core``: the fault surface is
 duck-typed — an LNS format is anything with ``qi`` / ``qf`` / ``code_max``
 / ``zero_code``, an LNS tensor anything with ``.code`` / ``.sign``
 rebuilt by ``type(a)(code, sign)``, and a Δ engine is copied with other
-tables by its ``with_tables``.  The serve engine is not ported:
-``serve_faults`` only parses and returns its faults.
+tables by its ``with_tables``.  ``serve_faults`` hands the serve
+engine (``serve/engine.py``) its faults.
 """
 from __future__ import annotations
 
@@ -522,8 +522,8 @@ def corrupt_engine(eng, plan: Optional[FaultPlan], layer: str):
 
 # -- serve-side fault queries (host Python) --------------------------------
 def serve_faults(plan: Optional[FaultPlan]) -> dict:
-    """The faults targeting the serve engine (pseudo-path ``'serve'``).
-    Parsed and returned only: the serve engine is not ported."""
+    """The faults targeting the serve engine (pseudo-path ``'serve'``):
+    ``hang_step`` and ``slow_req``, read by ``ServingEngine.step``."""
     if plan is None:
         return {}
     return plan.resolve("serve")

@@ -17,7 +17,15 @@ no JAX, so this module computes those five functions itself:
   the mantissa of a float in [1, 2), minus 1.0;
 * ``randint`` draws twice (the key split in two) and combines the draws
   with JAX's span and multiplier, so that the same keys give the same
-  integers.
+  integers;
+* ``gumbel`` and ``categorical`` as ``jax.random`` draws them (the
+  default "low" mode): uniform floats on [tiny, 1), ``-log(-log(u))``,
+  and the argmax of ``logits + gumbel``.  The serve engine samples with
+  them.  Each ``log`` is taken in float64 and rounded once, the same on
+  every device; XLA's float32 ``log`` is within an ulp of that, so the
+  noise agrees with JAX's within an ulp of ``max(|g|, 1)`` (the outer
+  ``log`` of a value near 1 loses the inner one's last bits), and a draw
+  follows JAX's unless two noised logits tie that closely.
 
 A key is a pair ``(k1, k2)`` of uint32 words, each a Python int or a 0-d
 int64 tensor.  uint32 arithmetic is carried in int64 and masked after
@@ -119,3 +127,33 @@ def randint(key: tuple, shape, minval: int, maxval: int,
     offset = (((hi % span) * mult) & MASK) + (lo % span)
     offset = (offset & MASK) % span
     return (offset + minval).to(torch.int32)
+
+
+#: float32's smallest normal number: the floor of the uniform draws of
+#: :func:`gumbel`, as ``jax.random.gumbel`` takes ``finfo.tiny``.
+F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def gumbel(key: tuple, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32 (mode "low"): uniform
+    floats on [tiny, 1) — ``max(tiny, u · (1 - tiny) + tiny)`` in float32,
+    as JAX's ``uniform(minval=tiny, maxval=1)`` forms them — then
+    ``-log(-log(u))``."""
+    u = uniform(key, shape, device)
+    tiny = torch.tensor(F32_TINY, dtype=torch.float32, device=u.device)
+    u = torch.maximum(u * (1.0 - tiny) + tiny, tiny)
+    return -_log(-_log(u))
+
+
+def _log(x):
+    """float32 ``log`` taken in float64 and rounded once (torch's float32
+    ``log`` strays by up to ~1500 ulps near 1 on the CPU)."""
+    return torch.log(x.double()).to(x.dtype)
+
+
+def categorical(key: tuple, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    argmax (first index on ties) of ``logits + gumbel(key, logits.shape)``
+    — the Gumbel-max trick, the noise drawn as ``jax.random`` draws it."""
+    g = gumbel(key, tuple(logits.shape), logits.device).to(logits.dtype)
+    return torch.argmax(g + logits, dim=-1)

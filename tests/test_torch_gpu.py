@@ -720,6 +720,29 @@ def test_lm_shapes_equal_plain_on_card(cuda, case):
                        b_contract_axis=ba, **kw))
 
 
+@pytest.mark.parametrize("c", [8, 40])
+@pytest.mark.parametrize("row", ["lns_matmul", "lns_matmul_dx"])
+def test_tiled_mac_past_65535_row_tiles_on_card(cuda, row, c):
+    """The tiled ⊞-MAC over 262 149 output rows, past the 65535 row tiles
+    of 4 that grid y once held: one launch, bit for bit against the plain
+    version, for the forward and the dX (W through strides), over one
+    column tile and over two (grid x's row and column tiles are the block
+    index's quotient and remainder)."""
+    r, ct = 262149, 40
+    gen = torch.Generator().manual_seed(262149)
+    a = _operand(gen, (r, ct), T.LNS16, cuda)
+    b = _operand(gen, (c, ct) if row == "lns_matmul_dx" else (ct, c),
+                 T.LNS16, cuda, scale=0.05, zero_frac=0.05)
+    kw = dict(fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    TKS.reset_launch_counts()
+    got = getattr(TK, row)(a.code, a.sign, b.code, b.sign, **kw)
+    assert TKS.launch_counts()[row] == 1
+    _same(got, TK.mac_plain(a.code, a.sign, b.code, b.sign,
+                            a_contract_axis=1,
+                            b_contract_axis=int(row == "lns_matmul_dx"),
+                            **kw))
+
+
 @pytest.mark.parametrize("tied", [False, True])
 def test_trainable_on_card_equals_cpu(cuda, tied):
     """``lns_matmul_trainable``'s forward and both gradients on the card
@@ -839,3 +862,73 @@ def test_remat_block_on_card_changes_nothing(cuda):
     # 2 layers × 7 linears are recomputed; the head is outside the blocks.
     assert out["block"][2]["lns_matmul"] == out["none"][2]["lns_matmul"] + 14
     assert out["block"][2]["lns_matmul_dx"] == out["none"][2]["lns_matmul_dx"]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-lite-16b"])
+def test_moe_mla_train_steps_on_card_equal_cpu(cuda, arch):
+    """Three AdamW steps of a ``reduced()`` moe config under fp32, card
+    against the CPU lane from the same parameters: every step's loss
+    within rtol 1e-5; then one lns16-train step teacher-forced, its loss
+    within 1e-3, rows 5, 2 and 6 launched once per LNS linear (the
+    attention's, the dense MLP's, the shared experts') and CE chunk."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.nn import init_params
+    from repro_torch.nn.config import ShapeCell
+    from repro_torch.optim.optimizers import AdamWConfig
+    from repro_torch.pytree import tree_map
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    opt = AdamWConfig(lr=1e-3)
+    for numerics, steps, rtol in (("fp32", 3, 1e-5),
+                                  ("lns16-train-pallas", 1, 1e-3)):
+        cfg = reduced(get_config(arch)).with_(numerics=numerics,
+                                              remat="none")
+        ds = SyntheticLMDataset(cfg, ShapeCell("t", 32, 2, "train"),
+                                DataConfig())
+        step = make_train_step(cfg, opt, tc=TrainConfig(grad_clip=1.0))
+        cpu = init_train_state(init_params(0, cfg, device="cpu"), opt)
+        card = tree_map(lambda t: t.to(cuda), cpu)
+        TKS.reset_launch_counts()
+        for i in range(steps):
+            cpu, mh = step(cpu, ds.batch_on(i, "cpu"))
+            card, mc = step(card, ds.batch_on(i, cuda))
+            h, c = float(mh["loss"]), float(mc["loss"])
+            assert abs(c - h) <= rtol * abs(h), (numerics, i, c, h)
+        counts = {k: v for k, v in TKS.launch_counts().items() if v}
+        per = 1 + 7 * (cfg.moe.first_dense_layers + cfg.layers
+                       - cfg.moe.first_dense_layers)
+        assert counts == ({} if numerics == "fp32" else dict.fromkeys(
+            ("lns_matmul", "lns_matmul_dx", "lns_matmul_dw"), per))
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-v2-lite-16b"])
+def test_serving_engine_on_card_equals_reference_generate(cuda, arch):
+    """The engine on the card under lns16-train-pallas (paged GQA; paged
+    MLA + MoE): greedy outputs equal to the port's ``reference_generate``
+    on the card, the same on a repeat, row 1 launched once per serving
+    linear per decode step and prefill chunk."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.nn import init_params
+    from repro_torch.serve import (ServeConfig, ServingEngine,
+                                   reference_generate)
+    cfg = reduced(get_config(arch)).with_(numerics="lns16-train-pallas",
+                                          remat="none")
+    params = init_params(1, cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n) for n in (3, 9, 17)]
+    sc = ServeConfig(max_batch=2, max_len=32, block_size=4, prefill_chunk=5)
+    outs = []
+    for _ in range(2):
+        eng = ServingEngine(cfg, params, sc)
+        TKS.reset_launch_counts()
+        outs.append(eng.run(prompts, max_new=6))
+        counts = {k: v for k, v in TKS.launch_counts().items() if v}
+        eng.bm.check_conserved()
+        st = eng.stats
+        assert set(counts) == {"lns_matmul_fused"}
+        assert counts["lns_matmul_fused"] % (st["decode_steps"]
+                                             + st["prefill_chunks"]) == 0
+    assert outs[0] == outs[1]
+    assert outs[0] == [reference_generate(cfg, params, p, 6, max_len=32)
+                       for p in prompts]

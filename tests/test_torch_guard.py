@@ -168,10 +168,12 @@ def test_bitflip_drill_from_own_weights():
 
 
 def test_drill_runner_and_cli(tmp_path):
-    """The launcher refuses the unported serve drill, names what it did not
-    run, and writes the rows of a run twice the same (``--selfcheck``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        tdrill.run_scenarios(["serve"], device="cpu")
+    """The launcher runs the serve drill (its own ``engine`` backend
+    label), refuses an unknown drill, and writes the rows of a run twice
+    the same (``--selfcheck``)."""
+    (row,) = tdrill.run_scenarios(["serve"], device="cpu")
+    assert (row["mode"], row["backend"], row["lane"]) == ("serve", "engine",
+                                                          "cpu")
     with pytest.raises(ValueError, match="unknown drill"):
         tdrill.run_scenarios(["nosuch"], device="cpu")
     out = tmp_path / "drill.json"

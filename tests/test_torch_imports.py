@@ -37,7 +37,8 @@ def test_sources_found():
             / "lns_mac.cu").exists()
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for pkg in ("distributed", "kernels/lns_boxsum", "obs", "resil",
-                "launch", "nn", "configs", "optim", "data", "train", "ckpt"):
+                "launch", "nn", "configs", "optim", "data", "train", "ckpt",
+                "serve"):
         assert f"src/repro_torch/{pkg}/__init__.py" in names, pkg
 
 
@@ -46,7 +47,10 @@ def test_sources_found():
     "repro_torch.kernels.lns_boxsum", "repro_torch.kernels.lns_matmul",
     "repro_torch.obs", "repro_torch.resil", "repro_torch.launch.drill",
     "repro_torch.launch.train", "repro_torch.core.qat",
-    "repro_torch.core.numerics"])
+    "repro_torch.core.numerics", "repro_torch.nn.moe",
+    "repro_torch.nn.paged", "repro_torch.serve",
+    "repro_torch.serve.engine", "repro_torch.serve.queue",
+    "repro_torch.serve.paged_cache", "repro_torch.launch.serve"])
 def test_import_loads_no_jax(module):
     """Importing the module in a fresh interpreter loads neither JAX nor
     the JAX package."""

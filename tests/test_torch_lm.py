@@ -98,18 +98,21 @@ def test_params_numpy_roundtrip_and_device_rule():
 
 
 def test_unported_paths_raise():
-    for arch in ("deepseek-moe-16b", "mamba2-370m", "zamba2-7b",
-                 "seamless-m4t-medium", "deepseek-v2-lite-16b"):
+    """The ssm, hybrid and encdec/audio families raise naming ROADMAP
+    queue 1 item 11 (their training and their decode caches; the paged
+    engine refuses them as the reference does), a mesh item 13."""
+    for arch in ("mamba2-370m", "zamba2-7b", "seamless-m4t-medium"):
         cfg = tconfigs.reduced(tconfigs.get_config(arch))
         with pytest.raises(NotImplementedError, match="item 11"):
             tmodel.init_params(0, cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tmodel.init_decode_caches(cfg, 1, 4, device="cpu")
+        with pytest.raises(ValueError, match="no paged KV cache"):
+            tmodel.init_paged_caches(cfg, 4, 4, device="cpu")
+        with pytest.raises(ValueError, match="unsupported family"):
+            tmodel.decode_step_paged({}, None, {}, None, None, None, cfg)
     with pytest.raises(NotImplementedError, match="item 13"):
         tmodel.Runtime(mesh=object())
-    for fn in (tmodel.prefill, tmodel.decode_step, tmodel.prefill_chunk,
-               tmodel.decode_step_paged, tmodel.init_decode_caches,
-               tmodel.init_paged_caches):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
     cfg = tconfigs.reduced(tconfigs.get_config("seamless-m4t-medium"))
     with pytest.raises(NotImplementedError, match="item 11"):
         tmodel.loss_fn({}, {}, cfg)

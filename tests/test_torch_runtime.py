@@ -325,11 +325,16 @@ def test_launch_limits():
           (256, 50432, 2048, 1, (2048, 50432)),    # head forward
           (256, 2048, 50432, 1, (50432, 50432)),   # head dX
           (2048, 50432, 256, 1, (2048, 50432)),    # head dW
-          (262140, 7, 13, 1, (13, 7))]             # the tiled form's rows
+          (262140, 7, 13, 1, (13, 7)),             # once 65535 row tiles
+          (262149, 8, 40, 1, (40, 8)),             # past them, one launch
+          (256 * 4096, 2048, 2048, 1, (2048, 2048)),   # the train cell
+          (4 * (2**31 - 1), 32, 13, 1, (13, 32))]  # the last tile count
     for r, c, ct, s, strides in ok:
         check_launch_limits(r, c, ct, s, strides, 12)
-    with pytest.raises(ValueError, match="grid y"):
-        check_launch_limits(262141, 7, 13, 1, (13, 7), 12)
+    with pytest.raises(ValueError, match="grid x"):
+        check_launch_limits(4 * (2**31 - 1) + 1, 32, 13, 1, (13, 32), 12)
+    with pytest.raises(ValueError, match="grid x"):
+        check_launch_limits(4 * (2**30), 64, 13, 1, (13, 64), 12)
     check_launch_limits(262141, 7, 12, 1, (12, 7), 12)   # short form
     with pytest.raises(ValueError, match="2\\^26"):
         check_launch_limits(4, 4, 1 << 26, 1, (1 << 26, 4), 12)
