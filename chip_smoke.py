@@ -95,7 +95,24 @@ the result line:
    second, a timed decode step and row 1's card ms and bound, and the
    plain version timed at the largest decode shape (the head); then
    ``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
-   --numerics lns16-train-pallas``.
+   --numerics lns16-train-pallas``;
+11. the ssm, hybrid and enc-dec families: (a) every distinct shape of
+   rows 5, 2 and 6 in (c)'s steps and of row 5 at (d)'s full-width decode
+   shapes, held as 10a holds; (b) ``reduced()`` mamba2-370m, zamba2-7b
+   and seamless-m4t-medium card vs CPU as 9b; (c) at full width under
+   ``lns16-train-pallas``, 3 AdamW steps each: mamba2-370m (2 layers,
+   batch 1 × seq 512, two SSD chunks of 256), zamba2-7b (7 layers: a
+   group of 6 and the shared block, then a tail layer; 1 × 512),
+   seamless-m4t-medium (1 encoder and 1 decoder layer, 2 × 128 tokens
+   over 128 frames): losses, ms per step, a profiled step, peak memory,
+   each row's card ms against its bound, the launches against the count
+   of ``lm_linears`` (each linear by its own rows and repeats); (d)
+   ``reference_generate`` on the card, greedy, 16 new tokens, twice, for
+   the reduced configs and full-width mamba2-370m: the runs equal, row 5
+   once per serving linear and head a step, tokens a second, a timed
+   decode step beside row 5's card ms; (e) ``python -m
+   repro_torch.launch.train --arch zamba2-7b`` with checkpoints,
+   relaunched to resume at step 4.
 
 Phase 3 also holds the tiled ⊞-MAC past 65535 row tiles (262 149 rows).
 
@@ -1560,14 +1577,29 @@ def lm_train(torch, arch, numerics, device, steps=LM_STEPS, cfg=None,
 
 
 def lm_linears(cfg, serving=False):
-    """(K, N) of every LNS linear of one train step's forward, in order:
-    per layer the attention's (GQA: wq, wk, wv, wo; MLA: wq, w_dkv, w_ukv,
-    wo) and the MLP's (dense layers) or the shared experts' (MoE layers;
-    the routed experts are float einsums, no ⊞-MAC).  ``serving``: those
-    of one serving forward (``linear_infer``) below the head instead, where
-    MLA is absorbed (its w_ukv a float einsum) and the moe family's dense
-    stack runs all its layers, as the reference's decode does."""
+    """(K, N, over) of every LNS linear of one train step's forward, in
+    order, one entry per call: ``over`` is "tokens" (the decoder's
+    positions), "frames" (the enc-dec encoder's) or "input" (frames of
+    data: ``frontend_proj``, whose input needs no gradient, so no dX).  Per layer the
+    attention's (GQA: wq, wk, wv, wo; MLA: wq, w_dkv, w_ukv, wo), the
+    MLP's (dense layers) or the shared experts' (MoE layers; the routed
+    experts are float einsums, no ⊞-MAC), Mamba2's ``in_proj`` and
+    ``out_proj``; the hybrid's shared block once per group of
+    ``attn_every`` Mamba2 layers, then the tail; the enc-dec family's
+    ``frontend_proj`` and encoder layers over the frames, then per decoder
+    layer the self-attention, the cross-attention (``wq``, ``wo`` over
+    the tokens, ``wk``, ``wv`` over the frames) and the MLP.  ``serving``:
+    those of one serving forward (``decode_step``, ``linear_infer``)
+    below the head instead, where MLA is absorbed (its w_ukv a float
+    einsum), the moe family's dense stack runs all its layers, as the
+    reference's decode does, and the enc-dec encoder does not run (the
+    cross-attention's K and V are taken again from ``enc_out`` at every
+    step).  Stub frontends of the dense and vlm families are not
+    counted."""
     d = cfg.d_model
+
+    def tok(pairs):
+        return [(k, n, "tokens") for k, n in pairs]
     if cfg.attn_kind == "mla":
         m, h = cfg.mla, cfg.n_heads
         attn = [(d, h * (m.nope_head_dim + m.rope_head_dim)),
@@ -1581,37 +1613,67 @@ def lm_linears(cfg, serving=False):
         attn = [(d, h * hd), (d, kv * hd), (d, kv * hd), (h * hd, d)]
     ff = cfg.d_ff
     mlp = [(d, ff)] * (2 if cfg.mlp_kind == "glu" else 1) + [(ff, d)]
-    if cfg.family != "moe":
-        return (attn + mlp) * cfg.layers
+    fam = cfg.family
+    if fam in ("ssm", "hybrid"):
+        s = cfg.ssm
+        d_in = s.expand * d
+        mamba = tok([(d, 2 * d_in + 2 * s.n_groups * s.d_state
+                      + d_in // s.head_dim), (d_in, d)])
+        if fam == "ssm":
+            return mamba * cfg.layers
+        k = cfg.hybrid.attn_every
+        groups = cfg.layers // k
+        return (mamba * k + tok(attn + mlp)) * groups \
+            + mamba * (cfg.layers - groups * k)
+    if fam in ("encdec", "audio"):
+        e = cfg.encdec
+        frames = [(k_, n, "frames") for k_, n in attn + mlp]
+        cross = [(attn[0][0], attn[0][1], "tokens"),
+                 (attn[1][0], attn[1][1], "frames"),
+                 (attn[2][0], attn[2][1], "frames"),
+                 (attn[3][0], attn[3][1], "tokens")]
+        dec = (tok(attn) + cross + tok(mlp)) * e.n_dec_layers
+        if serving:
+            return dec
+        front = [(d, d, "input")] if cfg.frontend else []
+        return front + frames * e.n_enc_layers + dec
+    if fam != "moe":
+        return tok(attn + mlp) * cfg.layers
     fd = cfg.moe.first_dense_layers
     sh = cfg.moe.n_shared * cfg.moe.d_expert
     shared = [(d, sh), (d, sh), (sh, d)] if sh else []
-    return (attn + mlp) * (max(fd, 1) if serving else fd) \
-        + (attn + shared) * max(cfg.layers - fd, 1)
+    return tok(attn + mlp) * (max(fd, 1) if serving else fd) \
+        + tok(attn + shared) * max(cfg.layers - fd, 1)
 
 
-def lm_products(cfg, batch, seq):
+def lm_products(cfg, batch, seq, frames=None):
     """(row, R, C, CT, launches) of every ⊞-MAC launch of one train step
     under ``lns16-train`` with ``remat="none"``: per LNS linear (K → N over
-    M tokens) the forward (M, N) over K, dX (M, K) over N and dW (K, N)
-    over M; the head once per CE chunk."""
+    M rows: batch × seq tokens, or batch × ``frames`` frames, ``seq`` when
+    None) the forward (M, N) over K, dX (M, K) over N (but for an input
+    of data) and dW (K, N) over M; the head once per CE chunk."""
     chunks = max(seq // cfg.ce_chunk, 1)
+    frames = batch * (frames or seq)
+    rows = {"tokens": batch * seq, "frames": frames, "input": frames}
     out = {}
-    for k, n, m, times in [(k, n, batch * seq, 1)
-                           for k, n in lm_linears(cfg)] + [
-            (cfg.d_model, cfg.padded_vocab, batch * (seq // chunks),
-             chunks)]:
+    for k, n, over, m, times in [(k, n, over, rows[over], 1)
+                                 for k, n, over in lm_linears(cfg)] + [
+            (cfg.d_model, cfg.padded_vocab, "tokens",
+             batch * (seq // chunks), chunks)]:
         for key in (("lns_matmul", m, n, k), ("lns_matmul_dx", m, k, n),
                     ("lns_matmul_dw", k, n, m)):
-            out[key] = out.get(key, 0) + times
+            if key[0] != "lns_matmul_dx" or over != "input":
+                out[key] = out.get(key, 0) + times
     return [key + (c,) for key, c in out.items()]
 
 
 def lm_expected(cfg, seq):
-    """Launches of each row in one train step: once per LNS linear and
-    once per CE chunk."""
-    return dict.fromkeys(LM_ROWS, len(lm_linears(cfg))
-                         + max(seq // cfg.ce_chunk, 1))
+    """Launches of each row in one train step: once per LNS linear call
+    (dX but for an input of data) and once per CE chunk."""
+    lin = lm_linears(cfg)
+    out = dict.fromkeys(LM_ROWS, len(lin) + max(seq // cfg.ce_chunk, 1))
+    out["lns_matmul_dx"] -= sum(over == "input" for _, _, over in lin)
+    return out
 
 
 def mac_step_instructions():
@@ -1685,12 +1747,15 @@ def lm_time_products(torch, device, products, card, plain_ms, tag="9c lm"):
 
 
 def lm_full_width(torch, device, card, plain_ms, cfg=None, name="olmo-1b",
-                  tag="9c", fp32=True):
+                  tag="9c", fp32=True, batch=FULL_BATCH, seq=FULL_SEQ):
     """9c: olmo-1b as published (d_model 2048, 16 × 128 heads, d_ff 8192,
     vocab 50 304 padded to 50 432), depth cut to 2 layers, batch 2 × seq
-    128, lns16-train-pallas, AdamW, 3 steps on the card; 10c the same for
-    ``cfg`` (``name``).  ``plain_ms``: the plain version's time at each of
-    the step's shapes.  ``fp32``: the same steps under fp32 too."""
+    128, lns16-train-pallas, AdamW, 3 steps on the card; 10c and 11c the
+    same for ``cfg`` (``name``) at ``batch`` × ``seq`` (the enc-dec
+    family over as many frames).  ``plain_ms``: the plain version's time
+    at each of the step's shapes.  ``fp32``: the same steps under fp32
+    too.  Returns ({row: timing}, launches, {"ms": the steps' host ms,
+    "peak_gib": peak memory, "busy": device time over the step})."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.nn import init_params
     cfg = cfg or full_width_cfg()
@@ -1699,21 +1764,23 @@ def lm_full_width(torch, device, card, plain_ms, cfg=None, name="olmo-1b",
                          cfg, device=device)
     losses, counts, ms, (state, step, ds) = lm_train(
         torch, name, None, device, cfg=cfg, params=params,
-        batch=FULL_BATCH, seq=FULL_SEQ)
-    want = {k: v * LM_STEPS for k, v in lm_expected(cfg, FULL_SEQ).items()}
+        batch=batch, seq=seq)
+    want = {k: v * LM_STEPS for k, v in lm_expected(cfg, seq).items()}
     if counts != want:
         raise AssertionError(f"{tag} launch counts {counts}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
     if fp32:
         fp, _, fp_ms, _ = lm_train(
             torch, name, None, device, cfg=cfg.with_(numerics="fp32"),
-            params=params, batch=FULL_BATCH, seq=FULL_SEQ)
+            params=params, batch=batch, seq=seq)
         log(f"{tag} full width", f"the same steps under fp32 (cuBLAS, no "
             f"LNS kernel): losses {fp}; ms per step {fp_ms}")
+    depth = f"{cfg.encdec.n_enc_layers} + {cfg.encdec.n_dec_layers}" \
+        if cfg.encdec else cfg.layers
     log(f"{tag} full width", f"{name} d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} -> "
-        f"{cfg.padded_vocab}, {cfg.layers} layers, batch {FULL_BATCH} x seq "
-        f"{FULL_SEQ}: losses {losses}; ms per step {ms} (host clock ending "
+        f"{cfg.padded_vocab}, {depth} layers, batch {batch} x seq "
+        f"{seq}: losses {losses}; ms per step {ms} (host clock ending "
         f"in a synchronize; the first includes warm-up); launches {counts}; "
         f"max_memory_allocated {peak / 2**30:.3f} GiB on {card}")
     reset_launch_counts()
@@ -1737,25 +1804,26 @@ def lm_full_width(torch, device, card, plain_ms, cfg=None, name="olmo-1b",
         log(f"{tag} profile", "torch.profiler saw no device time: not "
             "measured")
     del state, params
-    rows = lm_time_products(torch, device,
-                            lm_products(cfg, FULL_BATCH, FULL_SEQ), card,
-                            plain_ms, tag=f"{tag} lm")
+    rows = lm_time_products(torch, device, lm_products(cfg, batch, seq),
+                            card, plain_ms, tag=f"{tag} lm")
     for row, q in rows.items():
         plain = "not measured" if q["plain_ms"] is None \
             else f"{q['plain_ms']:.1f} ms"
         log(f"{tag} lm times", f"{row} per full-width step: {q['ms']:.3f} "
             f"ms on the card in {q['launches']} launches; plain {plain}; "
             f"bound {q['bound_ms']:.3f} ms by {q['bound_by']} on {card}")
-    return rows, dict(counts)
+    return rows, dict(counts), dict(
+        ms=ms, peak_gib=peak / 2**30,
+        busy=dev_us / (step_ms * 1e3) if dev_us else None)
 
 
-def lm_cli(torch, tmp):
-    """9d: the train CLI on the card with checkpoints and metrics, then a
-    relaunch that resumes at step 4."""
+def lm_cli(torch, tmp, arch="qwen3-1.7b", tag="9d"):
+    """9d (11e): the train CLI on the card with checkpoints and metrics
+    for reduced ``arch``, then a relaunch that resumes at step 4."""
     import json as _json
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as train_cli
-    common = ["--arch", "qwen3-1.7b", "--ckpt-every", "2", "--numerics",
+    common = ["--arch", arch, "--ckpt-every", "2", "--numerics",
               "lns16-train-pallas", "--batch", "2", "--seq", "32",
               "--log-every", "1", "--ckpt-dir", f"{tmp}/ckpt"]
     reset_launch_counts()
@@ -1765,7 +1833,7 @@ def lm_cli(torch, tmp):
                             + common)
     counts = {k: v for k, v in launch_counts().items() if v}
     if len(first) != 4 or len(second) != 2:
-        raise AssertionError(f"9d: {len(first)} then {len(second)} steps; "
+        raise AssertionError(f"{tag}: {len(first)} then {len(second)} steps; "
                              f"the relaunch must resume at step 4")
     rows = [_json.loads(x) for x in open(f"{tmp}/b.jsonl")]
     keys = {"kind", "name", "value", "component", "arch", "spec", "layer",
@@ -1777,10 +1845,11 @@ def lm_cli(torch, tmp):
                            for r in counters) \
             or {r["step"] for r in counters} != {5, 6} \
             or {r["lane"] for r in counters if "lane" in r} != {"cuda"}:
-        raise AssertionError(f"9d: metrics rows {rows[:2]}")
+        raise AssertionError(f"{tag}: metrics rows {rows[:2]}")
     if rows[-1]["kind"] != "summary":
-        raise AssertionError("9d: no summary row")
-    log("9d train cli", f"4 steps then a relaunch to 6 that resumed at step "
+        raise AssertionError(f"{tag}: no summary row")
+    log(f"{tag} train cli", f"{arch}: 4 steps then a relaunch to 6 that "
+        f"resumed at step "
         f"4: losses {first} / {second}; {len(rows)} JSONL rows with the "
         f"reference's keys; launches {counts}")
     return counts
@@ -1800,17 +1869,20 @@ def update_gap(before, after_cpu, after_card):
     return math.sqrt(num / den)
 
 
-def card_vs_cpu(torch, device, archs, tag):
-    """9b / 10b: each ``reduced()`` config of ``archs`` under ``fp32`` and
-    ``lns16-train-pallas``, 3 AdamW steps on the card against the CPU lane,
-    each row's launches against the products the code predicts; returns
-    the launches of the card runs."""
+def card_vs_cpu(torch, device, archs, tag, holds=None):
+    """9b / 10b / 11b: each ``reduced()`` config of ``archs`` under
+    ``fp32`` and ``lns16-train-pallas``, 3 AdamW steps on the card against
+    the CPU lane, each row's launches against the products the code
+    predicts; returns the launches of the card runs.  ``holds``: arch →
+    its lns16-train (first step's loss rtol, every step's, update
+    relative L2), 9b's (1e-3, 1e-2, ``LM_UPDATE_RTOL``) where absent."""
     from repro_torch.configs import get_config, reduced
     launches = dict.fromkeys(LM_ROWS, 0)
     cpu = torch.device("cpu")
     for arch in archs:
-        for numerics, rtols in (("fp32", (1e-5, 1e-5)),
-                                ("lns16-train-pallas", (1e-3, 1e-2))):
+        lns = (holds or {}).get(arch, (1e-3, 1e-2, LM_UPDATE_RTOL))
+        for numerics, rtols in (("fp32", (1e-5, 1e-5, None)),
+                                ("lns16-train-pallas", lns)):
             t1 = time.time()
             # fp32: both lanes free-running, every step's loss held at
             # 1e-5.  lns16-train: teacher-forced, each card step from the
@@ -1818,7 +1890,8 @@ def card_vs_cpu(torch, device, archs, tag):
             # lanes after the first update); the first step's loss held at
             # 1e-3, every step's at 1e-2 (a later step's start is no
             # longer the seeded init, and its gap reads up to 1.26e-3:
-            # ROADMAP queue 3 item 7) and its update at LM_UPDATE_RTOL.
+            # ROADMAP queue 3 item 7) and its update at LM_UPDATE_RTOL;
+            # or at ``holds``.
             forced = numerics != "fp32"
             hl, _, _, (hstates, _, _) = lm_train(torch, arch, numerics, cpu,
                                                  keep=True)
@@ -1835,7 +1908,7 @@ def card_vs_cpu(torch, device, archs, tag):
             upd = [update_gap(h0, h1, c1) for h0, h1, c1 in
                    zip(hstates, hstates[1:], cstates[1:])] if forced else []
             if gaps[0] > rtols[0] or max(gaps) > rtols[1] \
-                    or max(upd, default=0.0) > LM_UPDATE_RTOL:
+                    or max(upd, default=0.0) > (rtols[2] or 0.0):
                 raise AssertionError(f"{tag} {arch} {numerics}: card {cl} "
                                      f"vs cpu {hl}; update gaps {upd}")
             for k, v in counts.items():
@@ -1856,7 +1929,7 @@ def phase9(torch, device, card):
     worst, n, plain_ms = lm_kernels(torch, device)
     log("9a lm kernels", f"{n} cases in {time.time() - t0:.1f} s")
     launches = card_vs_cpu(torch, device, LM_DENSE, "9b")
-    rows, counts = lm_full_width(torch, device, card, plain_ms)
+    rows, counts, _ = lm_full_width(torch, device, card, plain_ms)
     for k, v in counts.items():
         launches[k] += v
     with tempfile.TemporaryDirectory() as tmp:
@@ -1890,15 +1963,19 @@ def moe_full_cfg(numerics="lns16-train-pallas"):
         n_layers=MOE_FULL_LAYERS, numerics=numerics, remat="none")
 
 
-def serve_products(cfg, rows, head_rows):
-    """(row 1, R, C, CT, launches) of one serving forward at ``rows``
-    tokens: every linear, and the head at ``head_rows`` (``rows`` in a
-    decode step; 1 in a prefill chunk, which keeps its last valid
-    position)."""
+def serve_products(cfg, rows, head_rows, frame_rows=0,
+                   row="lns_matmul_fused"):
+    """(``row``, R, C, CT, launches) of one serving forward at ``rows``
+    tokens: every linear (the enc-dec cross-attention's K and V at
+    ``frame_rows``: batch × the memory's frames), and the head at
+    ``head_rows`` (``rows`` in a decode step; 1 in a prefill chunk, which
+    keeps its last valid position).  Row 1 for the paged engine's
+    ``linear_infer``, row 5 for ``decode_step``'s ``linear``."""
     out = {}
-    for k, n, r in [(k, n, rows) for k, n in lm_linears(cfg, True)] + [
+    for k, n, r in [(k, n, frame_rows if over == "frames" else rows)
+                    for k, n, over in lm_linears(cfg, True)] + [
             (cfg.d_model, cfg.padded_vocab, head_rows)]:
-        key = ("lns_matmul_fused", r, n, k)
+        key = (row, r, n, k)
         out[key] = out.get(key, 0) + 1
     return [key + (c,) for key, c in out.items()]
 
@@ -1919,7 +1996,46 @@ def moe_kernels(torch, device):
     2 and 6 on deepseek-v2-lite-16b's MLA, dense-FFN, shared-expert and
     head products over 256 tokens) and of 10d's serving (row 1, the fused
     forward with no epilogue, at decode (4 rows) and prefill (16 rows)
-    shapes), on the card against the plain version, bit for bit, twice:
+    shapes), held by :func:`hold_products`."""
+    cfg = moe_full_cfg()
+    with plain_pool() as pool:
+        worst, n, finish = hold_products(
+            torch, device, lm_products(cfg, FULL_BATCH, FULL_SEQ)
+            + serve_products(cfg, SERVE_BATCH, SERVE_BATCH)
+            + serve_products(cfg, SERVE_CHUNK, 1), "10a", SEED + 10, pool)
+        finish()
+    return worst, n
+
+
+#: Worker processes of the plain version's long runs (10a, 11a).
+PLAIN_WORKERS = 4
+
+
+def plain_pool():
+    """A pool of ``PLAIN_WORKERS`` spawned processes for the plain version
+    on the host (each a thread of its own); leaving the ``with`` block
+    waits for them and stops them."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=PLAIN_WORKERS, initializer=_plain_worker_init,
+        mp_context=multiprocessing.get_context("spawn"))
+
+
+def _plain_worker_init():
+    import torch
+    torch.set_num_threads(1)
+
+
+def _plain_run(a_code, a_sign, b_code, b_sign, pk):
+    """The plain ⊞-MAC on host tensors, in a worker of :func:`plain_pool`."""
+    from repro_torch.kernels import lns_matmul as K
+    return K.mac_plain(a_code, a_sign, b_code, b_sign, **pk)
+
+
+def hold_products(torch, device, products, tag, seed, pool):
+    """Every distinct (row, R, C, CT) of ``products`` on the card against
+    the plain version, bit for bit, twice:
 
     * every output, at the shape's (R, C) over a contraction cut to
       ``SHORT_CT`` steps (the tiled form still: whole tiles of steps and a
@@ -1931,34 +2047,35 @@ def moe_kernels(torch, device):
       columns of every shape of one form and contraction length are
       stacked into one plain run, and each shape's block is read back.
       That run is the CPU lane's, on the same operands copied to the
-      host: on blocks this small each step of the plain loop is
-      launch-bound on the card, and the head's dX walks 102 400 steps
-      (the two lanes are bit-exact, phases 3 and 9a).
+      host, in a worker of ``pool`` (the runs of one call in parallel, and
+      beside the card's later work): on blocks this small each step of
+      the plain loop is launch-bound on the card, and a head's dX walks
+      up to 256 256 steps (the two lanes are bit-exact, phases 3 and 9a).
 
     The plain version of row 1 with the empty epilogue is row 5's (the
     epilogue is the identity).  The plain version's time at the full
     contraction is not measured here: each shape's plain run over its
     first ``PLAIN_STEPS`` steps is timed on the card and logged, with
     that time scaled to the contraction as an extrapolation.  Returns
-    ({row: max |diff|}, the number of shapes)."""
+    ({row: max |diff|}, the number of shapes, ``finish``): ``finish()``
+    waits for the plain runs, holds the edge tiles against them and
+    completes the first dict."""
     import numpy as np
     from repro_torch.core import DELTA_DEFAULT, LNS16
     from repro_torch.kernels import lns_matmul as K
-    cfg = moe_full_cfg()
     kw = dict(fmt=LNS16, spec=DELTA_DEFAULT)
-    rng = np.random.default_rng(SEED + 10)
+    rng = np.random.default_rng(seed)
+    log_tag = f"{tag} kernels"
     groups = {}
-    for row, r, c, ct, _ in (lm_products(cfg, FULL_BATCH, FULL_SEQ)
-                             + serve_products(cfg, SERVE_BATCH, SERVE_BATCH)
-                             + serve_products(cfg, SERVE_CHUNK, 1)):
+    for row, r, c, ct, _ in products:
         form = {"lns_matmul_fused": "lns_matmul"}.get(row, row)
         groups.setdefault((form, ct), {})[row, r, c, ct] = None
-    worst, n = {}, 0
+    worst, n, pending = {}, 0, []
 
     def fail_on(err, row, what):
         worst[row] = max(worst.get(row, 0), err)
         if err:
-            raise AssertionError(f"10a {row} {what}: max |diff| {err}")
+            raise AssertionError(f"{tag} {row} {what}: max |diff| {err}")
 
     for (form, ct), shapes in groups.items():
         dw, dx = form == "lns_matmul_dw", form == "lns_matmul_dx"
@@ -1997,29 +2114,38 @@ def moe_kernels(torch, device):
             K.mac_plain(*a_cut, *b_cut, **pk)
             torch.cuda.synchronize()
             cut_ms = (time.perf_counter() - t0) * 1e3
-            log("10a moe kernels", f"{row} ({r} x {c}) over {ct}: the plain "
+            log(log_tag, f"{row} ({r} x {c}) over {ct}: the plain "
                 f"version on the card over its first {steps} steps "
                 f"{cut_ms:.3f} ms (extrapolated to the whole contraction, "
                 f"not measured: {cut_ms * ct / steps:.1f} ms)")
             del a, b, got, a_cut, b_cut
         a_axis, b_axis = (1 if dw else 0), (0 if dx else 1)
-        want = K.mac_plain(
+        pending.append((ct, blocks, pool.submit(
+            _plain_run,
             *[torch.cat([p[i] for p in a_parts], a_axis) for i in (0, 1)],
             *[torch.cat([p[i] for p in b_parts], b_axis) for i in (0, 1)],
-            **pk)
-        r0 = c0 = 0
-        for row, r, c, got in blocks:
-            h, w = got[0].shape
-            fail_on(max(int((g.long() - q[r0:r0 + h, c0:c0 + w].long()
-                             ).abs().max()) for g, q in zip(got, want)),
-                    row, f"({r} x {c}) over {ct}")
-            log("10a moe kernels", f"{row} ({r} x {c}) over {ct}: bit-exact "
-                f"against the plain version (CPU lane) at {h} x {w} outputs "
-                f"of the first, last and one interior row and column tile; "
-                f"every output bit-exact over {SHORT_CT} steps (card)")
-            r0, c0 = r0 + h, c0 + w
+            pk)))
         n += len(shapes)
-    return worst, n
+
+    def finish():
+        t0 = time.time()
+        for ct, blocks, future in pending:
+            want = future.result()
+            r0 = c0 = 0
+            for row, r, c, got in blocks:
+                h, w = got[0].shape
+                fail_on(max(int((g.long() - q[r0:r0 + h, c0:c0 + w].long()
+                                 ).abs().max()) for g, q in zip(got, want)),
+                        row, f"({r} x {c}) over {ct}")
+                log(log_tag, f"{row} ({r} x {c}) over {ct}: bit-exact "
+                    f"against the plain version (CPU lane) at {h} x {w} "
+                    f"outputs of the first, last and one interior row and "
+                    f"column tile; every output bit-exact over {SHORT_CT} "
+                    f"steps (card)")
+                r0, c0 = r0 + h, c0 + w
+        log(log_tag, f"the plain runs' edge tiles held; waited "
+            f"{time.time() - t0:.1f} s for them")
+    return worst, n, finish
 
 
 def _serve_prompts(cfg):
@@ -2203,11 +2329,11 @@ def phase10(torch, device, card):
     from repro_torch.nn import init_params
     t0 = time.time()
     worst, n = moe_kernels(torch, device)
-    log("10a moe kernels", f"{n} shapes in {time.time() - t0:.1f} s")
+    log("10a kernels", f"{n} shapes in {time.time() - t0:.1f} s")
     launches = card_vs_cpu(torch, device, MOE_ARCHS, "10b")
     log("10b lm card vs cpu", f"in {time.time() - t0:.1f} s")
     cfg = moe_full_cfg()
-    rows, counts = lm_full_width(torch, device, card, None, cfg=cfg,
+    rows, counts, _ = lm_full_width(torch, device, card, None, cfg=cfg,
                                  name=MOE_FULL_ARCH, tag="10c", fp32=False)
     for k, v in counts.items():
         launches[k] += v
@@ -2264,6 +2390,174 @@ def phase10(torch, device, card):
     launches["lns_matmul_fused"] = served
     log("10", f"phase 10 in {time.time() - t0:.1f} s")
     return worst, rows, serve_rows, launches
+
+
+# ------------------------------------------------------------ phase 11 --
+
+FAMILY_ARCHS = ("mamba2-370m", "zamba2-7b", "seamless-m4t-medium")
+#: 11c: each model at its published widths, depth cut: (config overrides,
+#: batch, seq).  mamba2-370m 2 of 48 layers, two SSD chunks of 256;
+#: zamba2-7b 7 of 81 layers (one group of 6 and the shared block, then a
+#: tail layer); seamless-m4t-medium 1 encoder and 1 decoder layer of 12
+#: each, over as many frames as tokens.
+FAMILY_FULL = {"mamba2-370m": ({"n_layers": 2}, 1, 512),
+               "zamba2-7b": ({"n_layers": 7}, 1, 512),
+               "seamless-m4t-medium": ({"encdec": (1, 1)}, 2, 128)}
+#: 11b, lns16-train card vs CPU lane: arch → (first step's loss rtol,
+#: every step's, update relative L2).  mamba2-370m at 9b's holds;
+#: zamba2-7b and seamless-m4t-medium at the bounds of their CPU tests
+#: against the JAX package (tests/test_torch_lm_families_lns_steps.py:
+#: TIERS; ROADMAP queue 3 item 13): card and CPU part the same way, by
+#: float32 ulps that move codes (a first try at 9b's holds read 2.66e-3
+#: for zamba2-7b's first step and 0.560 for its update).
+FAMILY_HOLDS = {"zamba2-7b": (1e-2, 1e-2, 0.75),
+                "seamless-m4t-medium": (2e-2, 2e-2, 0.9)}
+#: 11d: ``reference_generate``'s prompt length, new tokens and positions.
+GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 8, 16, 32
+
+
+def family_full_cfg(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.nn.config import EncDecConfig
+    kw = dict(FAMILY_FULL[arch][0])
+    if "encdec" in kw:
+        kw["encdec"] = EncDecConfig(*kw["encdec"])
+    return get_config(arch).with_(numerics="lns16-train-pallas",
+                                  remat="none", **kw)
+
+
+def family_generate(torch, device, card):
+    """11d: ``reference_generate`` on the card, greedy, ``GEN_NEW`` new
+    tokens, twice for each reduced config and for full-width mamba2-370m
+    (2 layers): the two runs equal, row 5 launched once per serving
+    linear and once for the head at each ``decode_step``; tokens a
+    second; then one full-width decode step timed (CUDA events) beside
+    row 5's card time at its shapes.  Returns (row-5 launches, the decode
+    step's ms, row 5's timing at the decode shapes)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.spec import TORCH_DTYPES
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.nn import decode_step, init_decode_caches, init_params
+    from repro_torch.serve import reference_generate
+    full = family_full_cfg("mamba2-370m")
+    cases = [(f"reduced({a})", reduced(get_config(a)).with_(
+        numerics="lns16-train-pallas", remat="none"))
+        for a in FAMILY_ARCHS] + [("mamba2-370m full width, 2 layers", full)]
+    launches = 0
+    for name, cfg in cases:
+        params = init_params(torch.Generator(device=device).manual_seed(
+            SEED), cfg, device=device)
+        if cfg is full:
+            full_params = params
+        prompt = np.random.default_rng(SEED).integers(
+            3, cfg.vocab_size, size=GEN_PROMPT)
+        outs = []
+        for rep in range(2):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = reference_generate(cfg, params, prompt, GEN_NEW,
+                                     max_len=GEN_MAX_LEN)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v for k, v in launch_counts().items() if v}
+            steps = len(prompt) + len(out) - 1
+            want = {"lns_matmul": steps * (len(lm_linears(cfg, True)) + 1)}
+            if counts != want:
+                raise AssertionError(f"11d {name}: launches {counts}, "
+                                     f"expected {want}")
+            launches += counts["lns_matmul"]
+            log("11d generate", f"{name} run {rep + 1}: {len(out)} tokens "
+                f"after a prompt of {len(prompt)} in {dt:.3f} s "
+                f"({len(out) / dt:.2f} new tokens a second, {steps} "
+                f"decode steps, host clock ending in a synchronize); "
+                f"row-5 launches {counts['lns_matmul']} on {card}")
+            outs.append(out)
+        if outs[0] != outs[1]:
+            raise AssertionError(f"11d {name}: two runs differ: {outs}")
+        log("11d generate", f"{name}: the two runs are equal: {outs[0]}")
+    caches = init_decode_caches(full, 1, GEN_MAX_LEN,
+                                TORCH_DTYPES[full.param_dtype],
+                                device=device)
+    tok = torch.full((1, 1), 5, dtype=torch.int32, device=device)
+    pos = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def call():
+        with torch.no_grad():
+            return decode_step(full_params, tok, caches, pos, full)
+    call()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    call()
+    one = {k: v for k, v in launch_counts().items() if v}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 5
+    q = lm_time_products(torch, device,
+                         serve_products(full, 1, 1, row="lns_matmul"), card,
+                         None, tag="11d row 5")["lns_matmul"]
+    log("11d decode", f"mamba2-370m full width, 2 layers, one decode_step "
+        f"of 1 sequence: {step_ms:.3f} ms by CUDA events; row 5 "
+        f"{q['ms']:.4f} ms of it in {q['launches']} launches "
+        f"({q['ms'] / step_ms:.4f}), bound {q['bound_ms']:.4f} ms by "
+        f"{q['bound_by']}; launches {one} on {card}")
+    return launches, step_ms, q
+
+
+def phase11(torch, device, card):
+    """Phase 11; returns ({row: max |diff|}, {arch: ({row: 11c step
+    timing}, step stats)}, the 11d decode timing, {row: launches of
+    phase 11's card runs})."""
+    t0 = time.time()
+    products = []
+    for arch in FAMILY_ARCHS:
+        _, batch, seq = FAMILY_FULL[arch]
+        products += lm_products(family_full_cfg(arch), batch, seq)
+    products += serve_products(family_full_cfg("mamba2-370m"), 1, 1,
+                               row="lns_matmul")
+    with plain_pool() as pool:
+        worst, n, finish = hold_products(torch, device, products, "11a",
+                                         SEED + 11, pool)
+        log("11a kernels", f"{n} shapes on the card in "
+            f"{time.time() - t0:.1f} s; their edge tiles' plain runs go on "
+            f"in {PLAIN_WORKERS} host processes")
+        launches, rows, q, step_ms = phase11_runs(torch, device, card, t0)
+        finish()
+    log("11", f"phase 11 in {time.time() - t0:.1f} s")
+    return worst, rows, dict(q, step_ms=step_ms), launches
+
+
+def phase11_runs(torch, device, card, t0):
+    """11b-11e; returns ({row: launches}, {arch: 11c timing}, the 11d row
+    5 timing, the 11d decode step's ms)."""
+    launches = card_vs_cpu(torch, device, FAMILY_ARCHS, "11b",
+                           holds=FAMILY_HOLDS)
+    log("11b lm card vs cpu", f"in {time.time() - t0:.1f} s")
+    rows = {}
+    for arch in FAMILY_ARCHS:
+        _, batch, seq = FAMILY_FULL[arch]
+        torch.cuda.empty_cache()
+        r, counts, stats = lm_full_width(
+            torch, device, card, None, cfg=family_full_cfg(arch), name=arch,
+            tag="11c", fp32=False, batch=batch, seq=seq)
+        rows[arch] = (r, stats)
+        for k, v in counts.items():
+            launches[k] += v
+        log("11c full width", f"{arch} in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    n_gen, step_ms, q = family_generate(torch, device, card)
+    launches["lns_matmul"] += n_gen
+    log("11d generate", f"in {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, v in lm_cli(torch, tmp, arch="zamba2-7b", tag="11e").items():
+            launches[k] += v
+    return launches, rows, q, step_ms
 
 
 def main() -> int:
@@ -2451,6 +2745,30 @@ def main() -> int:
         f"{SERVE_BATCH} rows, prefill at {SERVE_CHUNK}, and the largest "
         "decode shape, whose plain version alone is timed at full length); "
         "launches include phase 10's card runs")
+    fam_worst, fam_rows, fam_decode, fam_launches = phase11(torch, device,
+                                                            card)
+    for k in kernels:
+        row = k["name"]
+        if row not in LM_ROWS:
+            continue
+        k["max_abs_err"] = max(k["max_abs_err"], fam_worst.get(row, 0))
+        k["launches"] += fam_launches[row]
+        k["families"] = {
+            arch: dict(launches_per_step=r[row]["launches"], ms=r[row]["ms"],
+                       bound_ms=r[row]["bound_ms"],
+                       bound_by=r[row]["bound_by"], step_ms=stats["ms"],
+                       peak_gib=stats["peak_gib"], busy=stats["busy"])
+            for arch, (r, stats) in fam_rows.items()}
+        if row == "lns_matmul":
+            k["family_decode"] = dict(
+                launches=fam_decode["launches"], ms=fam_decode["ms"],
+                bound_ms=fam_decode["bound_ms"],
+                bound_by=fam_decode["bound_by"],
+                step_ms=fam_decode["step_ms"])
+    log("11", "JSON families are per full-width step of phase 11c "
+        "(mamba2-370m, zamba2-7b, seamless-m4t-medium); family_decode is "
+        "row 5 per decode_step of full-width mamba2-370m (11d); launches "
+        "include phase 11's card runs")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

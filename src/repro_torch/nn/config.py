@@ -4,8 +4,8 @@ One frozen dataclass tree describes any model of the registry: dense /
 MoE / MLA / SSM (Mamba2-SSD) / hybrid / encoder-decoder, with optional
 stub modality frontends (audio frames, vision patches) and a numerics
 policy (the paper's LNS modes plug in here).  The same data as the JAX
-package's, so that a config and its parameter tree carry across 1:1; the
-port builds the dense family (``nn/model.py``).
+package's, so that a config and its parameter tree carry across 1:1;
+``nn/model.py`` builds every family.
 """
 from __future__ import annotations
 

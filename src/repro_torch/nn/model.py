@@ -1,4 +1,5 @@
-"""Model assembly of the dense, vlm and moe transformer families.
+"""Model assembly of every family: dense, vlm, moe, ssm (Mamba2), hybrid
+(Mamba2 with a shared attention block) and encdec / audio.
 
 Entry points (``params`` from :func:`init_params`, or the JAX package's
 carried across by :func:`params_from_numpy`):
@@ -7,38 +8,52 @@ carried across by :func:`params_from_numpy`):
   prefill(params, batch, cfg, rt)            prefill: last-pos logits + caches
   decode_step(params, tok, caches, pos, cfg) decode:  next logits + caches
   decode_step_paged / prefill_chunk          the serving engine's paged pair
+                                             (dense, vlm and moe only)
 
 ``params`` is the JAX package's nested parameter dict, holding tensors:
-each layer stack is stacked along a leading axis (``params["layers"]``,
-and the moe family's leading dense layers in ``params["dense_layers"]``),
-and a Python loop over that axis takes the place of ``lax.scan``, with the
-same results.  ``cfg.remat == "block"`` recomputes each block in backward
-(``torch.utils.checkpoint``, non-reentrant); the ⊞-MAC kernels are
-deterministic, so the results do not change.
+each layer stack is stacked along a leading axis (``params["layers"]``;
+the moe family's leading dense layers in ``params["dense_layers"]``, the
+hybrid's ``tail_layers`` and its one ``shared_attn`` block, the enc-dec
+family's ``enc_layers``), and a Python loop over that axis takes the place
+of ``lax.scan``, with the same results.  ``cfg.remat == "block"``
+recomputes each block in backward (``torch.utils.checkpoint``,
+non-reentrant); the ⊞-MAC kernels are deterministic, so the results do not
+change.
+
+The hybrid runs its ``layers`` in groups of ``hybrid.attn_every``, the
+shared attention block after each group (its gradients add up over the
+groups), then the ``tail_layers`` (only when ``attn_every`` does not
+divide ``layers``).  The enc-dec family runs a non-causal encoder over the
+frames (``frontend_proj`` of the audio stub's embeddings, or the embedded
+``enc_tokens``), then the decoder: self-attention, cross-attention over
+the encoder memory, MLP.  Decode caches: per-layer ``KVCache`` stacks, the
+Mamba2 layers' ``ssm.SSMCache`` stacks, and for enc-dec a ``(self KV,
+cross KV)`` pair and ``enc_out``.  :func:`caches_from_numpy` and
+:func:`caches_to_numpy` carry decode caches across the package boundary.
 
 Numerics are a per-layer property: ``cfg.numerics`` parses as a
 :class:`~repro_torch.core.plan.NumericsPlan` whose glob rules match the
 dotted layer paths of :func:`known_layer_paths` (``emb``, ``layers.attn``,
-``layers.mlp``, ``layers.moe``, ``dense_layers.*``, ``head``); each
-component receives the runtime its resolved spec describes.  The paged
-serving pair routes every matmul through the runtime's ``linear_infer``
-(:class:`_ServePol`), the fused forward ⊞-MAC on the LNS paths.
+``layers.mlp``, ``layers.moe``, ``layers.mamba``, ``layers.xattn``,
+``shared_attn.*``, ``enc_layers.*``, ``tail_layers.mamba``,
+``dense_layers.*``, ``frontend``, ``head``); each component receives the
+runtime its resolved spec describes.
 
 The serving functions (the decode steps and ``prefill_chunk``) hand every
 component the serving view of its runtime (:class:`_ServePol`), which
-takes the float reductions (norms, attention, MoE routing and routed
-experts) in the order-free float64 form of ``layers.ORDER_FREE``, so that
-a token's logits do not depend on the batch, chunk or cache width it is
-computed in.  Under the LNS specs every weight product is a ⊞-MAC, whose
-order is fixed, and the paged engine then reproduces the dense
-token-by-token oracle exactly; under the float specs the weight products
-are float32 matmuls, which round by shape, and the two agree only up to
-those roundings.
+takes the float reductions (norms, attention and cross-attention, MoE
+routing and routed experts) in the order-free float64 form of
+``layers.ORDER_FREE``, so that a token's logits do not depend on the
+batch, chunk or cache width it is computed in.  The Mamba2 block's own
+conv, scan and gated norm stay float32, as in the JAX package (no paged
+engine serves the ssm and hybrid families).  Under the LNS specs every
+weight product is a ⊞-MAC, whose order is fixed, and the paged engine
+then reproduces the dense token-by-token oracle exactly; under the float
+specs the weight products are float32 matmuls, which round by shape, and
+the two agree only up to those roundings.
 
-Ported: the ``dense``, ``vlm`` and ``moe`` families (GQA and MLA
-attention) on one device.  The ssm, hybrid and encdec/audio families
-raise ``NotImplementedError`` naming ROADMAP queue 1 item 11; a
-:class:`Runtime` with a mesh raises naming item 13.
+Ported on one device; a :class:`Runtime` with a mesh raises naming
+ROADMAP queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -53,9 +68,9 @@ from ..core.numerics import get_plan
 from ..core.spec import TORCH_DTYPES
 from ..devices import resolve_device
 from ..pytree import tree_flatten, tree_map, tree_unflatten
-from .attention import (KVCache, gqa_attention, gqa_decode,
-                        gqa_decode_paged, gqa_prefill_paged, init_gqa,
-                        init_mla, make_cache, make_paged_cache,
+from .attention import (KVCache, _banded_causal, gqa_attention,
+                        gqa_decode, gqa_decode_paged, gqa_prefill_paged,
+                        init_gqa, init_mla, make_cache, make_paged_cache,
                         mla_attention, mla_decode, mla_decode_paged,
                         mla_prefill_paged)
 from .config import ModelConfig
@@ -63,10 +78,13 @@ from .layers import (ORDER_FREE, _normal, apply_mlp, apply_norm,
                      chunked_ce_loss, embed_tokens, float_ops,
                      init_embeddings, init_mlp, init_norm, lm_logits)
 from .moe import init_moe, moe_block
+from .ssm import (SSMCache, init_mamba2, make_ssm_cache, mamba2_decode,
+                  mamba2_forward)
 
 
 #: Families whose training and serving paths this port builds.
-PORTED_FAMILIES = ("dense", "vlm", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec",
+                   "audio")
 
 #: Families the paged serving data plane supports: every per-layer cache
 #: is a KVCache growing along the sequence axis.
@@ -93,12 +111,15 @@ class Runtime:
 @dataclasses.dataclass(frozen=True)
 class BlockPols:
     """The per-component numerics runtimes one block consumes, resolved
-    from the model's plan at a layer-path prefix (``layers.attn``,
-    ``layers.mlp``, ``layers.moe``, ...).  Components whose resolved specs
-    are equal share one cached runtime."""
+    from the model's plan at a layer-path prefix (``layers``,
+    ``dense_layers``, ``enc_layers``, ``shared_attn``, ``tail_layers``):
+    e.g. ``layers.attn``, ``layers.mamba``.  Components whose resolved
+    specs are equal share one cached runtime."""
     attn: Any = None
     mlp: Any = None
     moe: Any = None
+    mamba: Any = None
+    xattn: Any = None
 
 
 def _block_pols(plan, prefix: str, *kinds: str) -> BlockPols:
@@ -139,9 +160,11 @@ def _model_plan(cfg: ModelConfig):
 
 def _check_family(cfg: ModelConfig, what: str) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise _unported(f"{what} of the {cfg.family!r} family", "11")
-    if cfg.attn_kind not in ("gqa", "mla"):
-        raise _unported(f"{what} with attn_kind={cfg.attn_kind!r}", "11")
+        raise ValueError(f"{what}: unknown family {cfg.family!r}")
+    kinds = ("gqa", "mla", "none") if cfg.family == "ssm" else ("gqa", "mla")
+    if cfg.attn_kind not in kinds:
+        raise ValueError(f"{what}: attn_kind={cfg.attn_kind!r} for the "
+                         f"{cfg.family!r} family (supported: {kinds})")
 
 
 # ------------------------------------------------------------- init ------
@@ -165,20 +188,44 @@ def _init_moe_layer(gen, cfg: ModelConfig, dtype):
             "norm2": init_norm(cfg, dtype, gen.device)}
 
 
+def _init_ssm_layer(gen, cfg: ModelConfig, dtype):
+    return {"mamba": init_mamba2(gen, cfg, dtype),
+            "norm1": init_norm(cfg, dtype, gen.device)}
+
+
+def _init_xattn_layer(gen, cfg: ModelConfig, dtype):
+    """Decoder layer with cross-attention (enc-dec family)."""
+    return {"attn": _init_attn(gen, cfg, dtype),
+            "xattn": init_gqa(gen, cfg, dtype),
+            "mlp": init_mlp(gen, cfg, cfg.d_ff, dtype),
+            "norm1": init_norm(cfg, dtype, gen.device),
+            "norm2": init_norm(cfg, dtype, gen.device),
+            "norm3": init_norm(cfg, dtype, gen.device)}
+
+
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def _hybrid_split(cfg: ModelConfig):
+    """(groups, attn_every, tail) of a hybrid stack."""
+    k = cfg.hybrid.attn_every
+    groups = cfg.layers // k
+    return groups, k, cfg.layers - groups * k
+
+
 def init_params(key, cfg: ModelConfig, device="cuda"):
-    """Fresh parameters of a dense, vlm or moe config on ``device``.
+    """Fresh parameters of a config of any family on ``device``.
 
     ``key`` is a seed or a ``torch.Generator`` (drawn on its own device,
     then moved).  The tree, shapes, dtypes and per-leaf standard deviations
     are the JAX package's; the values are torch's draws (threefry is not
     matched): carry the reference's values across with
-    :func:`params_from_numpy`.  The moe family stacks ``max(fd, 1)``
-    dense layers and ``max(layers - fd, 1)`` MoE layers, as the JAX
-    package does (``fd = moe.first_dense_layers``).
+    :func:`params_from_numpy`.  As in the JAX package, the moe family
+    stacks ``max(fd, 1)`` dense layers and ``max(layers - fd, 1)`` MoE
+    layers (``fd = moe.first_dense_layers``), and the hybrid
+    ``max(groups · attn_every, 1)`` Mamba2 layers: a hybrid shallower than
+    ``attn_every`` stacks one layer that no group runs.
     """
     device = resolve_device(device)
     _check_family(cfg, "init_params")
@@ -187,18 +234,31 @@ def init_params(key, cfg: ModelConfig, device="cuda"):
     dtype = TORCH_DTYPES[cfg.param_dtype]
     p: dict = {"emb": init_embeddings(gen, cfg, dtype),
                "final_norm": init_norm(cfg, dtype, gen.device)}
-    if cfg.family == "moe":
+    fam = cfg.family
+
+    def stack(init, n):
+        return _stack([init(gen, cfg, dtype) for _ in range(n)])
+
+    if fam in ("dense", "vlm"):
+        p["layers"] = stack(_init_dense_layer, cfg.layers)
+    elif fam == "moe":
         fd = cfg.moe.first_dense_layers
-        p["dense_layers"] = _stack([_init_dense_layer(gen, cfg, dtype)
-                                    for _ in range(max(fd, 1))])
-        p["layers"] = _stack([_init_moe_layer(gen, cfg, dtype)
-                              for _ in range(max(cfg.layers - fd, 1))])
-    else:
-        p["layers"] = _stack([_init_dense_layer(gen, cfg, dtype)
-                              for _ in range(cfg.layers)])
-        if cfg.frontend:
-            p["frontend_proj"] = _normal(gen, (cfg.d_model, cfg.d_model),
-                                         dtype, cfg.d_model ** -0.5)
+        p["dense_layers"] = stack(_init_dense_layer, max(fd, 1))
+        p["layers"] = stack(_init_moe_layer, max(cfg.layers - fd, 1))
+    elif fam == "ssm":
+        p["layers"] = stack(_init_ssm_layer, cfg.layers)
+    elif fam == "hybrid":
+        groups, k, tail = _hybrid_split(cfg)
+        p["layers"] = stack(_init_ssm_layer, max(groups * k, 1))
+        if tail:
+            p["tail_layers"] = stack(_init_ssm_layer, tail)
+        p["shared_attn"] = _init_dense_layer(gen, cfg, dtype)
+    else:                                  # encdec, audio
+        p["enc_layers"] = stack(_init_dense_layer, cfg.encdec.n_enc_layers)
+        p["layers"] = stack(_init_xattn_layer, cfg.encdec.n_dec_layers)
+    if cfg.frontend and fam not in ("moe", "ssm", "hybrid"):
+        p["frontend_proj"] = _normal(gen, (cfg.d_model, cfg.d_model),
+                                     dtype, cfg.d_model ** -0.5)
     return tree_map(lambda t: t.to(device), p)
 
 
@@ -266,6 +326,50 @@ def _moe_layer_fwd(lp, x, cfg, bp: BlockPols, attn):
     return x + _res(x, y), cache, aux
 
 
+def _ssm_block(lp, x, cfg, bp: BlockPols, mamba):
+    """``mamba(mamba params, normed x, pol) → (out, SSMCache)``: the
+    full-sequence Mamba2 block, or its one-token decode step."""
+    y, cache = mamba(lp["mamba"], apply_norm(lp["norm1"], x, cfg,
+                                             fl=float_ops(bp.mamba)),
+                     bp.mamba)
+    return x + _res(x, y), cache
+
+
+def _xattn_block(lp, x, cfg, bp: BlockPols, attn, enc_out):
+    """Enc-dec decoder layer: self-attention, cross-attention over
+    ``enc_out``, MLP; returns (x, (self cache, cross cache))."""
+    fl = float_ops(bp.attn)
+    a, cache = attn(lp["attn"], apply_norm(lp["norm1"], x, cfg, fl=fl),
+                    bp.attn)
+    x = x + _res(x, a)
+    q = apply_norm(lp["norm2"], x, cfg, fl=fl)
+    xa, xcache = _cross_attention(lp["xattn"], q, enc_out, cfg, bp.xattn)
+    x = x + _res(x, xa)
+    x = x + _res(x, apply_mlp(lp["mlp"], apply_norm(lp["norm3"], x, cfg,
+                                                    fl=fl), cfg, bp.mlp))
+    return x, (cache, xcache)
+
+
+def _cross_attention(lp, q_in, enc_out, cfg, pol):
+    """Non-causal attention of decoder queries over the encoder memory:
+    the banded SDPA with one band.  As in the JAX package, that band's
+    keys are the first ``min(S, T)`` frames (its extent is the query
+    count S), so a one-token decode step attends to frame 0 only."""
+    b, s, _ = q_in.shape
+    t = enc_out.shape[1]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = pol.linear(q_in, lp["wq"]).reshape(b, s, h, hd)
+    k = pol.linear(enc_out, lp["wk"]).reshape(b, t, kv, hd)
+    v = pol.linear(enc_out, lp["wv"]).reshape(b, t, kv, hd)
+    kr = torch.repeat_interleave(k, h // kv, dim=2)
+    vr = torch.repeat_interleave(v, h // kv, dim=2)
+    qg = q.reshape(b, s, h, 1, hd)
+    o = _banded_causal(qg, kr, vr, hd ** -0.5, cfg.with_(causal=False),
+                       float_ops(pol))
+    o = o.reshape(b, s, h * hd)
+    return pol.linear(o, lp["wo"]), KVCache(k, v)
+
+
 def _unstack(stacked) -> list:
     """A stacked layer tree → one tree per layer (views; their gradients
     stack back in one op)."""
@@ -275,16 +379,18 @@ def _unstack(stacked) -> list:
             for i in range(leaves[0].shape[0])]
 
 
-def _stack_caches(caches: list) -> KVCache:
-    """Per-layer caches → one KVCache stacked along a leading layer axis,
-    as ``lax.scan`` stacks them."""
-    return KVCache(torch.stack([c.k for c in caches]),
-                   torch.stack([c.v for c in caches]))
+def _stack_caches(caches: list, empty=None):
+    """Per-layer caches (``KVCache`` or ``SSMCache``) → one of the same
+    type stacked along a leading layer axis, as ``lax.scan`` stacks them;
+    ``empty`` when there are none."""
+    if not caches:
+        return empty
+    return type(caches[0])(*(torch.stack(xs) for xs in zip(*caches)))
 
 
-def _layer_caches(stacked: KVCache) -> list:
-    return [KVCache(k, v) for k, v in zip(stacked.k.unbind(0),
-                                          stacked.v.unbind(0))]
+def _layer_caches(stacked) -> list:
+    return [type(stacked)(*parts)
+            for parts in zip(*(t.unbind(0) for t in stacked))]
 
 
 def _maybe_remat(fn, cfg):
@@ -306,13 +412,37 @@ def _embed_inputs(params, batch, cfg, plan, rt=None):
     return x
 
 
+def _empty_hybrid_caches(cfg: ModelConfig, x):
+    """The prefill caches of a hybrid with no group (``layers <
+    attn_every``): zero-length stacks of the shapes the JAX package's
+    empty scans give."""
+    s_cfg = cfg.ssm
+    b, s = x.shape[:2]
+    d_in = s_cfg.expand * cfg.d_model
+    nh = d_in // s_cfg.head_dim
+    conv_dim = d_in + 2 * s_cfg.n_groups * s_cfg.d_state
+    k = cfg.hybrid.attn_every
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+    kv = (0, b, s, cfg.n_kv_heads, cfg.d_head)
+    return (SSMCache(empty(0, k, b, min(s_cfg.d_conv - 1, s), conv_dim),
+                     empty(0, k, b, nh, s_cfg.head_dim, s_cfg.d_state)),
+            KVCache(empty(*kv), empty(*kv)))
+
+
 def _layer_stack(params, x, cfg: ModelConfig, rt: Runtime, positions,
                  want_caches: bool = False):
-    """Full-sequence pass through the layer stacks → (x, caches, aux).
+    """Full-sequence pass through the layer stacks of a decoder-only
+    family → (x, caches, aux).
 
-    ``want_caches=False`` (training) keeps no per-layer KV cache; the moe
+    ``want_caches=False`` (training) keeps no per-layer cache.  The moe
     family runs its ``first_dense_layers`` dense layers, then the MoE
-    layers, and sums their load-balance aux terms."""
+    layers, and sums their load-balance aux terms; the hybrid runs each
+    group of ``attn_every`` Mamba2 layers and then the shared attention
+    block, then its tail, and its prefill caches stack the groups' Mamba2
+    caches as (groups, attn_every, ...), as the JAX package's nested scan
+    does."""
     _check_family(cfg, "the layer stack")
     plan = _model_plan(cfg)
     caches = {}
@@ -320,40 +450,69 @@ def _layer_stack(params, x, cfg: ModelConfig, rt: Runtime, positions,
     def attn(ap, h, pol):
         return _attn_fwd(ap, h, cfg, pol, positions, rt)
 
-    def run_dense(x, stack, n, prefix):
-        bp = _block_pols(plan, prefix, "attn", "mlp")
-        blk = _maybe_remat(
-            lambda h, lp: _dense_block(lp, h, cfg, bp, attn), cfg)
-        kv = []
-        for lp in _unstack(stack)[:n]:
-            x, c = blk(x, lp)
-            if want_caches:
-                kv.append(c)
-        return x, kv
+    def mamba(mp, h, pol):
+        return mamba2_forward(mp, h, cfg, pol)
 
-    if cfg.family == "moe":
+    def run(x, lps, prefix, kinds, block, fn):
+        """x through ``block`` for each layer of ``lps``; returns x and,
+        per layer, what the block returns beside it."""
+        bp = _block_pols(plan, prefix, *kinds)
+        blk = _maybe_remat(lambda h, lp: block(lp, h, cfg, bp, fn), cfg)
+        rest = []
+        for lp in lps:
+            x, *r = blk(x, lp)
+            rest.append(r)
+        return x, rest
+
+    def kept(rest):
+        return [r[0] for r in rest] if want_caches else []
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    fam = cfg.family
+    if fam == "moe":
         fd = cfg.moe.first_dense_layers
-        x, dense_kv = run_dense(x, params["dense_layers"], fd,
-                                "dense_layers")
-        bp = _block_pols(plan, "layers", "attn", "moe")
-        blk = _maybe_remat(
-            lambda h, lp: _moe_layer_fwd(lp, h, cfg, bp, attn), cfg)
-        kv, auxs = [], []
-        for lp in _unstack(params["layers"]):
-            x, c, aux = blk(x, lp)
+        x, dense = run(x, _unstack(params["dense_layers"])[:fd],
+                       "dense_layers", ("attn", "mlp"), _dense_block, attn)
+        x, rest = run(x, _unstack(params["layers"]), "layers",
+                      ("attn", "moe"), _moe_layer_fwd, attn)
+        if want_caches:
+            caches["layers"] = _stack_caches(kept(rest))
+            if dense:
+                caches["dense_layers"] = _stack_caches(kept(dense))
+        aux_total = torch.stack([r[1] for r in rest]).sum()
+    elif fam == "ssm":
+        x, rest = run(x, _unstack(params["layers"]), "layers", ("mamba",),
+                      _ssm_block, mamba)
+        if want_caches:
+            caches["layers"] = _stack_caches(kept(rest))
+    elif fam == "hybrid":
+        groups, k, _ = _hybrid_split(cfg)
+        lps = _unstack(params["layers"])
+        ssm_c, kv = [], []
+        for g in range(groups):
+            x, rest = run(x, lps[g * k:(g + 1) * k], "layers", ("mamba",),
+                          _ssm_block, mamba)
+            ssm_c += [_stack_caches(kept(rest))]
+            x, rest = run(x, [params["shared_attn"]], "shared_attn",
+                          ("attn", "mlp"), _dense_block, attn)
+            kv += kept(rest)
+        if "tail_layers" in params:
+            x, rest = run(x, _unstack(params["tail_layers"]), "tail_layers",
+                          ("mamba",), _ssm_block, mamba)
             if want_caches:
-                kv.append(c)
-            auxs.append(aux)
+                caches["tail_layers"] = _stack_caches(kept(rest))
         if want_caches:
-            caches["layers"] = _stack_caches(kv)
-            if dense_kv:
-                caches["dense_layers"] = _stack_caches(dense_kv)
-        aux_total = torch.stack(auxs).sum()
+            empty_ssm, empty_kv = _empty_hybrid_caches(cfg, x)
+            caches["layers"] = _stack_caches(ssm_c, empty_ssm)
+            caches["shared_attn"] = _stack_caches(kv, empty_kv)
+    elif fam in ("dense", "vlm"):
+        x, rest = run(x, _unstack(params["layers"]), "layers",
+                      ("attn", "mlp"), _dense_block, attn)
+        if want_caches:
+            caches["layers"] = _stack_caches(kept(rest))
     else:
-        x, kv = run_dense(x, params["layers"], None, "layers")
-        if want_caches:
-            caches["layers"] = _stack_caches(kv)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        raise ValueError(f"the {fam!r} family runs an encoder and a decoder "
+                         f"(_encoder, _decoder), not one layer stack")
     return x, caches, aux_total
 
 
@@ -367,16 +526,77 @@ def _positions(x):
         x.shape[:2])
 
 
+def _encoder(params, enc_in, cfg: ModelConfig, rt: Runtime):
+    """The enc-dec encoder: dense blocks with non-causal attention."""
+    plan = _model_plan(cfg)
+    bp = _block_pols(plan, "enc_layers", "attn", "mlp")
+    enc_cfg = cfg.with_(causal=False)
+    positions = _positions(enc_in)
+
+    def attn(ap, h, pol):
+        return _attn_fwd(ap, h, enc_cfg, pol, positions, rt)
+    blk = _maybe_remat(
+        lambda h, lp: _dense_block(lp, h, enc_cfg, bp, attn)[0], cfg)
+    x = enc_in
+    for lp in _unstack(params["enc_layers"]):
+        x = blk(x, lp)
+    return x
+
+
+def _decoder(params, x, enc_out, cfg: ModelConfig, rt: Runtime, positions,
+             want_caches: bool = True):
+    """The enc-dec decoder stack → (x, (self KV, cross KV) stacked along
+    the layer axis, or None)."""
+    plan = _model_plan(cfg)
+    bp = _block_pols(plan, "layers", "attn", "mlp", "xattn")
+
+    def attn(ap, h, pol):
+        return _attn_fwd(ap, h, cfg, pol, positions, rt)
+    blk = _maybe_remat(
+        lambda h, lp: _xattn_block(lp, h, cfg, bp, attn, enc_out), cfg)
+    out = []
+    for lp in _unstack(params["layers"]):
+        x, c = blk(x, lp)
+        if want_caches:
+            out.append(c)
+    if not want_caches:
+        return x, None
+    return x, (_stack_caches([c for c, _ in out]),
+               _stack_caches([c for _, c in out]))
+
+
+def _enc_dec(params, batch, cfg, plan, rt, want_caches):
+    """Encoder then decoder: (decoder output, decoder caches, enc_out).
+    The encoder's input is ``frontend_proj`` of the stub frontend's
+    embeddings (audio), else the embedded ``enc_tokens``."""
+    emb_pol = plan.runtime_for("emb")
+    if cfg.frontend:
+        fpol = plan.runtime_for("frontend")
+        enc_in = fpol.linear(batch["frontend_embeds"].to(fpol.dtype),
+                             params["frontend_proj"])
+    else:
+        enc_in = embed_tokens(params["emb"], batch["enc_tokens"], emb_pol,
+                              rt)
+    enc_out = _encoder(params, enc_in, cfg, rt)
+    x = embed_tokens(params["emb"], batch["tokens"], emb_pol, rt)
+    x, caches = _decoder(params, x, enc_out, cfg, rt, _positions(x),
+                         want_caches=want_caches)
+    return x, caches, enc_out
+
+
 # ------------------------------------------------------------- API -------
 def loss_fn(params, batch, cfg: ModelConfig, rt: Runtime = Runtime()):
     """Mean next-token CE + 0.01 · the MoE load-balance aux term (zero
-    outside the moe family).  batch: tokens, labels[, frontend_embeds],
-    tensors on the parameters' device."""
-    if cfg.family in ("encdec", "audio"):
-        raise _unported(f"loss_fn of the {cfg.family!r} family", "11")
+    outside the moe family).  batch: tokens, labels[, frontend_embeds |
+    enc_tokens], tensors on the parameters' device; the enc-dec loss is
+    over the decoder tokens."""
     plan = _model_plan(cfg)
-    x = _embed_inputs(params, batch, cfg, plan, rt)
-    x, _, aux = _layer_stack(params, x, cfg, rt, _positions(x))
+    if cfg.family in ("encdec", "audio"):
+        x, _, _ = _enc_dec(params, batch, cfg, plan, rt, want_caches=False)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x = _embed_inputs(params, batch, cfg, plan, rt)
+        x, _, aux = _layer_stack(params, x, cfg, rt, _positions(x))
     x = apply_norm(params["final_norm"], x, cfg)
     labels = batch["labels"]
     if x.shape[1] != labels.shape[1]:  # frontend prefix carries no loss
@@ -388,39 +608,101 @@ def loss_fn(params, batch, cfg: ModelConfig, rt: Runtime = Runtime()):
 
 def prefill(params, batch, cfg: ModelConfig, rt: Runtime = Runtime()):
     """Run the full prompt; return last-position logits (B, 1, V) and the
-    per-stack KV caches (stacked along the layer axis)."""
-    if cfg.family in ("encdec", "audio"):
-        raise _unported(f"prefill of the {cfg.family!r} family", "11")
+    per-stack caches (stacked along the layer axis; enc-dec:
+    ``{"layers": (self KV, cross KV), "enc_out"}``)."""
     plan = _model_plan(cfg)
-    x = _embed_inputs(params, batch, cfg, plan, rt)
-    x, caches, _ = _layer_stack(params, x, cfg, rt, _positions(x),
-                                want_caches=True)
+    if cfg.family in ("encdec", "audio"):
+        x, dec, enc_out = _enc_dec(params, batch, cfg, plan, rt,
+                                   want_caches=True)
+        caches = {"layers": dec, "enc_out": enc_out}
+    else:
+        x = _embed_inputs(params, batch, cfg, plan, rt)
+        x, caches, _ = _layer_stack(params, x, cfg, rt, _positions(x),
+                                    want_caches=True)
     x = apply_norm(params["final_norm"], x[:, -1:], cfg)
     return lm_logits(params["emb"], x, plan.runtime_for("head"), cfg), caches
-
-
-def _check_serving(cfg: ModelConfig, what: str) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise _unported(f"{what} of the {cfg.family!r} family (its decode "
-                        f"caches)", "11")
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, enc_len: "int | None" = None,
                        device="cuda"):
-    """Empty fixed-capacity caches for decode, on ``device``."""
-    _check_serving(cfg, "init_decode_caches")
+    """Empty fixed-capacity caches for decode, on ``device``: KV stacks,
+    Mamba2 state stacks (``ssm.SSMCache``), and for enc-dec the ``(self
+    KV, cross KV)`` pair over ``enc_len`` frames (``max_len`` when None)
+    with an ``enc_out`` of zeros."""
+    _check_family(cfg, "init_decode_caches")
     device = resolve_device(device)
 
-    def stack_kv(n):
-        one = make_cache(cfg, batch, max_len, dtype, device)
-        return KVCache(*(t.expand((n,) + t.shape).clone() for t in one))
+    def stack(one, n):
+        return type(one)(*(t.expand((n,) + t.shape).clone() for t in one))
 
-    if cfg.family == "moe":
+    def stack_kv(n):
+        return stack(make_cache(cfg, batch, max_len, dtype, device), n)
+
+    def stack_ssm(n):
+        return stack(make_ssm_cache(cfg, batch, dtype, device), n)
+
+    fam = cfg.family
+    if fam == "moe":
         fd = cfg.moe.first_dense_layers
         return {"dense_layers": stack_kv(max(fd, 1)),
                 "layers": stack_kv(max(cfg.layers - fd, 1))}
+    if fam == "ssm":
+        return {"layers": stack_ssm(cfg.layers)}
+    if fam == "hybrid":
+        groups, k, tail = _hybrid_split(cfg)
+        out = {"layers": stack_ssm(groups * k),
+               "shared_attn": stack_kv(groups)}
+        if tail:
+            out["tail_layers"] = stack_ssm(tail)
+        return out
+    if fam in ("encdec", "audio"):
+        n = cfg.encdec.n_dec_layers
+        enc_len = enc_len or max_len
+        xkv = make_cache(cfg.with_(attn_kind="gqa"), batch, enc_len, dtype,
+                         device)
+        return {"layers": (stack_kv(n), stack(xkv, n)),
+                "enc_out": torch.zeros((batch, enc_len, cfg.d_model),
+                                       dtype=dtype, device=device)}
     return {"layers": stack_kv(cfg.layers)}
+
+
+_CACHE_TYPES = {KVCache._fields: KVCache, SSMCache._fields: SSMCache}
+
+
+def _cache_tree(tree, leaf):
+    """``tree`` rebuilt with ``leaf`` on every array; any namedtuple with
+    the fields of ``KVCache`` or ``SSMCache`` (the JAX package's or this
+    package's) becomes this package's."""
+    if isinstance(tree, dict):
+        return {k: _cache_tree(v, leaf) for k, v in tree.items()}
+    fields = getattr(type(tree), "_fields", None)
+    if fields is not None:
+        if fields not in _CACHE_TYPES:
+            raise TypeError(f"a cache namedtuple with fields {fields}")
+        return _CACHE_TYPES[fields](*(leaf(v) for v in tree))
+    if type(tree) in (list, tuple):
+        return type(tree)(_cache_tree(v, leaf) for v in tree)
+    return leaf(tree)
+
+
+def caches_from_numpy(tree, device="cuda"):
+    """The JAX package's decode caches (``init_decode_caches``,
+    ``prefill``, ``decode_step``), as numpy arrays, as this package's on
+    ``device``: the same dicts and tuples, its ``KVCache`` and
+    ``SSMCache`` namedtuples as this package's.  (A namedtuple is a leaf
+    of :mod:`repro_torch.pytree` and a node of JAX's trees, so
+    :func:`params_from_numpy` cannot carry caches.)"""
+    device = resolve_device(device)
+    return _cache_tree(
+        tree, lambda a: torch.as_tensor(np.asarray(a)).to(device))
+
+
+def caches_to_numpy(caches):
+    """This package's decode caches as numpy arrays, in the same tree (the
+    inverse of :func:`caches_from_numpy`); the JAX package's functions
+    take them as they take their own."""
+    return _cache_tree(caches, lambda t: t.detach().cpu().numpy())
 
 
 class _ServePol:
@@ -467,27 +749,68 @@ def _serve_pols(bp: BlockPols, infer: bool) -> BlockPols:
 def _serve(params, tok, caches, cfg, rt, infer, attn, last=None):
     """One serving forward: embed ``tok``, run every layer stack through
     the serving views (:class:`_ServePol`) with ``attn(lp, h, pol, cache)
-    → (out, cache)``, then the final norm and the head at the positions
-    ``last`` keeps (all when None).  The moe family's dense stack runs
-    every one of its layers, as the JAX package's decode does.  Returns
-    (logits, new caches)."""
+    → (out, cache)`` and the Mamba2 decode step, then the final norm and
+    the head at the positions ``last`` keeps (all when None).  The moe
+    family's dense stack runs every one of its layers, as the JAX
+    package's decode does; the hybrid's Mamba2 caches stay flat
+    (``groups · attn_every`` layers); the enc-dec cross cache passes
+    through unchanged (K and V are recomputed from ``enc_out``).
+    Returns (logits, new caches)."""
     plan = _model_plan(cfg)
     x = embed_tokens(params["emb"], tok,
                      _ServePol(plan.runtime_for("emb"), infer), rt)
     new_caches = dict(caches)
-    stacks = [("layers", ("attn", "mlp"), _dense_block)]
-    if cfg.family == "moe":
-        stacks = [("dense_layers", ("attn", "mlp"), _dense_block),
-                  ("layers", ("attn", "moe"), _moe_layer_fwd)]
-    for prefix, kinds, block in stacks:
+
+    def run(x, lps, cs, prefix, kinds, block, fn):
         bp = _serve_pols(_block_pols(plan, prefix, *kinds), infer)
         out = []
-        for lp, c in zip(_unstack(params[prefix]),
-                         _layer_caches(caches[prefix])):
+        for lp, c in zip(lps, cs):
             x, c2 = block(lp, x, cfg, bp,
-                          lambda ap, h, pol, c=c: attn(ap, h, pol, c))[:2]
+                          lambda p_, h, pol, c=c: fn(p_, h, pol, c))[:2]
             out.append(c2)
+        return x, out
+
+    def mamba(mp, h, pol, c):
+        return mamba2_decode(mp, h, cfg, pol, c)
+
+    def stack(prefix, kinds, block, fn):
+        nonlocal x
+        x, out = run(x, _unstack(params[prefix]),
+                     _layer_caches(caches[prefix]), prefix, kinds, block, fn)
         new_caches[prefix] = _stack_caches(out)
+
+    fam = cfg.family
+    if fam == "moe":
+        stack("dense_layers", ("attn", "mlp"), _dense_block, attn)
+        stack("layers", ("attn", "moe"), _moe_layer_fwd, attn)
+    elif fam == "ssm":
+        stack("layers", ("mamba",), _ssm_block, mamba)
+    elif fam == "hybrid":
+        groups, k, _ = _hybrid_split(cfg)
+        lps, cs = _unstack(params["layers"]), _layer_caches(caches["layers"])
+        shared = _layer_caches(caches["shared_attn"])
+        ssm_c, kv = [], []
+        for g in range(groups):
+            x, out = run(x, lps[g * k:(g + 1) * k], cs[g * k:(g + 1) * k],
+                         "layers", ("mamba",), _ssm_block, mamba)
+            ssm_c += out
+            x, out = run(x, [params["shared_attn"]], shared[g:g + 1],
+                         "shared_attn", ("attn", "mlp"), _dense_block, attn)
+            kv += out
+        new_caches["layers"] = _stack_caches(ssm_c, caches["layers"])
+        new_caches["shared_attn"] = _stack_caches(kv, caches["shared_attn"])
+        if "tail_layers" in params:
+            stack("tail_layers", ("mamba",), _ssm_block, mamba)
+    elif fam in ("encdec", "audio"):
+        self_c, cross_c = caches["layers"]
+
+        def block(lp, h, cfg_, bp, fn):
+            return _xattn_block(lp, h, cfg_, bp, fn, caches["enc_out"])
+        x, out = run(x, _unstack(params["layers"]), _layer_caches(self_c),
+                     "layers", ("attn", "mlp", "xattn"), block, attn)
+        new_caches["layers"] = (_stack_caches([c for c, _ in out]), cross_c)
+    else:
+        stack("layers", ("attn", "mlp"), _dense_block, attn)
     if last is not None:
         x = x[:, last]
     x = apply_norm(params["final_norm"], x, cfg, fl=ORDER_FREE)
@@ -499,12 +822,13 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None):
 def decode_step(params, tok, caches, pos, cfg: ModelConfig,
                 rt: Runtime = Runtime()):
     """One token for every sequence in the batch, against the dense
-    fixed-capacity caches; matmuls through the runtimes' ``linear``.
+    fixed-capacity caches (:func:`init_decode_caches`); matmuls through
+    the runtimes' ``linear``.
 
     tok: (B, 1) int32; pos: (B,) int32 current positions.
     Returns (logits (B, 1, V), new caches).
     """
-    _check_serving(cfg, "decode_step")
+    _check_family(cfg, "decode_step")
     return _serve(params, tok, caches, cfg, rt, False,
                   lambda ap, h, pol, c: _attn_dec(ap, h, cfg, pol, c, pos))
 

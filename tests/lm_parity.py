@@ -58,9 +58,31 @@ def cfgs(arch, numerics, tnumerics=None, **kw):
 
 
 def batch(cfg, seed=0):
+    """Tokens and labels (B × S); the enc-dec families' encoder input too:
+    S frames of the audio stub's embeddings, or S ``enc_tokens``."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family in ("encdec", "audio"):
+        if cfg.frontend:
+            out["frontend_embeds"] = rng.normal(
+                size=(B, S, cfg.d_model)).astype(np.float32)
+        else:
+            out["enc_tokens"] = rng.integers(
+                0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    return out
+
+
+def grid(rng, shape, *, zero_frac=0.15, lo=-3.0, hi=1.5):
+    """Float32 values on lns16's grid (2^(code/scale) rounded once to
+    float32, which both packages encode back to the code), some zero:
+    inputs whose codes the two packages agree on (ROADMAP queue 3 item
+    2: off the grid, their float32 ``log`` may part by an ulp)."""
+    code = np.round(rng.uniform(lo, hi, size=shape) * LNS16.scale)
+    v = np.exp2(code / LNS16.scale).astype(np.float32)
+    v[rng.random(shape) < 0.5] *= -1
+    v[rng.random(shape) < zero_frac] = 0.0
+    return v
 
 
 def to_numpy(tree):
@@ -86,9 +108,27 @@ def code_diff(a, b):
 
 
 def final_hidden(mod, params, b, cfg):
-    """The head's input: the normed output of the layer stack."""
+    """The head's input: the normed output of the layer stack (of the
+    decoder, for the enc-dec families)."""
     plan = mod._model_plan(cfg)
     rt = mod.Runtime()
+    if cfg.family in ("encdec", "audio"):
+        norm = jlayers.apply_norm if mod is jmodel else tlayers.apply_norm
+        if mod is jmodel:
+            enc_in = (plan.runtime_for("frontend").linear(
+                b["frontend_embeds"], params["frontend_proj"])
+                if cfg.frontend else jlayers.embed_tokens(
+                    params["emb"], b["enc_tokens"], plan.runtime_for("emb")))
+            enc = mod._encoder(params, enc_in, cfg, rt)
+            x = jlayers.embed_tokens(params["emb"], b["tokens"],
+                                     plan.runtime_for("emb"))
+            pos = jnp.broadcast_to(jnp.arange(x.shape[1])[None],
+                                   x.shape[:2])
+            x = mod._decoder(params, x, enc, cfg, rt, pos,
+                             want_caches=False)[0]
+        else:
+            x = mod._enc_dec(params, b, cfg, plan, rt, False)[0]
+        return norm(params["final_norm"], x, cfg)
     x = mod._embed_inputs(params, b, cfg, plan, rt)
     if mod is jmodel:
         pos = jnp.broadcast_to(jnp.arange(x.shape[1])[None], x.shape[:2])
@@ -96,6 +136,20 @@ def final_hidden(mod, params, b, cfg):
             params, x, cfg, rt, pos, want_caches=False)[0], cfg)
     return tlayers.apply_norm(params["final_norm"], mod._backbone(
         params, x, cfg, rt, mod._positions(x)), cfg)
+
+
+def close(got, want, rel, what):
+    """Assert ``got`` (a tensor or array) finite and within ``rel`` × the
+    largest magnitude of ``want`` everywhere; prints the gap."""
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.isfinite(got).all(), what
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    print(f"  {what}: max |diff| {err:.3g} of max |ref| {scale:.3g}")
+    assert err <= rel * max(scale, 1e-30), (what, err, scale)
 
 
 def rel_l2(got, want):
@@ -113,15 +167,20 @@ def rel_l2(got, want):
     return float(np.sqrt(num / den)), max(per_leaf)
 
 
-def check_loss_and_grads(arch, mode):
+def check_loss_and_grads(arch, mode, nums=None, loss_rtol=None,
+                         grad_rtol=None, **kw):
     """``loss_fn`` and its gradients from the reference's parameters: the
     loss within ``LOSS_RTOL[mode]``, fp32's gradients within 1e-5 × each
     leaf's largest magnitude, the LNS modes' within ``GRAD_RTOL[mode]``
     in relative L2 over the whole tree; prints the gaps and, for the LNS
     modes, how many codes of the head's input and of the gradients
-    differ."""
-    jnum, tnum = NUMERICS[mode]
-    jcfg, tcfg = cfgs(arch, jnum, tnum)
+    differ.  ``nums``: (the reference's numerics, the port's) in place of
+    ``NUMERICS[mode]`` (a per-layer plan held at ``mode``'s tier);
+    ``loss_rtol`` / ``grad_rtol``: a family's own bounds in place of the
+    tier's; ``kw``: config overrides.  Returns the port's gradients by
+    leaf path."""
+    jnum, tnum = nums or NUMERICS[mode]
+    jcfg, tcfg = cfgs(arch, jnum, tnum, **kw)
     jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
     b = batch(jcfg, seed=len(arch))
     jb = jax.tree.map(jnp.asarray, b)
@@ -160,25 +219,27 @@ def check_loss_and_grads(arch, mode):
             print(f"  grad {path}: {n} of {g.numel()} codes differ "
                   f"(max {m})")
     assert np.isfinite(loss)
-    assert rel <= LOSS_RTOL[mode]
+    assert rel <= (loss_rtol or LOSS_RTOL[mode])
     if mode == "fp32":
         assert max(worst.values()) <= 1e-5, worst
     if mode in GRAD_RTOL:
-        assert grel <= GRAD_RTOL[mode]
+        assert grel <= (grad_rtol or GRAD_RTOL[mode])
+    return dict(zip(paths, grads))
 
 
-def run(arch, jnum, tnum, opt, forced=False):
+def run(arch, jnum, tnum, opt, forced=False, seed=0):
     """``(ref_losses, port_losses, ref_states, port_states)``: the losses
     of each of ``STEPS`` steps, the reference's state before and after
     each step, and the port's after each step.  ``forced``: each port step
     starts from the reference's state before it (teacher forcing), so that
-    every step is held from the same parameters and optimizer state."""
+    every step is held from the same parameters and optimizer state.
+    ``seed``: of the reference's parameters and of the data."""
     jcfg, tcfg = cfgs(arch, jnum, tnum)
     jo, to = OPTS[opt]
     jtc = JTrainConfig(microbatches=2, grad_clip=1.0)
     tc = TrainConfig(microbatches=2, grad_clip=1.0)
-    ds = JDataset(jcfg, JCell("t", S, B, "train"), JDataConfig(seed=0))
-    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    ds = JDataset(jcfg, JCell("t", S, B, "train"), JDataConfig(seed=seed))
+    jp = jmodel.init_params(jax.random.PRNGKey(seed), jcfg)
     jstep = jax.jit(jmake_step(jcfg, jo, tc=jtc))
     jstate = jinit_state(jp, jo, jtc)
     tstate = init_train_state(tmodel.params_from_numpy(to_numpy(jp), "cpu"),

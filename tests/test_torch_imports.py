@@ -47,7 +47,7 @@ def test_sources_found():
     "repro_torch.kernels.lns_boxsum", "repro_torch.kernels.lns_matmul",
     "repro_torch.obs", "repro_torch.resil", "repro_torch.launch.drill",
     "repro_torch.launch.train", "repro_torch.core.qat",
-    "repro_torch.core.numerics", "repro_torch.nn.moe",
+    "repro_torch.core.numerics", "repro_torch.nn.moe", "repro_torch.nn.ssm",
     "repro_torch.nn.paged", "repro_torch.serve",
     "repro_torch.serve.engine", "repro_torch.serve.queue",
     "repro_torch.serve.paged_cache", "repro_torch.launch.serve"])

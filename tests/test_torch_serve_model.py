@@ -178,11 +178,15 @@ def test_linear_infer_matches_linear_forward(spec):
 
 
 def test_paged_families_and_refusals():
-    """The paged families are the reference's; an unpaged family is
-    refused as the reference refuses it."""
+    """The paged families are the reference's; an unpaged family (the
+    real reduced mamba2-370m) is refused as the reference refuses it, and
+    its dense decode caches are the reference's shapes."""
     assert tmodel.PAGED_FAMILIES == jmodel.PAGED_FAMILIES
-    ssm = cfgs("olmo-1b", "fp32")[1].with_(family="ssm", attn_kind="none")
-    with pytest.raises(ValueError, match="no paged KV cache"):
-        tmodel.init_paged_caches(ssm, 4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmodel.init_decode_caches(ssm, 1, 4, device="cpu")
+    jssm, ssm = cfgs("mamba2-370m", "fp32")
+    for fn in (tmodel.init_paged_caches, jmodel.init_paged_caches):
+        with pytest.raises(ValueError, match="no paged KV cache"):
+            fn(jssm if fn is jmodel.init_paged_caches else ssm, 4, 4)
+    caches = tmodel.init_decode_caches(ssm, 1, 4, device="cpu")
+    want = jmodel.init_decode_caches(jssm, 1, 4)
+    assert caches["layers"].conv.shape == want["layers"].conv.shape
+    assert caches["layers"].state.shape == want["layers"].state.shape

@@ -461,6 +461,44 @@ def test_checkpoints_cross_load_with_reference(tmp_path):
                     allow_numerics_mismatch=True)
 
 
+@pytest.mark.parametrize("arch", ["zamba2-7b", "seamless-m4t-medium"])
+def test_family_checkpoints_cross_load_and_continue(arch, tmp_path):
+    """The hybrid's and the audio model's train states cross the package
+    boundary through checkpoints: the port reads the reference's bit for
+    bit and takes the next step as the reference does (fp32, loss within
+    rtol 1e-5); the reference reads the port's stepped state bit for bit
+    and both take one more step alike."""
+    jcfg = jconfigs.reduced(jconfigs.get_config(arch)).with_(
+        numerics="fp32", remat="none")
+    cfg = reduced(get_config(arch)).with_(numerics="fp32", remat="none")
+    jst = jinit_state(jinit(jax.random.PRNGKey(0), jcfg),
+                      jopt.AdamWConfig())
+    jdir, tdir = str(tmp_path / "j"), str(tmp_path / "t")
+    jckpt.save_checkpoint(jdir, 1, jst, numerics="fp32")
+    template = init_train_state(init_params(1, cfg, device="cpu"),
+                                AdamWConfig())
+    tst = load_checkpoint(jdir, 1, template, numerics="fp32")
+    for a, b in zip(jax.tree.leaves(jst), tree_leaves(tst)):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    ds = JDataset(jcfg, JCell("t", 16, 2, "train"), JDataConfig(seed=0))
+    jstep = jax.jit(jmake_step(jcfg, jopt.AdamWConfig()))
+    tstep = make_train_step(cfg, AdamWConfig())
+    losses = []
+    for i in range(2):
+        b = ds.batch_at(i)
+        jst, jm = jstep(jst, jax.tree.map(jnp.asarray, b))
+        tst, tm = tstep(tst, {k: torch.from_numpy(v) for k, v in b.items()})
+        losses.append((float(tm["loss"]), float(jm["loss"])))
+        if i == 0:
+            save_checkpoint(tdir, 2, tst, numerics="fp32")
+            jst = jckpt.load_checkpoint(tdir, 2, jax.eval_shape(lambda: jst),
+                                        numerics="fp32")
+            for a, b in zip(jax.tree.leaves(jst), tree_leaves(tst)):
+                np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    for got, want in losses:
+        assert abs(got - want) <= 1e-5 * abs(want), losses
+
+
 # ---------------------------------------------------------------- CLI ----
 def test_train_resume_drill(tmp_path, capsys):
     """Train 6 steps (checkpoint every 3), "crash", relaunch to 10: the
