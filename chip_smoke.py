@@ -113,6 +113,22 @@ the result line:
    decode step beside row 5's card ms; (e) ``python -m
    repro_torch.launch.train --arch zamba2-7b`` with checkpoints,
    relaunched to resume at step 4.
+12. the plan search and the block autotuner: (a) the tiled ⊞-MAC at 1, 2
+   and 8 rows a block (phases 3 and 9-11 hold 4) bit for bit against the
+   plain version, with and without the forward epilogue, for the lut,
+   bitshift and exact Δ kinds in lns16 and lns12, at CT ∈ {13, 45, 784},
+   R ∈ {1, 4, 5, 16, 37}, C ∈ {1, 33, 100}, and at a 9c forward shape and
+   the 10d decode head over 40 steps; (b) the tuner, its cache in a
+   temporary directory: each rows per block of the MLP's products, the
+   predict forward, the 10d decode head and a 9c forward timed by CUDA
+   events beside its bound, the choice persisted and served again from
+   the cache, a corrupt cache quarantined, short-form and ⊞-reduce
+   lookups writing nothing; (c) the fused MLP's 20 steps under
+   ``blocks=auto`` and ``blocks=1x32x32`` and a reduced olmo-1b step
+   under ``blocks=auto`` giving the default's codes and launches; (d)
+   ``python -m repro_torch.launch.search --smoke --selfcheck-resume``'s
+   ``main`` on the card, its JSON equal to the same search on the CPU
+   lane in a worker process, then ``--measure --max-evals 3``.
 
 Phase 3 also holds the tiled ⊞-MAC past 65535 row tiles (262 149 rows).
 
@@ -122,6 +138,7 @@ on one card; needs no network.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -2560,6 +2577,419 @@ def phase11_runs(torch, device, card, t0):
     return launches, rows, q, step_ms
 
 
+# ------------------------------------------------------------ phase 12 --
+
+#: 12a: the tiled form's rows per block held besides phase 3's 4, and the
+#: shapes.  12b: the shapes the tuner times, as autotune's (op, (R, C,
+#: CT)): the MLP forward at predict's batch of 500, the 10d decode head
+#: (row 1 at 4 rows over d_model 2048 into the 102 400-entry vocabulary)
+#: and one 9c forward (olmo-1b's up-projection over 256 tokens); the MLP's
+#: three products of each layer at batch 5 are primed on top.
+ROWS_ALT = (1, 2, 8)
+ROWS_CT, ROWS_R, ROWS_C = (13, 45, 784), (1, 4, 5, 16, 37), (1, 33, 100)
+ROWS_LM = (("lns_matmul", 256, 8192, 2048),
+           ("lns_matmul_fused", 4, 102400, 2048))
+TUNE_SHAPES = (("fwd", (500, 100, 784)), ("fwd", (500, 10, 100)),
+               ("fwd", (4, 102400, 2048)), ("fwd", (256, 8192, 2048)))
+#: 12d: the search's files, and how long its CPU-lane twin may take.
+SEARCH_FILES = ("--journal", "journal.jsonl", "--out", "search.json",
+                "--report", "report.md", "--winner-out", "winner.txt")
+SEARCH_CPU_TIMEOUT = 900
+
+
+def tiled_rows(torch, device):
+    """12a: the tiled ⊞-MAC at 1, 2 and 8 rows a block, bit for bit against
+    the plain version: the forward with no epilogue and with the hidden
+    layer's (bias, llReLU, requantize, z sign), for the lut, bitshift and
+    exact Δ kinds, lns16 and lns12, at every (CT, R, C) of ``ROWS_CT`` ×
+    ``ROWS_R`` × ``ROWS_C``, against the CPU lane's plain version of the
+    same operands in :func:`plain_pool`'s workers (the two lanes are
+    bit-exact, phase 3), once a case; then ``ROWS_LM``'s shapes, every
+    output over a contraction cut to ``SHORT_CT`` steps, against the plain
+    version on the card.  Returns ({row: max |diff|}, cases)."""
+    from repro_torch.core import (DELTA_BITSHIFT, DELTA_DEFAULT, DELTA_EXACT,
+                                  LNS12, LNS16, LNSArray, beta_code)
+    from repro_torch.kernels import lns_matmul as K
+    worst = {"lns_matmul": 0, "lns_matmul_fused": 0}
+    cases = 0
+
+    def hold(row, got, want, label):
+        nonlocal cases
+        for rows, planes in got.items():
+            err = max(int((g.long() - w.long()).abs().max())
+                      for g, w in zip(planes, want))
+            worst[row] = max(worst[row], err)
+            if len(planes) != len(want) or err:
+                raise AssertionError(f"12a {row} {label} at {rows} rows a "
+                                     f"block: max |diff| {err}")
+            cases += 1
+
+    rk = torch.Generator().manual_seed(SEED + 12)
+    pending = []
+    with plain_pool() as pool:
+        for spec in (DELTA_DEFAULT, DELTA_BITSHIFT, DELTA_EXACT):
+            for fmt, other in ((LNS16, LNS12), (LNS12, LNS16)):
+                kw = dict(fmt=fmt, spec=spec)
+                ep = K.FwdEpilogue(bias=True,
+                                   llrelu_beta=beta_code(0.01, fmt),
+                                   dst_fmt=other, emit_z_sign=True)
+                for ct in ROWS_CT:
+                    for r in ROWS_R:
+                        for c in ROWS_C:
+                            host = fwd_case(torch, rk, r, ct, c, fmt, "cpu")
+                            x, w, b = (t.to(device) for t in host)
+                            planes = (x.code, x.sign, w.code, w.sign)
+                            bk = dict(bias_code=b.code, bias_sign=b.sign)
+                            # Private copies: the pool's feeder thread moves
+                            # what it sends into shared memory later.
+                            hx, hw, hb = (LNSArray(t.code.clone(),
+                                                   t.sign.clone())
+                                          for t in host)
+                            hplanes = (hx.code, hx.sign, hw.code, hw.sign)
+                            fwd = dict(a_contract_axis=1, b_contract_axis=0,
+                                       **kw)
+                            for row, call, pk in (
+                                    ("lns_matmul", lambda n: K.lns_matmul(
+                                        *planes, block_rows=n, **kw), fwd),
+                                    ("lns_matmul_fused",
+                                     lambda n: K.lns_matmul_fused(
+                                         *planes, epilogue=ep, block_rows=n,
+                                         **bk, **kw),
+                                     dict(fwd, fwd_epilogue=ep,
+                                          bias_code=hb.code,
+                                          bias_sign=hb.sign))):
+                                got = {n: [t.cpu() for t in call(n)]
+                                       for n in ROWS_ALT}
+                                pending.append((
+                                    row, got, pool.submit(
+                                        _plain_run, *hplanes, pk),
+                                    f"{spec.kind}/{fmt.name}/CT{ct}/R{r}"
+                                    f"/C{c}"))
+        kw = dict(fmt=LNS16, spec=DELTA_DEFAULT)
+        for row, r, c, ct in ROWS_LM:
+            a, b = lm_operands(torch, device, "lns_matmul", r, c, SHORT_CT)
+            planes = (a.code, a.sign, b.code, b.sign)
+            ep = dict(epilogue=K.FwdEpilogue()) \
+                if row == "lns_matmul_fused" else {}
+            hold(row, {n: getattr(K, row)(*planes, block_rows=n, **ep, **kw)
+                       for n in ROWS_ALT},
+                 K.mac_plain(*planes, a_contract_axis=1, b_contract_axis=0,
+                             **kw), f"({r} x {c}) over {SHORT_CT} of {ct}")
+            del a, b, planes
+        torch.cuda.synchronize()
+        for row, got, future, label in pending:
+            hold(row, got, future.result(), label)
+    return worst, cases
+
+
+@contextlib.contextmanager
+def tuner_cache():
+    """The autotuner's cache in a temporary directory for the block
+    (``LNS_AUTOTUNE_DIR``), its in-memory caches emptied on entry and
+    exit."""
+    import os
+    from repro_torch.kernels import autotune
+    old = os.environ.get("LNS_AUTOTUNE_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["LNS_AUTOTUNE_DIR"] = tmp
+        autotune.clear_caches()
+        try:
+            yield
+        finally:
+            autotune.clear_caches()
+            if old is None:
+                os.environ.pop("LNS_AUTOTUNE_DIR", None)
+            else:
+                os.environ["LNS_AUTOTUNE_DIR"] = old
+
+
+def mac_bound(r, c, ct):
+    """The bound of one forward ⊞-MAC launch at (R, C, CT), as phase 6
+    reckons rows 1 and 5: (bytes, int32 operations, ms, by)."""
+    nbytes = 5 * (r * ct + ct * c + r * c)
+    ops = r * c * ct * OPS_PER_MAC
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return nbytes, ops, max(t_b, t_o) * 1e3, \
+        "bytes" if t_b > t_o else "operations"
+
+
+def tuner_on_card(torch, card):
+    """12b: the autotuner on the card, its cache in a temporary directory:
+    each tiled candidate of ``TUNE_SHAPES`` and of the MLP's products
+    (``prime_matmul`` at batch 5) timed by CUDA events and printed beside
+    its bound; a second lookup served from the cache; a corrupt cache
+    quarantined; short-form and ⊞-reduce lookups writing nothing.  Returns
+    {row: {"op RxCxCT": {rows: ms, ..., bound_ms, chosen}}}."""
+    import os
+    import warnings
+    from repro_torch.core import DELTA_DEFAULT, LNS16
+    from repro_torch.kernels import autotune, build
+    lib = build.load_library()
+    if (lib.lns_short_steps(), lib.lns_max_table()) != (
+            autotune.SHORT_STEPS, autotune.MAX_TABLE):
+        raise AssertionError("12b: the tuner's copies of kShortSteps / "
+                             "kMaxTab disagree with the library")
+    kw = dict(fmt=LNS16, spec=DELTA_DEFAULT)
+    rows_of = {"fwd": "lns_matmul", "dx": "lns_matmul_dx",
+               "dw": "lns_matmul_dw"}
+    table, timed = {}, {}
+
+    def measure(op, shape, blocks):
+        ms = autotune._measure_ms(autotune._bench_launcher(
+            op, shape, blocks, LNS16, DELTA_DEFAULT, False), reps=5)
+        timed[op, shape, blocks] = ms
+        return ms
+
+    def record(op, shape, chosen):
+        r, c, ct = shape
+        _, _, bound, by = mac_bound(r, c, ct)
+        ms = {str(b[0]): timed[op, shape, b]
+              for b in autotune.candidate_blocks(op, shape)}
+        table.setdefault(rows_of[op], {})[f"{op} {r}x{c}x{ct}"] = dict(
+            ms, bound_ms=bound, bound_by=by, chosen=chosen[0])
+        log("12b tuner", f"{op} ({r}, {c}, {ct}): "
+            + ", ".join(f"{w} rows {t:.5f} ms" for w, t in ms.items())
+            + f"; bound {bound:.5f} ms by {by}; chose {chosen[0]} rows "
+            f"on {card}")
+
+    with tuner_cache():
+        for m, k, n in ((BATCH, 784, 100), (BATCH, 100, 10)):
+            got = autotune.prime_matmul(m, k, n, **kw, measure=True,
+                                        measure_fn=measure)
+            for op, shape in (("fwd", (m, n, k)), ("dx", (m, k, n)),
+                              ("dw", (k, n, m))):
+                if autotune.tiled(op, shape):
+                    record(op, shape, got[op])
+                elif got[op] != autotune.fixed_geometry(op, shape):
+                    raise AssertionError(f"12b {op} {shape}: {got[op]}")
+        for op, shape in TUNE_SHAPES:
+            record(op, shape, autotune.lookup(op, shape, **kw,
+                                              measure=True,
+                                              measure_fn=measure))
+        n_entries = len(autotune._load_disk())
+
+        def refuse(*a):
+            raise AssertionError("12b: a cached lookup measured again")
+        autotune.clear_caches()
+        for op, shape in TUNE_SHAPES:
+            want = table["lns_matmul"][
+                f"{op} {'x'.join(map(str, shape))}"]["chosen"]
+            if autotune.lookup(op, shape, **kw, measure=True,
+                               measure_fn=refuse)[0] != want:
+                raise AssertionError(f"12b {op} {shape}: the cache "
+                                     f"gave another choice")
+        for op, shape in (("dw", (784, 100, BATCH)),
+                          ("dx", (BATCH, 100, 10)),
+                          ("dw_partials", (784, 100, 1)),
+                          ("boxsum", (78400, 1, 5))):
+            got = autotune.lookup(op, shape, **kw, measure=True,
+                                  measure_fn=refuse)
+            if got != autotune.fixed_geometry(op, shape):
+                raise AssertionError(f"12b {op} {shape}: {got}")
+        if len(autotune._load_disk()) != n_entries:
+            raise AssertionError("12b: a fixed-geometry lookup wrote a "
+                                 "cache entry")
+        path = autotune.cache_path()
+        with open(path, "w") as f:
+            f.write('{"env": ')
+        autotune.clear_caches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            autotune.lookup("fwd", (BATCH, 100, 784), **kw,
+                            measure=True, measure_fn=lambda *a: 1.0)
+        if not (os.path.exists(path + ".corrupt")
+                and any("quarantined" in str(w.message)
+                        for w in caught)):
+            raise AssertionError("12b: the corrupt cache was not "
+                                 "quarantined")
+        log("12b tuner", f"{n_entries} entries persisted (every tiled "
+            f"shape, no fixed-geometry op); the second lookups served "
+            f"from the cache; a torn cache file quarantined")
+    return table
+
+
+def tiles_change_nothing(torch, device):
+    """12c: the fused MLP's 20 steps and evaluation under ``blocks=auto``
+    (the tuner's cache filled by a first, uncounted run) and
+    ``blocks=1x32x32`` give the default's codes and accuracies and its
+    launches (counters set to 0 before each counted run, read after); one
+    reduced olmo-1b step under ``blocks=auto`` gives the default's loss and
+    state bit for bit.  Returns {row: launches of the counted runs}."""
+    from repro_torch.kernels import (KERNEL_WRAPPERS, autotune,
+                                     launch_counts, reset_launch_counts)
+    from repro_torch.paper import datasets, run_experiment
+    from repro_torch.pytree import tree_leaves
+    common = dict(epochs=1, max_steps_per_epoch=STEPS, batch_size=BATCH,
+                  seed=SEED, device="cuda")
+    x, _, xt, _, _ = datasets.load("mnist", "data", SEED)
+    pbatches = math.ceil(len(x) // 6 / PREDICT_BATCH) + math.ceil(
+        len(xt) / PREDICT_BATCH)
+    want = dict(dict.fromkeys(KERNEL_WRAPPERS, 0),
+                **path_launches(pbatches)["fused"][1])
+    launches = dict.fromkeys(KERNEL_WRAPPERS, 0)
+    with tuner_cache():
+        base = run_experiment("lns", "mnist",
+                              numerics="lns16-train-pallas", **common)
+        for spec in ("lns16-train-pallas,blocks=auto",
+                     "lns16-train-pallas,blocks=1x32x32"):
+            if spec.endswith("auto"):
+                run_experiment("lns", "mnist", numerics=spec, **common)
+            reset_launch_counts()
+            run = run_experiment("lns", "mnist", numerics=spec,
+                                 **common)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if counts != want:
+                raise AssertionError(f"12c {spec}: launches {counts}, "
+                                     f"expected {want}")
+            for k, v in counts.items():
+                launches[k] += v
+            for k, (c, s) in run.params.items():
+                bc, bs = base.params[k]
+                if not ((c == bc).all() and (s == bs).all()):
+                    raise AssertionError(f"12c {spec}: {k} differs "
+                                         f"from the default's")
+            if (run.val_curve, run.test_acc) != (base.val_curve,
+                                                 base.test_acc):
+                raise AssertionError(f"12c {spec}: accuracy differs")
+            log("12c tiles", f"{spec}: {STEPS} fused steps + evaluate "
+                f"on the card, codes and accuracy equal to the "
+                f"default's; launches {counts}")
+        outs = {}
+        for spec in ("lns16-train-pallas",
+                     "lns16-train-pallas,blocks=auto"):
+            if spec.endswith("auto"):
+                lm_train(torch, "olmo-1b", spec, device, steps=1)
+            losses, counts, _, (state, _, _) = lm_train(
+                torch, "olmo-1b", spec, device, steps=1)
+            outs[spec] = (losses, counts, tree_leaves(state))
+        (l0, c0, s0), (l1, c1, s1) = outs.values()
+        same = [torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b for a, b in zip(s0, s1)]
+        if l0 != l1 or c0 != c1 or len(s0) != len(s1) or not all(same):
+            raise AssertionError("12c: olmo-1b under blocks=auto "
+                                 "differs from the default")
+        for k, v in c1.items():
+            launches[k] += v
+        log("12c tiles", f"reduced olmo-1b, one step under blocks=auto: "
+            f"loss {l1[0]} and every state tensor equal to the "
+            f"default's; launches {c1}; "
+            f"{len(autotune._load_disk())} shapes tuned")
+    return launches
+
+
+def start_cpu_search(tmp):
+    """12d's CPU-lane twin: the same search in a worker process (the
+    plain versions), started early so that it runs beside the card's
+    work; returns the process, its directory and its log."""
+    import os
+    cwd = Path(tmp) / "cpu"
+    cwd.mkdir()
+    out = open(cwd / "log.txt", "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="4")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.search", "--smoke",
+         "--selfcheck-resume", "--device", "cpu", "--data-dir",
+         str(ROOT / "data"), *SEARCH_FILES], cwd=cwd, env=env, stdout=out,
+        stderr=subprocess.STDOUT)
+    return proc, cwd, out
+
+
+def search_on_card(torch, tmp, cpu_run):
+    """12d: ``python -m repro_torch.launch.search --smoke
+    --selfcheck-resume --device cuda`` (its ``main``, in this process, so
+    that the launch counters see it; counters set to 0 just before, read
+    just after), its JSON equal to the CPU-lane twin's; then ``--measure
+    --max-evals 3``.  Returns {row: launches of the smoke search}."""
+    import os
+    import repro_torch.launch.search as cli
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    card_dir = Path(tmp) / "card"
+    card_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(card_dir)
+    try:
+        reset_launch_counts()
+        t0 = time.time()
+        try:
+            result = cli.main(["--smoke", "--selfcheck-resume", "--device",
+                               "cuda", "--data-dir", str(ROOT / "data"),
+                               *SEARCH_FILES])
+        except SystemExit as e:
+            if e.code not in (None, 0):
+                raise AssertionError(f"12d: the search exited {e.code}")
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        for row in ("lns_matmul_fused", "lns_matmul_dx",
+                    "lns_matmul_dw_update", "lns_fused_update"):
+            if not counts.get(row):
+                raise AssertionError(f"12d: the search launched no {row}")
+        log("12d search", f"--smoke --selfcheck-resume on the card: "
+            f"{len(result.evals)} evaluations, exit 0 in {card_s:.1f} s; "
+            f"winner {result.winner and result.winner['plan']!r}; launches "
+            f"{counts}")
+        measured = cli.main(["--measure", "--max-evals", "3",
+                             "--device", "cuda", "--data-dir",
+                             str(ROOT / "data"), "--journal",
+                             "measure.jsonl", "--out", "measure.json",
+                             "--report", "measure.md", "--winner-out",
+                             "measure.txt"])
+        for row in measured.evals:
+            log("12d search", f"--measure: {row['plan']}: "
+                f"{row.get('ms_per_step', float('nan')):.4f} ms per train "
+                f"step (the tuner's timer: CUDA events behind a spin, best "
+                f"of 3), acc {row['acc']:.4f}")
+    finally:
+        os.chdir(cwd)
+    proc, cpu_dir, out = cpu_run
+    try:
+        rc = proc.wait(timeout=SEARCH_CPU_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    if rc != 0:
+        raise AssertionError(f"12d: the CPU-lane search exited {rc}:\n"
+                             + (cpu_dir / "log.txt").read_text()[-3000:])
+    card_json = json.loads((card_dir / "search.json").read_text())
+    cpu_json = json.loads((cpu_dir / "search.json").read_text())
+    if card_json != cpu_json:
+        raise AssertionError("12d: the card's search JSON differs from the "
+                             "CPU lane's")
+    log("12d search", f"the card's JSON ({len(card_json['rows'])} rows: "
+        f"acc, cost, frontier, winner) equal to the CPU lane's "
+        f"(worker process)")
+    return counts
+
+
+def phase12(torch, device, card):
+    """Phase 12; returns ({row: max |diff|}, {row: rows-per-block timing
+    table}, {row: launches of 12c and 12d's counted runs})."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_run = start_cpu_search(tmp)
+        try:
+            worst, cases = tiled_rows(torch, device)
+            log("12a rows per block", f"{cases} cases bit-exact at "
+                f"{ROWS_ALT} rows a block in {time.time() - t0:.1f} s")
+            table = tuner_on_card(torch, card)
+            log("12b tuner", f"in {time.time() - t0:.1f} s")
+            launches = tiles_change_nothing(torch, device)
+            log("12c tiles", f"in {time.time() - t0:.1f} s")
+            for k, v in search_on_card(torch, tmp, cpu_run).items():
+                launches[k] += v
+        finally:
+            proc = cpu_run[0]
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            cpu_run[2].close()
+    log("12", f"phase 12 in {time.time() - t0:.1f} s")
+    return worst, table, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2769,6 +3199,19 @@ def main() -> int:
         "(mamba2-370m, zamba2-7b, seamless-m4t-medium); family_decode is "
         "row 5 per decode_step of full-width mamba2-370m (11d); launches "
         "include phase 11's card runs")
+    rpb_worst, rpb_table, rpb_launches = phase12(torch, device, card)
+    for k in kernels:
+        row = k["name"]
+        k["max_abs_err"] = max(k["max_abs_err"], rpb_worst.get(row, 0))
+        k["launches"] += rpb_launches.get(row, 0)
+        if row in rpb_table:
+            k["rows_per_block_ms"] = rpb_table[row]
+    log("12", "JSON rows_per_block_ms: the tiled form's card ms (device "
+        "time by CUDA events behind a spin, best of 5) at 1, 2, 4 and 8 "
+        "rows a block per tuned shape "
+        "(12b; lns_matmul holds the forward shapes, which the tuner times "
+        "through the unfused launch), its bound and the tuner's choice; "
+        "launches include 12c's and 12d's counted runs")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -144,15 +144,71 @@ class LNSMatmulBackend:
     products tap their outputs' code health (``epi_fwd``,
     ``epi_dw_update``, ``epi_update``): reads of a kernel's output after
     its launch, the same labels on both lanes.
+
+    ``blocks`` is the spec's tiling axis, which sets the one launch
+    parameter the kernels read: the tiled ⊞-MAC's output rows per block
+    (:meth:`_op_blocks`).  ``"default"`` keeps 4; ``"auto"`` asks the
+    autotuner (``kernels/autotune.py``) per op and shape; an explicit
+    ``"MxNxK"`` takes the largest of 1, 2, 4, 8 rows that is at most M.
+    ``block_m`` / ``block_n`` / ``block_k`` are the JAX package's Pallas
+    tiles, kept so that its calls carry across; they route nothing.  No
+    choice changes a result: every output is one thread walking its
+    contraction in ascending order.
     """
 
     fmt: LNSFormat
     spec: Any  # DeltaSpec
+    block_m: int = 128
+    block_n: int = 128
+    block_k: int = 128
+    blocks: str = "default"   # "default", "auto" or "<M>x<N>x<K>"
+
+    def __post_init__(self):
+        if self.blocks not in ("default", "auto"):
+            from .spec import parse_blocks  # spec.py imports this module
+            parse_blocks(self.blocks)
+
+    def _op_blocks(self, op: str, r: int, c: int, ct: int,
+                   device="cuda"):
+        """The launch geometry ``(rows, cols, steps)`` of one ⊞-MAC
+        launch of ``op`` at ``(R, C, CT)`` on ``device``'s lane
+        (``autotune.OPS``' shape convention).
+
+        ``blocks="auto"`` looks it up in the autotuner (measured entries
+        on the card, the default geometry on the CPU lane, whose plain
+        version reads no launch parameter); otherwise the rows per block
+        are 4 (``"default"``) or the explicit M's.  Where the short form
+        runs, every mode gives its one fixed geometry.
+        """
+        from ..kernels import autotune
+        shape = (r, c, ct)
+        if self.blocks == "auto":
+            return autotune.lookup(
+                op, shape, fmt=self.fmt, spec=self.spec,
+                interpret=torch.device(device).type != "cuda")
+        if self.blocks == "default":
+            rows = autotune.DEFAULT_ROWS
+        else:
+            from .spec import parse_blocks
+            rows = autotune.rows_for(parse_blocks(self.blocks)[0])
+        return autotune.geometry(op, shape, rows)
+
+    def _rows(self, op: str, a: LNSArray, r: int, c: int, ct: int) -> int:
+        """``block_rows`` of the launch of ``op`` at ``(R, C, CT)`` whose
+        first operand is ``a``: :meth:`_op_blocks`' rows where the tiled
+        form runs, else the default, which the short form does not
+        read."""
+        from ..kernels import autotune
+        if not autotune.tiled(op, (r, c, ct)):
+            return autotune.DEFAULT_ROWS
+        return self._op_blocks(op, r, c, ct, a.device)[0]
 
     def matmul(self, x: LNSArray, w: LNSArray) -> LNSArray:
         """Forward (M, K) ⊞-MAC (K, N) → (M, N), sequential over K."""
         from ..kernels.lns_matmul import lns_matmul_kernel
-        return lns_matmul_kernel(x, w, fmt=self.fmt, spec=self.spec)
+        rows = self._rows("fwd", x, x.shape[0], w.shape[1], x.shape[1])
+        return lns_matmul_kernel(x, w, fmt=self.fmt, spec=self.spec,
+                                 block_rows=rows)
 
     def affine(self, x: LNSArray, w: LNSArray, b: LNSArray) -> LNSArray:
         """z = x·W ⊞ b: the forward product, then the bias in its own
@@ -164,7 +220,9 @@ class LNSMatmulBackend:
     def matmul_dw(self, x: LNSArray, dy: LNSArray) -> LNSArray:
         """Backward dW = Xᵀ (K, M) ⊞-MAC dY (M, N), sequential over M."""
         from ..kernels.lns_matmul import lns_matmul_dw_kernel
-        return lns_matmul_dw_kernel(x, dy, fmt=self.fmt, spec=self.spec)
+        rows = self._rows("dw", x, x.shape[1], dy.shape[1], x.shape[0])
+        return lns_matmul_dw_kernel(x, dy, fmt=self.fmt, spec=self.spec,
+                                    block_rows=rows)
 
     def matmul_dw_partials(self, x: LNSArray, dy: LNSArray,
                            num_segments: int) -> LNSArray:
@@ -173,8 +231,11 @@ class LNSMatmulBackend:
         the batch.  ⊞-combining the slots in order on a fixed schedule
         gives the same codes whichever rank computed which slot."""
         from ..kernels.lns_matmul import lns_matmul_dw_partials_kernel
+        rows = self._rows("dw_partials", x, x.shape[1], dy.shape[1],
+                          x.shape[0] // max(num_segments, 1))
         return lns_matmul_dw_partials_kernel(
-            x, dy, num_segments=num_segments, fmt=self.fmt, spec=self.spec)
+            x, dy, num_segments=num_segments, fmt=self.fmt, spec=self.spec,
+            block_rows=rows)
 
     def matmul_fused(self, x: LNSArray, w: LNSArray, *,
                      bias: "LNSArray | None" = None,
@@ -193,10 +254,12 @@ class LNSMatmulBackend:
             out_fmt = None
         ep = FwdEpilogue(bias=bias is not None, llrelu_beta=llrelu_beta,
                          dst_fmt=out_fmt, emit_z_sign=emit_z_sign)
+        rows = self._rows("fwd", x, x.shape[0], w.shape[1], x.shape[1])
         # The product taps nothing inside: only the epi_fwd tap below.
         with _obs.suspended():
             out = lns_matmul_fused_kernel(x, w, epilogue=ep, bias=bias,
-                                          fmt=self.fmt, spec=self.spec)
+                                          fmt=self.fmt, spec=self.spec,
+                                          block_rows=rows)
         if _obs.scope_active():
             _obs.observe_codes(out[0] if emit_z_sign else out,
                                out_fmt if out_fmt is not None else self.fmt,
@@ -206,15 +269,19 @@ class LNSMatmulBackend:
     def matmul_dx(self, dy: LNSArray, w: LNSArray) -> LNSArray:
         """Backward dX = dY (M, N) ⊞-MAC Wᵀ (N, K), sequential over N."""
         from ..kernels.lns_matmul import lns_matmul_dx_kernel
-        return lns_matmul_dx_kernel(dy, w, fmt=self.fmt, spec=self.spec)
+        rows = self._rows("dx", dy, dy.shape[0], w.shape[0], dy.shape[1])
+        return lns_matmul_dx_kernel(dy, w, fmt=self.fmt, spec=self.spec,
+                                    block_rows=rows)
 
     def matmul_dw_update(self, x: LNSArray, dy: LNSArray, w: LNSArray,
                          m: "LNSArray | None", epilogue):
         """Backward-weight ⊞-MAC with the ⊞-SGD update fused at flush.
         Returns ``(w_new, m_new)`` (``m_new is None`` without momentum)."""
         from ..kernels.lns_matmul import lns_matmul_dw_update_kernel
+        rows = self._rows("dw", x, x.shape[1], dy.shape[1], x.shape[0])
         out = lns_matmul_dw_update_kernel(x, dy, w=w, m=m, epilogue=epilogue,
-                                          fmt=self.fmt, spec=self.spec)
+                                          fmt=self.fmt, spec=self.spec,
+                                          block_rows=rows)
         if _obs.scope_active():
             _obs.observe_codes(out[0], self.fmt, op="epi_dw_update")
         return out

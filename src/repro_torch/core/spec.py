@@ -13,16 +13,17 @@ canonical text as the JAX package does.
 ``linear`` dispatch each weight product to the ⊞-MAC path the spec names,
 with the shared ⊞-MAC backend and Δ engine.
 
-Three keys are parsed, validated and printed so that reference strings
-load unchanged, but route no lane here:
+Two keys are parsed, validated and printed so that reference strings
+load unchanged, but route no lane here: ``backend`` and ``interpret``.
+The device of the operands chooses the lane (see
+:class:`~repro_torch.core.lns.LNSMatmulBackend`).  ``backend`` still picks
+the *arithmetic* of a forward-only product, as in the JAX package:
+``emulate`` is the pairwise tree of ``lns_dot_exact``, ``pallas`` the
+sequential ⊞-MAC of ``lns_dot_dispatch`` (see :meth:`LNSRuntime.linear`).
 
-* ``backend`` and ``interpret``: the device of the operands chooses the
-  lane (see :class:`~repro_torch.core.lns.LNSMatmulBackend`).  ``backend``
-  still picks the *arithmetic* of a forward-only product, as in the JAX
-  package: ``emulate`` is the pairwise tree of ``lns_dot_exact``, ``pallas``
-  the sequential ⊞-MAC of ``lns_dot_dispatch`` (see
-  :meth:`LNSRuntime.linear`);
-* ``blocks``: the CUDA kernels keep a fixed launch shape of their own.
+``blocks`` sets the one launch parameter the CUDA kernels read, the tiled
+⊞-MAC's output rows per block (see :data:`BLOCK_MODES`); it changes no
+result.
 
 ``metrics`` sets a layer's telemetry as in the JAX package: ``off``,
 ``counters``, or ``full`` (the counters and the Δ-table occupancy
@@ -52,7 +53,12 @@ INTERPRET_MODES = ("auto", "on", "off")
 #: occupancy histogram) or "off".
 METRICS_MODES = ("off", "counters", "full")
 #: Kernel tiling: "default", "auto" (the autotuner) or an explicit
-#: "MxNxK" (block_m × block_n × block_k).
+#: "MxNxK" (block_m × block_n × block_k).  On the card these set the tiled
+#: ⊞-MAC's output rows per block, the one launch parameter it reads:
+#: "default" 4, "auto" the autotuner's measured choice of 1, 2, 4 or 8 per
+#: op and shape (``kernels/autotune.py``), "MxNxK" the largest of 1, 2, 4,
+#: 8 that is at most M; N and K are read by nothing.  The short form, the
+#: ⊞-SGD and the ⊞-reduce have one fixed launch shape.
 BLOCK_MODES = ("default", "auto", "<M>x<N>x<K>")
 
 
@@ -449,7 +455,8 @@ class LNSRuntime:
     * :meth:`dp_config` — the data-parallel reduce plan of ``spec.reduce``.
 
     The block sizes are kept so that the JAX package's calls carry across;
-    they route nothing.  The JAX package's ``NumericsPolicy`` attribute
+    the spec's ``blocks`` is what sets the kernels' rows per block (see
+    :data:`BLOCK_MODES`).  The JAX package's ``NumericsPolicy`` attribute
     names (``param_lns``, ``exact_spec``, ``lns_grad``, ``matmul_backend``
     ...) read through to the spec.
     """
@@ -466,7 +473,12 @@ class LNSRuntime:
             raise ValueError(
                 f"spec {str(s)!r} has no ⊞-MAC path (needs fmt + delta); "
                 f"set e.g. fmt=lns16,delta=lut20")
-        return LNSMatmulBackend(fmt=s.fmt, spec=s.delta_spec)
+        # The spec's blocks axis wins over this runtime's tile sizes; the
+        # backend keeps the axis itself, which sets the rows per block.
+        bm, bn, bk, _ = resolve_blocks_arg(
+            s.blocks, self.block_m, self.block_n, self.block_k)
+        return LNSMatmulBackend(fmt=s.fmt, spec=s.delta_spec, block_m=bm,
+                                block_n=bn, block_k=bk, blocks=s.blocks)
 
     @functools.cached_property
     def delta_engine(self):

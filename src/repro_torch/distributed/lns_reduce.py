@@ -31,6 +31,7 @@ from ..core.arithmetic import boxsum_partials
 from ..core.delta import DeltaEngine
 from ..core.lns import LNSArray, decode, encode
 from ..core.spec import REDUCE_MODES, REDUCE_SCHEDULES  # noqa: F401
+from ..kernels.lns_boxsum import dp_combine_blocks  # noqa: F401
 from ..kernels.lns_boxsum import lns_boxsum_many
 
 
@@ -71,15 +72,21 @@ def gather_partials(p: LNSArray, num_ranks: int = 1) -> LNSArray:
 
 
 def combine_partials(parts: LNSArray, eng: DeltaEngine, *,
-                     schedule: str = "sequential") -> LNSArray:
+                     schedule: str = "sequential", interpret: bool = True,
+                     blocks: str = "default") -> LNSArray:
     """⊞-combine (S, ...) stacked partials along dim 0 on a fixed schedule:
     the one-parameter case of :func:`combine_partials_many`.
 
     ``sequential`` reduces every element's S slots in one ⊞-reduce
     launch, reading the (S, E) planes in place as E rows of S steps;
     ``tree`` is :func:`~repro_torch.core.arithmetic.boxsum_partials`'
-    balanced tree.
+    balanced tree.  ``interpret`` and ``blocks`` are the JAX package's
+    arguments, taken so that its calls carry across; they route nothing
+    (the ⊞-reduce has one geometry: :func:`dp_combine_blocks`).
     """
+    if blocks not in ("default", "auto"):
+        from ..core.spec import parse_blocks
+        parse_blocks(blocks)
     return combine_partials_many({0: parts}, {0: eng},
                                  schedule=schedule)[0]
 

@@ -2,9 +2,11 @@
 
 ``KERNEL_WRAPPERS`` is the one registry of the kernels' launch counters:
 each wrapper adds one to its ``launches`` where it launches its kernel on
-a CUDA tensor, and nowhere else.
+a CUDA tensor, and nowhere else.  ``autotune`` chooses the one launch
+parameter the kernels read, the tiled ⊞-MAC's rows per block, for
+``blocks=auto``.
 """
-from . import lns_boxsum, lns_matmul
+from . import autotune, lns_boxsum, lns_matmul
 
 KERNEL_WRAPPERS = {**lns_matmul.KERNEL_WRAPPERS,
                    **lns_boxsum.KERNEL_WRAPPERS}
@@ -20,5 +22,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNEL_WRAPPERS", "launch_counts", "reset_launch_counts",
-           "lns_boxsum", "lns_matmul"]
+__all__ = ["KERNEL_WRAPPERS", "autotune", "launch_counts",
+           "reset_launch_counts", "lns_boxsum", "lns_matmul"]

@@ -43,7 +43,7 @@ class MacParams(ctypes.Structure):
                 ("a_code", _P), ("a_sign", _P), ("a_sr", _I), ("a_st", _I),
                 ("b_code", _P), ("b_sign", _P), ("b_st", _I), ("b_sc", _I),
                 ("R", _I), ("C", _I), ("CT", _I), ("S", _I),
-                ("epilogue", _I),
+                ("rows", _I), ("epilogue", _I),
                 ("bias_code", _P), ("bias_sign", _P),
                 ("llrelu_on", _I), ("beta", _I),
                 ("dst_on", _I), ("dst_qf", _I), ("dst_code_max", _I),

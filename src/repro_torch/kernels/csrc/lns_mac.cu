@@ -55,8 +55,15 @@
 // and a row's first steps are loaded before the table and then folded
 // with mac_step.
 // The tiled form's design:
-//   * every (row, 32 columns) tile is one warp, 4 warps a block, so that
-//     at batch 5 each live warp has an SM sub-partition of its own;
+//   * every (row, 32 columns) tile is one warp, WARPS warps a block (the
+//     rows per block: 1, 2, 4 or 8, MacParams::rows; 4 unless the caller
+//     picks another), so that at batch 5 each live warp has an SM
+//     sub-partition of its own.  The rows per block are the one launch
+//     parameter the block autotuner (kernels/autotune.py, blocks=auto) or
+//     an explicit blocks=MxNxK may pick, and they change no order: each
+//     output is still one thread walking its contraction in ascending
+//     order; the rows per block only say which warps share a block's
+//     staged B tile and its Δ table copy;
 //   * keeps only the ⊞ on the accumulator's dependent path (mac_step):
 //     the Δ index is a shift or a multiply-high by constants the host
 //     works out (no divide), the Δ table is one __shared__ array of
@@ -90,11 +97,10 @@
 
 namespace {
 
-constexpr int kWarps = 4;     // output rows per block, one warp each
+// The tiled form's output rows per block (one warp each) are its template
+// parameter WARPS, one of 1, 2, 4, 8 (MacParams::rows).
 constexpr int kTileC = 32;    // output columns per block (one warp)
-constexpr int kThreads = kWarps * kTileC;
 constexpr int kTileK = 32;    // contraction steps staged and unrolled at once
-constexpr int kStageB = kTileK * kTileC / kThreads;  // B elements a thread
 constexpr int kAhead = 2;     // steps a product is taken before its ⊞
 constexpr int kMaxTab = 1024;
 // The short form takes a launch of at most kShortSteps steps a segment,
@@ -158,6 +164,9 @@ struct MacParams {
   // reads steps [z * CT, (z + 1) * CT) of the operands and writes its
   // output slot at z * R * C.  S = 1 walks the whole contraction.
   int64_t R, C, CT, S;
+  // Output rows per block of the tiled form (1, 2, 4 or 8); the short form
+  // does not read it.
+  int64_t rows;
   int64_t epilogue;
   // Forward epilogue (FwdEpilogue): a null bias pointer means no bias.
   const int32_t* bias_code;
@@ -564,16 +573,21 @@ __device__ __forceinline__ void flush(const MacParams& p, const Lns& k,
 // into its own output slot.  Grid x holds the row tiles times the column
 // tiles, columns fastest (grid y would cap the rows at 65535 tiles): warp
 // w of block (x, 0, z), with x = y' * ceil(C / kTileC) + x', holds output
-// row y' * kWarps + w, lane l column x' * kTileC + l.
+// row y' * WARPS + w, lane l column x' * kTileC + l.
 //
-// The block stages tiles of kTileK steps of A's kWarps rows and B's kTileC
+// The block stages tiles of kTileK steps of A's WARPS rows and B's kTileC
 // columns in two shared buffers: while the warps walk one tile, each
-// thread holds its share of the next tile in registers, loaded from global
-// memory before the walk and stored to the other buffer after it; one
-// barrier a tile.
-template <int KIND>
-__global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
-  __shared__ int2 s_a[2][kWarps][kTileK];
+// thread holds its share of the next tile in registers (one A element and
+// kTileK / WARPS B elements), loaded from global memory before the walk
+// and stored to the other buffer after it; one barrier a tile.  Static
+// shared memory: s_a 512 · WARPS bytes, s_b 16 896, s_pin 32 and s_tab
+// 8 200, 29 224 bytes at WARPS = 8, under the 48 KiB of a block.
+template <int KIND, int WARPS>
+__global__ void __launch_bounds__(WARPS * kTileC)
+    mac_kernel(const MacParams p) {
+  constexpr int kThreads = WARPS * kTileC;
+  constexpr int kStageB = kTileK * kTileC / kThreads;  // B elements a thread
+  __shared__ int2 s_a[2][WARPS][kTileK];
   __shared__ int2 s_b[2][kTileK][kTileC + 1];
   __shared__ int s_pin[kPinned];
   const int tid = threadIdx.x;
@@ -582,7 +596,7 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
   Lns k = make_lns(p.lns);
   if (tid == 0) pin_store(k, s_pin);
   const unsigned col_tiles = (unsigned)((p.C + kTileC - 1) / kTileC);
-  const int64_t r0 = (int64_t)(blockIdx.x / col_tiles) * kWarps;
+  const int64_t r0 = (int64_t)(blockIdx.x / col_tiles) * WARPS;
   const int64_t c0 = (int64_t)(blockIdx.x % col_tiles) * kTileC;
   const int64_t t_lo = (int64_t)blockIdx.z * p.CT;
   const int ct = (int)p.CT;
@@ -593,8 +607,8 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(const MacParams p) {
   // left; a row or column past the edge gets a step that never is
   // (INT_MAX), and reads as the zero code, the ⊞ identity.
   const bool a_tfast = p.a_st == 1;
-  const int a_lt = a_tfast ? tid % kTileK : tid / kWarps;
-  const int a_lr = a_tfast ? tid / kTileK : tid % kWarps;
+  const int a_lt = a_tfast ? tid % kTileK : tid / WARPS;
+  const int a_lr = a_tfast ? tid / kTileK : tid % WARPS;
   const int a_at = r0 + a_lr < p.R ? a_lt : INT_MAX;
   const unsigned a_sx = (a_lr * kTileK + a_lt) * 8;
   const bool b_cfast = p.b_st != 1;
@@ -925,6 +939,27 @@ int launch_boxsum(int kind, dim3 grid, int block, cudaStream_t stream,
   return 0;
 }
 
+// The tiled form's instantiation for the Δ kind, WARPS rows a block.
+template <int WARPS>
+int launch_tiled(int kind, dim3 grid, cudaStream_t stream,
+                 const MacParams& p) {
+  constexpr int threads = WARPS * kTileC;
+  switch (kind) {
+    case kLut: mac_kernel<kLut, WARPS><<<grid, threads, 0, stream>>>(p); break;
+    case kLutMul:
+      mac_kernel<kLutMul, WARPS><<<grid, threads, 0, stream>>>(p);
+      break;
+    case kBitshift:
+      mac_kernel<kBitshift, WARPS><<<grid, threads, 0, stream>>>(p);
+      break;
+    case kExact:
+      mac_kernel<kExact, WARPS><<<grid, threads, 0, stream>>>(p);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
 // The short form's instantiation for the launch's epilogue.
 template <int KIND>
 int launch_short(dim3 grid, cudaStream_t stream, const MacParams& p) {
@@ -971,7 +1006,8 @@ const char* lns_error_string(int err) {
 
 // Enqueues one ⊞-MAC launch on ``stream``; returns cudaGetLastError().
 // The form is chosen by the steps a segment alone: the short form at CT
-// <= kShortSteps, the tiled form above.
+// <= kShortSteps, the tiled form above, with p->rows (1, 2, 4 or 8; any
+// other value is refused) output rows a block.
 int lns_mac_launch(const MacParams* p, void* stream) {
   // Segments take no epilogue; the grid z extent holds at most 65535; a
   // tile's offsets and the steps are int32; the short form's flattened
@@ -998,12 +1034,22 @@ int lns_mac_launch(const MacParams* p, void* stream) {
     }
     if (rc != 0) return rc;
   } else {
+    const int64_t rows = p->rows;
+    if (rows != 1 && rows != 2 && rows != 4 && rows != 8)
+      return (int)cudaErrorInvalidValue;
     const int64_t tiles = ((p->C + kTileC - 1) / kTileC) *
-                          ((p->R + kWarps - 1) / kWarps);
+                          ((p->R + rows - 1) / rows);
     if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
     dim3 grid((unsigned)tiles, 1, (unsigned)p->S);
-    LNS_DISPATCH(mac_kernel, kind, grid, kThreads, (cudaStream_t)stream,
-                 *p);
+    const cudaStream_t st = (cudaStream_t)stream;
+    int rc;
+    switch (rows) {
+      case 1: rc = launch_tiled<1>(kind, grid, st, *p); break;
+      case 2: rc = launch_tiled<2>(kind, grid, st, *p); break;
+      case 4: rc = launch_tiled<4>(kind, grid, st, *p); break;
+      default: rc = launch_tiled<8>(kind, grid, st, *p); break;
+    }
+    if (rc != 0) return rc;
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,10 @@ which the library's launcher picks from the steps per segment alone:
 ``mac_short_kernel`` for short contractions (the dW, dW-update and
 partials over the batch of 5, the dX over 10 classes) and the tiled
 ``mac_kernel`` for long ones (the forward over 784 and 100 inputs,
-anything over the batch of 500).  The configurations:
+anything over the batch of 500).  Every wrapper takes ``block_rows``, the
+tiled form's output rows per block (1, 2, 4 or 8; 4 by default), which
+the block autotuner picks under ``blocks=auto`` (``kernels/autotune.py``);
+it changes no result.  The configurations:
 
 * ``lns_matmul``           Z[m,n]  = ⊞_k X[m,k] ⊡ W[k,n], no epilogue;
 * ``lns_matmul_fused``     the same with bias ⊞ / llReLU / requantize at
@@ -144,7 +147,8 @@ def mac_plain(a_code, a_sign, b_code, b_sign, *, a_contract_axis: int,
               fwd_epilogue: Optional[FwdEpilogue] = None,
               bias_code=None, bias_sign=None,
               update_epilogue: Optional[UpdateEpilogue] = None,
-              w_code=None, w_sign=None, m_code=None, m_sign=None):
+              w_code=None, w_sign=None, m_code=None, m_sign=None,
+              block_rows: int = 4):
     """Plain PyTorch version of ``mac_kernel`` on any device.
 
     ``a``'s non-contracted axis gives the output rows, ``b``'s the output
@@ -153,6 +157,8 @@ def mac_plain(a_code, a_sign, b_code, b_sign, *, a_contract_axis: int,
     planes in kernel order: ``code, sign[, z_sign][, m_code, m_sign]``.
     ``segments=S`` cuts the contraction into S equal runs, each folded
     into its own accumulator: the planes are then (S, R, C).
+    ``block_rows`` is taken and ignored: tiles change no result, and the
+    plain version has none.
     """
     a_c = a_code if a_contract_axis == 1 else a_code.T   # (R, CT)
     a_s = a_sign if a_contract_axis == 1 else a_sign.T
@@ -212,21 +218,27 @@ def sgd_args(ep: UpdateEpilogue) -> build.SgdArgs:
 #: The launcher's limits (``lns_mac_launch`` in ``csrc/lns_mac.cu``):
 #: operand strides below 2^26, at most 65535 segments (grid z), and for the
 #: tiled form (CT > ``lns_short_steps()``) at most 2^31 - 1 tiles of
-#: ``MAC_TILE_ROWS`` rows by ``MAC_TILE_COLS`` columns (grid x holds the
-#: row tiles times the column tiles); the short form's S·R·C outputs fit
-#: an int32.
+#: ``block_rows`` rows (one of ``MAC_BLOCK_ROWS``) by ``MAC_TILE_COLS``
+#: columns (grid x holds the row tiles times the column tiles); the short
+#: form's S·R·C outputs fit an int32.
 MAC_MAX_STRIDE = 1 << 26
 MAC_MAX_GRID = 65535
 MAC_MAX_TILES = 2**31 - 1
-MAC_TILE_ROWS = 4
+MAC_BLOCK_ROWS = (1, 2, 4, 8)
 MAC_TILE_COLS = 32
 
 
 def check_launch_limits(r: int, c: int, ct: int, n_seg: int,
-                        strides, short_steps: int) -> None:
+                        strides, short_steps: int,
+                        block_rows: int = 4) -> None:
     """Raise ``ValueError`` for a launch outside the kernel's limits, so
     that no grid or offset wraps: ``strides`` are the operands' element
-    strides, ``ct`` the whole contraction."""
+    strides, ``ct`` the whole contraction, ``block_rows`` the tiled form's
+    rows per block."""
+    if block_rows not in MAC_BLOCK_ROWS:
+        raise ValueError(f"block_rows={block_rows}; the tiled ⊞-MAC takes "
+                         f"{', '.join(map(str, MAC_BLOCK_ROWS))} rows a "
+                         f"block")
     if n_seg > MAC_MAX_GRID:
         raise ValueError(f"{n_seg} segments; the kernel takes at most "
                          f"{MAC_MAX_GRID}")
@@ -234,7 +246,7 @@ def check_launch_limits(r: int, c: int, ct: int, n_seg: int,
         raise ValueError(f"operand stride {max(strides)} >= 2^26: the "
                          f"kernel's offsets would overflow")
     if ct // n_seg > short_steps:
-        tiles = -(-r // MAC_TILE_ROWS) * -(-c // MAC_TILE_COLS)
+        tiles = -(-r // block_rows) * -(-c // MAC_TILE_COLS)
         if tiles > MAC_MAX_TILES:
             raise ValueError(
                 f"{r} x {c} outputs make {tiles} tiles; the tiled ⊞-MAC "
@@ -250,10 +262,12 @@ def mac_cuda(a_code, a_sign, b_code, b_sign, *, a_contract_axis: int,
              fwd_epilogue: Optional[FwdEpilogue] = None,
              bias_code=None, bias_sign=None,
              update_epilogue: Optional[UpdateEpilogue] = None,
-             w_code=None, w_sign=None, m_code=None, m_sign=None):
+             w_code=None, w_sign=None, m_code=None, m_sign=None,
+             block_rows: int = 4):
     """Launch the ⊞-MAC (``mac_short_kernel`` or ``mac_kernel``, as the
     library's launcher picks) on the current stream; same arguments and
-    outputs as :func:`mac_plain`."""
+    outputs as :func:`mac_plain`.  The tiled form takes ``block_rows``
+    output rows a block; the short form does not read it."""
     lib = build.load_library()
     dev = a_code.device
     r, ct = a_code.shape[1 - a_contract_axis], a_code.shape[a_contract_axis]
@@ -271,7 +285,7 @@ def mac_cuda(a_code, a_sign, b_code, b_sign, *, a_contract_axis: int,
     a_rows = a_code.shape[1]  # row-major stride of axis 0
     b_rows = b_code.shape[1]
     check_launch_limits(r, c, ct, n_seg, (a_rows, b_rows),
-                        lib.lns_short_steps())
+                        lib.lns_short_steps(), block_rows)
     p = build.MacParams(
         lns=lns_args(fmt, spec, dev),
         a_code=ptr(a_code), a_sign=ptr(a_sign),
@@ -280,7 +294,8 @@ def mac_cuda(a_code, a_sign, b_code, b_sign, *, a_contract_axis: int,
         b_code=ptr(b_code), b_sign=ptr(b_sign),
         b_st=b_rows if b_contract_axis == 0 else 1,
         b_sc=1 if b_contract_axis == 0 else b_rows,
-        R=r, C=c, CT=ct // n_seg, S=n_seg, epilogue=_EPI_NONE)
+        R=r, C=c, CT=ct // n_seg, S=n_seg, rows=block_rows,
+        epilogue=_EPI_NONE)
     shape = (r, c) if segments is None else (n_seg, r, c)
     out_code = torch.empty(shape, dtype=torch.int32, device=dev)
     out_sign = torch.empty(shape, dtype=torch.int8, device=dev)
@@ -341,56 +356,60 @@ def _run(wrapper, a_code, a_sign, b_code, b_sign, **kw):
 
 
 def lns_matmul(x_code, x_sign, w_code, w_sign, *, fmt: LNSFormat,
-               spec: DeltaSpec):
+               spec: DeltaSpec, block_rows: int = 4):
     """Forward x (M, K) ⊞-MAC w (K, N) → ``(z_code, z_sign)`` (M, N),
     ascending over K, no epilogue."""
     return _run(lns_matmul, x_code, x_sign, w_code, w_sign,
-                a_contract_axis=1, b_contract_axis=0, fmt=fmt, spec=spec)
+                a_contract_axis=1, b_contract_axis=0, fmt=fmt, spec=spec,
+                block_rows=block_rows)
 
 
 def lns_matmul_fused(x_code, x_sign, w_code, w_sign, *, fmt: LNSFormat,
                      spec: DeltaSpec, epilogue: FwdEpilogue,
-                     bias_code=None, bias_sign=None):
+                     bias_code=None, bias_sign=None, block_rows: int = 4):
     """Forward x (M, K) ⊞-MAC w (K, N) with the flush epilogue.  Returns
     ``(z_code, z_sign)`` plus the post-bias ``z_sign`` plane when
     ``epilogue.emit_z_sign``; in ``epilogue.dst_fmt`` when set."""
     return _run(lns_matmul_fused, x_code, x_sign, w_code, w_sign,
                 a_contract_axis=1, b_contract_axis=0, fmt=fmt, spec=spec,
                 fwd_epilogue=epilogue, bias_code=bias_code,
-                bias_sign=bias_sign)
+                bias_sign=bias_sign, block_rows=block_rows)
 
 
 def lns_matmul_dx(dy_code, dy_sign, w_code, w_sign, *, fmt: LNSFormat,
-                  spec: DeltaSpec):
+                  spec: DeltaSpec, block_rows: int = 4):
     """dY (M, N) ⊞-MAC Wᵀ → dX (M, K), ascending over N; W is read in its
     stored (K, N) layout."""
     return _run(lns_matmul_dx, dy_code, dy_sign, w_code, w_sign,
-                a_contract_axis=1, b_contract_axis=1, fmt=fmt, spec=spec)
+                a_contract_axis=1, b_contract_axis=1, fmt=fmt, spec=spec,
+                block_rows=block_rows)
 
 
 def lns_matmul_dw(x_code, x_sign, dy_code, dy_sign, *, fmt: LNSFormat,
-                  spec: DeltaSpec):
+                  spec: DeltaSpec, block_rows: int = 4):
     """dW = Xᵀ ⊞-MAC dY → (K, N), ascending over the batch M; X is read in
     its stored (M, K) layout."""
     return _run(lns_matmul_dw, x_code, x_sign, dy_code, dy_sign,
-                a_contract_axis=0, b_contract_axis=0, fmt=fmt, spec=spec)
+                a_contract_axis=0, b_contract_axis=0, fmt=fmt, spec=spec,
+                block_rows=block_rows)
 
 
 def lns_matmul_dw_partials(x_code, x_sign, dy_code, dy_sign, *,
                            num_segments: int, fmt: LNSFormat,
-                           spec: DeltaSpec):
+                           spec: DeltaSpec, block_rows: int = 4):
     """Per-segment dW: the batch M cut into ``num_segments`` equal
     contiguous segments (M must divide exactly); returns (S, K, N) planes
     with slot s = X[seg s]ᵀ ⊞-MAC dY[seg s], ascending within the
     segment."""
     return _run(lns_matmul_dw_partials, x_code, x_sign, dy_code, dy_sign,
                 a_contract_axis=0, b_contract_axis=0, fmt=fmt, spec=spec,
-                segments=num_segments)
+                segments=num_segments, block_rows=block_rows)
 
 
 def lns_matmul_dw_update(x_code, x_sign, dy_code, dy_sign, *, w_code,
                          w_sign, epilogue: UpdateEpilogue, fmt: LNSFormat,
-                         spec: DeltaSpec, m_code=None, m_sign=None):
+                         spec: DeltaSpec, m_code=None, m_sign=None,
+                         block_rows: int = 4):
     """dW = Xᵀ ⊞-MAC dY (ascending over the batch M), consumed at flush
     by the ⊞-SGD against the resident (K, N) ``w`` (and ``m``).  Returns
     ``(w_code', w_sign')`` plus ``(m_code', m_sign')`` with momentum."""
@@ -400,7 +419,7 @@ def lns_matmul_dw_update(x_code, x_sign, dy_code, dy_sign, *, w_code,
     return _run(lns_matmul_dw_update, x_code, x_sign, dy_code, dy_sign,
                 a_contract_axis=0, b_contract_axis=0, fmt=fmt, spec=spec,
                 update_epilogue=epilogue, w_code=w_code, w_sign=w_sign,
-                m_code=m_code, m_sign=m_sign)
+                m_code=m_code, m_sign=m_sign, block_rows=block_rows)
 
 
 for _wrapper in (lns_matmul, lns_matmul_fused, lns_matmul_dx, lns_matmul_dw,

@@ -102,8 +102,9 @@ class MLPConfig:
                                     # None (→ from bits/approx); normalized
                                     # to a NumericsPlan
     matmul_block: int = 32          # carried for the JAX package's
-                                    # signature; routes nothing: the CUDA
-                                    # kernels' launch shape is their own
+                                    # signature; routes nothing: the
+                                    # spec's blocks axis sets the kernels'
+                                    # rows per block
     fused: bool = True              # lns only: flush-time kernel
                                     # epilogues; False = the separate-pass
                                     # step, same codes
@@ -409,7 +410,8 @@ class LNSMLP(_PaperMLP):
                                                 self.fault_plan, p)
                          for p in LAYER_PATHS}
         self.mms = {p: LNSMatmulBackend(fmt=self.fmts[p],
-                                        spec=specs[p].delta_spec)
+                                        spec=specs[p].delta_spec,
+                                        blocks=specs[p].blocks)
                     for p in LAYER_PATHS}
         # Softmax sits in the output layer: its approximation-sensitive
         # r = 1/64 table lives in the output format.

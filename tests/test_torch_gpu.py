@@ -932,3 +932,136 @@ def test_serving_engine_on_card_equals_reference_generate(cuda, arch):
     assert outs[0] == outs[1]
     assert outs[0] == [reference_generate(cfg, params, p, 6, max_len=32)
                        for p in prompts]
+
+
+ROWS_SHAPES = ([(ct, r, c) for ct in (13, 45) for r in (1, 4, 5, 16, 37)
+                for c in (1, 33, 100)]
+               + [(784, r, c) for r in (1, 16, 37) for c in (1, 100)])
+
+
+@pytest.mark.parametrize("kind", list(DELTA))
+@pytest.mark.parametrize("fmt_name", ["lns16", "lns12"])
+def test_tiled_rows_per_block_equal_plain_on_card(cuda, kind, fmt_name):
+    """The tiled ⊞-MAC at 1, 2 and 8 rows a block (4 is held above) bit for
+    bit against the plain version: the forward with and without the fused
+    epilogue, the dX and the dW-update at CT ∈ {13, 45} for R ∈ {1, 4, 5,
+    16, 37} and C ∈ {1, 33, 100}, and at CT = 784 for R ∈ {1, 16, 37} and
+    C ∈ {1, 100}; the segment partials at CT = 20; a row count the
+    launcher does not take is refused."""
+    fmt, spec = T.FORMATS[fmt_name], DELTA[kind]
+    gen = torch.Generator().manual_seed(7)
+    kw = dict(fmt=fmt, spec=spec)
+    ep = TK.FwdEpilogue(bias=True, llrelu_beta=T.beta_code(0.01, fmt),
+                        dst_fmt=OTHER[fmt_name], emit_z_sign=True)
+    up = T.UpdateEpilogue.from_sgd(
+        T.LogSGDConfig(lr=0.01, weight_decay=0.01, momentum=0.9), fmt)
+    for ct, r, c in ROWS_SHAPES:
+        x = _operand(gen, (r, ct), fmt, cuda, zero_frac=0.4)
+        w = _operand(gen, (ct, c), fmt, cuda, scale=0.05)
+        b = _operand(gen, (c,), fmt, cuda, scale=0.1)
+        wt = _operand(gen, (c, ct), fmt, cuda, scale=0.05)
+        xb = _operand(gen, (ct, r), fmt, cuda, zero_frac=0.5)
+        db = _operand(gen, (ct, c), fmt, cuda, scale=0.1)
+        wr = _operand(gen, (r, c), fmt, cuda, scale=0.05)
+        mr = _operand(gen, (r, c), fmt, cuda, scale=0.01)
+        uk = dict(w_code=wr.code, w_sign=wr.sign, m_code=mr.code,
+                  m_sign=mr.sign)
+        fwd = dict(a_contract_axis=1, b_contract_axis=0, **kw)
+        launches = {
+            "fwd": (lambda br: TK.lns_matmul(x.code, x.sign, w.code, w.sign,
+                                             block_rows=br, **kw),
+                    TK.mac_plain(x.code, x.sign, w.code, w.sign, **fwd)),
+            "fused": (lambda br: TK.lns_matmul_fused(
+                          x.code, x.sign, w.code, w.sign, epilogue=ep,
+                          bias_code=b.code, bias_sign=b.sign, block_rows=br,
+                          **kw),
+                      TK.mac_plain(x.code, x.sign, w.code, w.sign,
+                                   fwd_epilogue=ep, bias_code=b.code,
+                                   bias_sign=b.sign, **fwd)),
+            "dx": (lambda br: TK.lns_matmul_dx(x.code, x.sign, wt.code,
+                                               wt.sign, block_rows=br, **kw),
+                   TK.mac_plain(x.code, x.sign, wt.code, wt.sign,
+                                a_contract_axis=1, b_contract_axis=1, **kw)),
+            "dw_update": (lambda br: TK.lns_matmul_dw_update(
+                              xb.code, xb.sign, db.code, db.sign,
+                              epilogue=up, block_rows=br, **uk, **kw),
+                          TK.mac_plain(xb.code, xb.sign, db.code, db.sign,
+                                       a_contract_axis=0, b_contract_axis=0,
+                                       update_epilogue=up, **uk, **kw)),
+        }
+        for name, (kernel, want) in launches.items():
+            for rows in (1, 2, 8):
+                _same(kernel(rows), want)
+    x = _operand(gen, (40, 37), fmt, cuda, zero_frac=0.5)
+    dy = _operand(gen, (40, 33), fmt, cuda, scale=0.1)
+    want = TK.mac_plain(x.code, x.sign, dy.code, dy.sign, a_contract_axis=0,
+                        b_contract_axis=0, segments=2, **kw)
+    for rows in (1, 2, 8):
+        _same(TK.lns_matmul_dw_partials(x.code, x.sign, dy.code, dy.sign,
+                                        num_segments=2, block_rows=rows,
+                                        **kw), want)
+    with pytest.raises(ValueError, match="block_rows"):
+        TK.lns_matmul(x.code, x.sign, x.code.T.contiguous(),
+                      x.sign.T.contiguous(), block_rows=3, **kw)
+    torch.cuda.synchronize()
+
+
+def test_tiled_launcher_refuses_other_rows(cuda):
+    """The library refuses a rows-per-block value it has no kernel for
+    (the wrapper's own check bypassed), and reads none in the short
+    form."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels._common import lns_args, ptr
+    lib = build.load_library()
+    gen = torch.Generator().manual_seed(3)
+    a = _operand(gen, (5, 40), T.LNS16, cuda)
+    b = _operand(gen, (40, 7), T.LNS16, cuda)
+    out_c = torch.empty((5, 7), dtype=torch.int32, device=cuda)
+    out_s = torch.empty((5, 7), dtype=torch.int8, device=cuda)
+    for ct, rows, ok in ((40, 3, False), (40, 16, False), (40, 0, False),
+                         (40, 8, True), (12, 0, True)):
+        p = build.MacParams(
+            lns=lns_args(T.LNS16, T.DELTA_DEFAULT, cuda),
+            a_code=ptr(a.code), a_sign=ptr(a.sign), a_sr=40, a_st=1,
+            b_code=ptr(b.code), b_sign=ptr(b.sign), b_st=7, b_sc=1,
+            R=5, C=7, CT=ct, S=1, rows=rows, epilogue=0,
+            out_code=ptr(out_c), out_sign=ptr(out_s))
+        rc = lib.lns_mac_launch(
+            ctypes.byref(p),
+            ctypes.c_void_p(torch.cuda.current_stream(cuda).cuda_stream))
+        assert (rc == 0) == ok, (ct, rows, rc)
+    torch.cuda.synchronize()
+
+
+def test_autotune_lookup_on_card(cuda, tmp_path, monkeypatch):
+    """A card lookup times all four rows per block of a tiled forward by
+    CUDA events, persists the fastest, serves the second lookup from the
+    cache, and measures nothing for a short-form op; its copies of the
+    library's constants agree."""
+    from repro_torch.kernels import autotune, build
+    lib = build.load_library()
+    assert lib.lns_short_steps() == autotune.SHORT_STEPS
+    assert lib.lns_max_table() == autotune.MAX_TABLE
+    monkeypatch.setenv("LNS_AUTOTUNE_DIR", str(tmp_path))
+    monkeypatch.delenv("LNS_AUTOTUNE_DISABLE", raising=False)
+    autotune.clear_caches()
+    kw = dict(fmt=T.LNS16, spec=T.DELTA_DEFAULT)
+    shape = (5, 100, 784)
+    best, results = autotune.tune("fwd", shape, **kw, reps=2)
+    assert set(results) == {(w, 32, 32) for w in (1, 2, 4, 8)}
+    assert all(ms > 0 for ms in results.values())
+    got = autotune.lookup("fwd", shape, **kw)
+    assert got in results
+    entry, = autotune._load_disk().values()
+    assert entry["blocks"] == list(got) and entry["ms"] > 0
+    real = autotune.tune
+    monkeypatch.setattr(autotune, "tune", lambda *a, **k: pytest.fail(
+        "measured again"))
+    assert autotune.lookup("fwd", shape, **kw) == got
+    autotune.clear_caches()
+    assert autotune.lookup("fwd", shape, **kw) == got
+    assert autotune.lookup("dw", (784, 100, 5), **kw) == (1, 128, 5)
+    monkeypatch.setattr(autotune, "tune", real)
+    assert len(autotune._load_disk()) == 1
+    autotune.clear_caches()

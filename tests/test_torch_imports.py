@@ -38,7 +38,7 @@ def test_sources_found():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for pkg in ("distributed", "kernels/lns_boxsum", "obs", "resil",
                 "launch", "nn", "configs", "optim", "data", "train", "ckpt",
-                "serve"):
+                "serve", "search"):
         assert f"src/repro_torch/{pkg}/__init__.py" in names, pkg
 
 
@@ -50,7 +50,9 @@ def test_sources_found():
     "repro_torch.core.numerics", "repro_torch.nn.moe", "repro_torch.nn.ssm",
     "repro_torch.nn.paged", "repro_torch.serve",
     "repro_torch.serve.engine", "repro_torch.serve.queue",
-    "repro_torch.serve.paged_cache", "repro_torch.launch.serve"])
+    "repro_torch.serve.paged_cache", "repro_torch.launch.serve",
+    "repro_torch.search", "repro_torch.launch.search",
+    "repro_torch.kernels.autotune"])
 def test_import_loads_no_jax(module):
     """Importing the module in a fresh interpreter loads neither JAX nor
     the JAX package."""
