@@ -129,6 +129,19 @@ the result line:
    ``python -m repro_torch.launch.search --smoke --selfcheck-resume``'s
    ``main`` on the card, its JSON equal to the same search on the CPU
    lane in a worker process, then ``--measure --max-evals 3``.
+13. sharded execution, in a one-rank process group over the card (NCCL)
+   and the CPU (gloo), each lane through a (data=1, model=1) mesh: (a) the
+   reduced olmo-1b, deepseek-moe-16b, deepseek-v2-lite-16b and zamba2-7b
+   through ``make_train_step(rt=Runtime(mesh=...))``, card vs CPU lane
+   as 9b (``FAMILY_HOLDS`` for zamba2-7b); (b) 9c's olmo-1b through the
+   mesh and without it in the same call: losses and every parameter equal
+   bit for bit, ms per step, device ms, launches and peak memory of each;
+   (c) 10c's deepseek-v2-lite-16b likewise: the assignments ``moe_ep``
+   drops at tp 1 and the loss gap to the dropless steps, a finding; (d)
+   ``decode_step_paged`` of reduced deepseek-v2-lite-16b under the mesh
+   (``moe_ep`` at tp 1 with its capacity drops, row 1), teacher-forced,
+   card vs CPU lane; ``moe_ep_replicated`` needs tp > 1 and runs only in
+   the 2- and 4-rank gloo tests.
 
 Phase 3 also holds the tiled ⊞-MAC past 65535 row tiles (262 149 rows).
 
@@ -1545,31 +1558,39 @@ def lm_kernels(torch, device):
 
 
 def lm_train(torch, arch, numerics, device, steps=LM_STEPS, cfg=None,
-             params=None, batch=2, seq=32, forced=None, keep=False):
+             params=None, batch=2, seq=32, forced=None, keep=False,
+             mesh=None):
     """``steps`` AdamW steps of ``arch`` on ``device``, from the seeded
     CPU init (the same parameters on both lanes); returns the losses, the
     launch counts (counters set to 0 just before the steps, read just
     after), each step's host ms and (the last state, or with ``keep``
     the state before the first step and after each, the step function,
     the dataset).  ``forced``: states (of another lane) to start each step
-    from, in place of the last step's."""
+    from, in place of the last step's.  ``mesh``: the steps run through
+    ``Runtime(mesh=mesh)`` on the state and batches cut by
+    ``train_state_specs`` / ``batch_specs`` (phase 13)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.distributed.sharding import batch_specs, shard_tree
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.nn import init_params
+    from repro_torch.nn import Runtime, init_params
     from repro_torch.nn.config import ShapeCell
     from repro_torch.optim.optimizers import AdamWConfig
     from repro_torch.pytree import tree_map
     from repro_torch.train import (TrainConfig, init_train_state,
-                                   make_train_step)
+                                   make_train_step, train_state_specs)
     if cfg is None:
         cfg = reduced(get_config(arch)).with_(numerics=numerics,
                                               remat="none")
     if params is None:
         params = init_params(SEED, cfg, device=device)
     opt, tc = AdamWConfig(lr=1e-3), TrainConfig(grad_clip=1.0)
-    state = init_train_state(params, opt, tc)
-    step = make_train_step(cfg, opt, tc=tc)
+
+    def place(state):
+        return state if mesh is None else shard_tree(
+            state, train_state_specs(state), mesh)
+    state = place(init_train_state(params, opt, tc))
+    step = make_train_step(cfg, opt, Runtime(mesh=mesh), tc)
     ds = SyntheticLMDataset(cfg, ShapeCell("lm", seq, batch, "train"),
                             DataConfig(seed=SEED))
     losses, ms = [], []
@@ -1577,8 +1598,10 @@ def lm_train(torch, arch, numerics, device, steps=LM_STEPS, cfg=None,
     reset_launch_counts()
     for i in range(steps):
         b = ds.batch_on(i, device)
+        if mesh is not None:
+            b = shard_tree(b, batch_specs(b), mesh)
         if forced is not None:
-            state = tree_map(lambda t: t.to(device), forced[i])
+            state = place(tree_map(lambda t: t.to(device), forced[i]))
         t0 = time.perf_counter()
         state, m = step(state, b)
         if keep:
@@ -1886,13 +1909,15 @@ def update_gap(before, after_cpu, after_card):
     return math.sqrt(num / den)
 
 
-def card_vs_cpu(torch, device, archs, tag, holds=None):
-    """9b / 10b / 11b: each ``reduced()`` config of ``archs`` under
+def card_vs_cpu(torch, device, archs, tag, holds=None, meshes=None):
+    """9b / 10b / 11b / 13a: each ``reduced()`` config of ``archs`` under
     ``fp32`` and ``lns16-train-pallas``, 3 AdamW steps on the card against
     the CPU lane, each row's launches against the products the code
     predicts; returns the launches of the card runs.  ``holds``: arch →
     its lns16-train (first step's loss rtol, every step's, update
-    relative L2), 9b's (1e-3, 1e-2, ``LM_UPDATE_RTOL``) where absent."""
+    relative L2), 9b's (1e-3, 1e-2, ``LM_UPDATE_RTOL``) where absent.
+    ``meshes``: device type → the mesh each lane's steps run under."""
+    meshes = meshes or {}
     from repro_torch.configs import get_config, reduced
     launches = dict.fromkeys(LM_ROWS, 0)
     cpu = torch.device("cpu")
@@ -1911,10 +1936,12 @@ def card_vs_cpu(torch, device, archs, tag, holds=None):
             # or at ``holds``.
             forced = numerics != "fp32"
             hl, _, _, (hstates, _, _) = lm_train(torch, arch, numerics, cpu,
-                                                 keep=True)
+                                                 keep=True,
+                                                 mesh=meshes.get("cpu"))
             cl, counts, ms, (cstates, _, _) = lm_train(
                 torch, arch, numerics, device, keep=True,
-                forced=hstates if forced else None)
+                forced=hstates if forced else None,
+                mesh=meshes.get("cuda"))
             cfg = reduced(get_config(arch))
             want = {} if numerics == "fp32" else {
                 k: v * LM_STEPS for k, v in lm_expected(cfg, 32).items()}
@@ -2990,6 +3017,208 @@ def phase12(torch, device, card):
     return worst, table, launches
 
 
+# ------------------------------------------------------------ phase 13 --
+
+#: 13a: the reduced configs through the one-rank mesh, card vs CPU lane.
+MESH_ARCHS = ("olmo-1b", "deepseek-moe-16b", "deepseek-v2-lite-16b",
+              "zamba2-7b")
+#: 13d: the paged decode's geometry (reduced deepseek-v2-lite-16b).
+MESH_DECODE_SLOTS, MESH_DECODE_BLOCK, MESH_DECODE_STEPS = 4, 16, 4
+
+
+def mesh_group(torch):
+    """A one-rank process group over the card (NCCL) and the CPU (gloo),
+    and a (data=1, model=1) mesh on each: ({device type: mesh}, a function
+    that ends the group)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{tmp.name}/store",
+                            world_size=1, rank=0)
+    meshes = {t: make_mesh((1, 1), ("data", "model"), t)
+              for t in ("cuda", "cpu")}
+
+    def end():
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return meshes, end
+
+
+def mesh_step_pair(torch, device, card, cfg, name, tag, meshes, batch, seq,
+                   equal):
+    """The same 3 AdamW steps of ``cfg`` on the card with no mesh and
+    through the one-rank mesh; with ``equal`` the losses and every
+    parameter must be bit-equal.  Logs ms per step, a profiled step's
+    device ms, launches and peak memory of each; returns the mesh run's
+    (losses, launches, the no-mesh losses, dropped assignments)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.nn import init_params
+    from repro_torch.nn.moe import collect_drops
+    from repro_torch.pytree import tree_leaves
+    params = init_params(torch.Generator(device=device).manual_seed(SEED),
+                         cfg, device=device)
+    runs = {}
+    for what, mesh in (("no mesh", None), ("mesh", meshes["cuda"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with collect_drops() as drops:
+            losses, counts, ms, (state, step, ds) = lm_train(
+                torch, name, None, device, cfg=cfg, params=params,
+                batch=batch, seq=seq, mesh=mesh)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = sum(int(a) for a, _ in drops)
+        dropped = sum(int(b) for _, b in drops)
+        reset_launch_counts()
+        b = ds.batch_on(LM_STEPS, device)
+        if mesh is not None:
+            from repro_torch.distributed.sharding import (batch_specs,
+                                                          shard_tree)
+            b = shard_tree(b, batch_specs(b), mesh)
+        dev_us, _, wall_us = profile_call(
+            torch, lambda: float(step(state, b)[1]["loss"]))
+        runs[what] = (losses, counts, state["params"])
+        dev = f"{dev_us / 1e3:.3f} ms" if dev_us else "not measured"
+        log(f"{tag} {what}", f"{name}, batch {batch} x seq {seq}: losses "
+            f"{losses}; ms per step {[round(x, 3) for x in ms]} (host "
+            f"clock ending in a synchronize; the first includes warm-up); "
+            f"a profiled step's device time {dev} of {wall_us / 1e3:.3f} ms; "
+            f"launches {counts}; max_memory_allocated {peak:.3f} GiB"
+            + (f"; {dropped} of {n} expert assignments dropped"
+               if n else "") + f" on {card}")
+    (l0, c0, p0), (l1, c1, p1) = runs["no mesh"], runs["mesh"]
+    if c0 != c1:
+        raise AssertionError(f"{tag}: launches {c1} through the mesh, "
+                             f"{c0} without")
+    if equal:
+        same = l0 == l1 and all(torch.equal(a, b) for a, b in
+                                zip(tree_leaves(p0), tree_leaves(p1)))
+        if not same:
+            raise AssertionError(f"{tag}: the one-rank mesh's steps differ "
+                                 f"from the no-mesh steps: losses {l1} vs "
+                                 f"{l0}")
+        log(tag, "the one-rank mesh's losses and every parameter after 3 "
+            "steps equal the no-mesh run's, bit for bit")
+    return l1, c1, l0, (n, dropped)
+
+
+def mesh_decode(torch, device, card, meshes):
+    """13d: ``decode_step_paged`` of reduced deepseek-v2-lite-16b under
+    lns16-train-pallas through the one-rank mesh (row 1), teacher-forced:
+    the CPU lane decodes greedily through the mesh, and the card steps
+    through the same tokens with and without it.  At tp 1 a one-token
+    step's length divides the model axis, so ``moe_block`` takes
+    ``moe_ep``, as the JAX package's dispatch does; ``moe_ep_replicated``
+    needs tp > 1 and runs only in the 2- and 4-rank gloo tests.  Every
+    step's logits through the mesh within 0.3 relative L2 of the CPU
+    lane's (the lns16-train serving tier of
+    ``tests/test_torch_serve_model.py``), and the same row-1 launches with
+    and without the mesh; the assignments ``moe_ep``'s per-expert capacity
+    drops and the gap to the no-mesh logits (the dropless MoE reference)
+    are a finding.  Returns the card's row-1 launches through the mesh."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.sharding import cache_specs, shard_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.nn import (Runtime, decode_step_paged,
+                                init_paged_caches, init_params)
+    from repro_torch.nn.moe import collect_drops
+    cfg = reduced(get_config("deepseek-v2-lite-16b")).with_(
+        numerics="lns16-train-pallas", remat="none")
+    b, blk, steps = MESH_DECODE_SLOTS, MESH_DECODE_BLOCK, MESH_DECODE_STEPS
+    w = -(-steps // blk)
+    bt = 1 + torch.arange(b * w, dtype=torch.int32).reshape(b, w)
+    gen = torch.Generator().manual_seed(SEED)
+    first = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                          dtype=torch.int32)
+
+    def run(dev, mesh, forced=None):
+        params = init_params(SEED, cfg, device=dev)
+        caches = init_paged_caches(cfg, 1 + b * w, blk, torch.float32,
+                                   device=dev)
+        if mesh is not None:
+            caches = shard_tree(caches, cache_specs(caches, paged=True),
+                                mesh)
+        tok, toks, logits = first.to(dev), [first], []
+        reset_launch_counts()
+        with torch.no_grad(), collect_drops() as drops:
+            for i in range(steps):
+                lg, caches = decode_step_paged(
+                    params, tok, caches, bt.to(dev),
+                    torch.full((b,), i, dtype=torch.int32, device=dev),
+                    torch.ones((b,), dtype=torch.bool, device=dev), cfg,
+                    Runtime(mesh=mesh))
+                tok = torch.argmax(lg[:, -1], -1, keepdim=True).to(
+                    torch.int32) if forced is None else \
+                    forced[i + 1].to(dev)
+                toks.append(tok.cpu())
+                logits.append(lg.cpu().double())
+        dropped = (sum(int(a) for a, _ in drops),
+                   sum(int(d) for _, d in drops))
+        return (toks, logits, {k: v for k, v in launch_counts().items() if v},
+                dropped)
+    cpu_toks, cpu_lg, _, cpu_drops = run(torch.device("cpu"), meshes["cpu"])
+    card_toks, card_lg, counts, drops = run(device, meshes["cuda"], cpu_toks)
+    _, plain_lg, plain_counts, _ = run(device, None, cpu_toks)
+    def rel(xs, ys):
+        return [float((a - c).norm() / c.norm()) for a, c in zip(xs, ys)]
+    gaps = rel(card_lg, cpu_lg)
+    agree = [bool(torch.equal(a[:, -1].argmax(-1), c[:, -1].argmax(-1)))
+             for a, c in zip(card_lg, cpu_lg)]
+    log("13d decode", f"reduced deepseek-v2-lite-16b lns16-train-pallas, "
+        f"{b} slots, {steps} decode_step_paged steps (moe_ep at tp 1, "
+        f"paged MLA), the card teacher-forced on the CPU lane's greedy "
+        f"tokens {torch.cat(cpu_toks, 1).tolist()}: logits relative L2 card "
+        f"vs cpu per step {gaps} (tier 0.3); greedy tokens equal per step "
+        f"{agree}; moe_ep dropped {drops[1]} of {drops[0]} expert "
+        f"assignments on the card, {cpu_drops[1]} of {cpu_drops[0]} on the "
+        f"cpu lane; the card's logits through the mesh vs without it "
+        f"(dropless), relative L2 per step {rel(card_lg, plain_lg)}; card "
+        f"launches "
+        f"{counts} through the mesh, {plain_counts} without, on {card}")
+    if max(gaps) > 0.3:
+        raise AssertionError(f"13d: card vs cpu logits gaps {gaps}")
+    if set(counts) != {"lns_matmul_fused"} or counts != plain_counts:
+        raise AssertionError(f"13d: launches {counts} vs {plain_counts}")
+    return counts["lns_matmul_fused"]
+
+
+def phase13(torch, device, card):
+    """Phase 13, sharded execution through a one-rank mesh (NCCL on the
+    card, gloo for the CPU lane); returns ({row: launches}, {what: the
+    numbers for the JSON line})."""
+    t0 = time.time()
+    meshes, end = mesh_group(torch)
+    try:
+        launches = card_vs_cpu(torch, device, MESH_ARCHS, "13a",
+                               holds=FAMILY_HOLDS, meshes=meshes)
+        log("13a mesh card vs cpu", f"in {time.time() - t0:.1f} s")
+        t1 = time.time()
+        _, counts, _, _ = mesh_step_pair(
+            torch, device, card, full_width_cfg(), "olmo-1b", "13b",
+            meshes, FULL_BATCH, FULL_SEQ, equal=True)
+        for k, v in counts.items():
+            launches[k] += v
+        log("13b full width", f"in {time.time() - t1:.1f} s")
+        t1 = time.time()
+        l1, counts, l0, (n, dropped) = mesh_step_pair(
+            torch, device, card, moe_full_cfg(), MOE_FULL_ARCH, "13c",
+            meshes, FULL_BATCH, FULL_SEQ, equal=False)
+        for k, v in counts.items():
+            launches[k] += v
+        log("13c full width", f"the mesh's moe_ep at tp 1 caps each expert "
+            f"at cap_e: {dropped} of {n} assignments dropped over the 3 "
+            f"steps; loss gap to the no-mesh (dropless) steps "
+            f"{[a - b for a, b in zip(l1, l0)]}; in {time.time() - t1:.1f} "
+            f"s")
+        launches["lns_matmul_fused"] = mesh_decode(torch, device, card,
+                                                   meshes)
+    finally:
+        end()
+    log("13", f"phase 13 in {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3212,6 +3441,14 @@ def main() -> int:
         "(12b; lns_matmul holds the forward shapes, which the tuner times "
         "through the unfused launch), its bound and the tuner's choice; "
         "launches include 12c's and 12d's counted runs")
+    mesh_launches = phase13(torch, device, card)
+    for k in kernels:
+        row = k["name"]
+        if row in mesh_launches:
+            k["launches"] += mesh_launches[row]
+            k["mesh_launches"] = mesh_launches[row]
+    log("13", "JSON mesh_launches are phase 13's card runs through the "
+        "one-rank mesh (13a-13d); launches include them")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

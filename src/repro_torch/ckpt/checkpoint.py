@@ -25,6 +25,13 @@ Layout (the JAX package's)::
 Leaves are ordered and the manifest's ``treedef`` printed as in the JAX
 package (:mod:`repro_torch.pytree`), so the two packages read each
 other's checkpoints of the same tree.
+
+* **Sharded trees** — under a mesh, ``shardings=`` (a tree of
+  ``distributed.sharding.NamedSharding``, e.g. ``param_shardings``) makes
+  a save gather the full leaves first (every rank takes part, rank 0
+  writes), so the files are those of an unsharded save; a restore cuts
+  each full leaf to this rank's shard on the current mesh, whatever mesh
+  wrote it: the elastic restart.
 """
 from __future__ import annotations
 
@@ -56,12 +63,30 @@ def _canonical_numerics(numerics) -> Optional[str]:
     return str(NumericsPlan.parse(numerics))
 
 
+def _full_tree(tree, shardings):
+    """The full leaves of a sharded tree (a collective over the mesh)."""
+    from ..distributed.sharding import gather_tree, map_with_path
+    return map_with_path(lambda _p, t, s: gather_tree(t, s.spec, s.mesh),
+                         tree, shardings)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or no process group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, tree, *,
-                    numerics=None) -> str:
+                    numerics=None, shardings=None) -> str:
     """Atomic synchronous save of a tree of tensors or arrays; returns the
     final path.  ``numerics`` is canonicalized and stamped into the
-    manifest."""
+    manifest.  With ``shardings`` every rank must call it; rank 0
+    writes."""
     final = os.path.join(directory, f"step_{step:08d}")
+    if shardings is not None:
+        tree = _full_tree(tree, shardings)
+        if not _writer():
+            return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -115,13 +140,16 @@ def _torn(path, why):
 
 
 def load_checkpoint(directory: str, step: int, like, device=None, *,
-                    numerics=None, allow_numerics_mismatch: bool = False):
+                    shardings=None, numerics=None,
+                    allow_numerics_mismatch: bool = False):
     """Restore a tree saved by :func:`save_checkpoint`.
 
     ``like`` gives the tree structure (a tree of tensors); each leaf is
     placed on ``device``, or on its ``like`` leaf's device when ``device``
-    is None.  When both ``numerics`` and the manifest's stamp are present
-    and their canonical plan strings differ, the restore raises unless
+    is None.  ``shardings`` (a tree of ``NamedSharding`` on the current
+    mesh) cuts each full leaf to this rank's shard.  When both
+    ``numerics`` and the manifest's stamp are present and their canonical
+    plan strings differ, the restore raises unless
     ``allow_numerics_mismatch``; an unstamped checkpoint restores without
     the check.
     """
@@ -161,7 +189,12 @@ def load_checkpoint(directory: str, step: int, like, device=None, *,
         a = np.load(os.path.join(path, f"leaf_{i}.npy"))
         dev = device if device is not None else ref.device
         out.append(torch.from_numpy(a).to(dev))
-    return tree_unflatten(treedef, out)
+    out = tree_unflatten(treedef, out)
+    if shardings is not None:
+        from ..distributed.sharding import local_shard, map_with_path
+        out = map_with_path(lambda _p, t, s: local_shard(t, s.spec, s.mesh),
+                            out, shardings)
+    return out
 
 
 class CheckpointManager:
@@ -183,8 +216,14 @@ class CheckpointManager:
         self._error: Optional[BaseException] = None
         os.makedirs(directory, exist_ok=True)
 
-    def save(self, step: int, tree, blocking: bool = True):
+    def save(self, step: int, tree, blocking: bool = True, shardings=None):
+        """With ``shardings`` every rank calls it: the full leaves are
+        gathered here, and rank 0 writes."""
         self.wait()
+        if shardings is not None:
+            tree = _full_tree(tree, shardings)
+            if not _writer():
+                return
         # Copy to the host before returning: the caller's next step may
         # write new tensors in place of these.
         host, treedef = _host(tree)
@@ -216,14 +255,15 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, device=None, shardings=None):
         """``(tree, step)`` of the newest complete checkpoint, or ``(None,
-        None)``."""
+        None)``; ``shardings`` as :func:`load_checkpoint`'s."""
         step = latest_step(self.directory)
         if step is None:
             return None, None
         return load_checkpoint(
-            self.directory, step, like, device, numerics=self.numerics,
+            self.directory, step, like, device, shardings=shardings,
+            numerics=self.numerics,
             allow_numerics_mismatch=self.allow_numerics_mismatch), step
 
     def _gc(self):

@@ -267,10 +267,25 @@ def _train(step, params, mom, xb, yb, steps: int):
             None if mom is None else params_to_numpy(mom), float(loss))
 
 
+def _mlp_rank(rank_: int, world: int, job: dict, device):
+    """One rank of :func:`_train_on_ranks`: trains; returns its replica of
+    the parameters."""
+    from ..paper.mlp import params_from_numpy
+    model = LNSDataParallelMLP(job["cfg"], DPConfig.from_spec(
+        job["plan"], num_devices=world), device=device)
+    params = params_from_numpy(job["params"], device)
+    # With no fault plan train_step_faults is train_step.
+    return _train(lambda p, x, y, m, i: model.train_step_faults(
+                      p, x, y, i, m), params,
+                  model.init_momentum(params), job["xb"], job["yb"],
+                  job["steps"])
+
+
 def _rank_main(rank_: int, world: int, job: dict) -> None:
-    """One rank of :func:`_train_on_ranks` (gloo on the CPU, NCCL on card
-    ``rank_``): trains and writes its replica of the parameters to the
-    job's directory."""
+    """One rank (gloo on the CPU, NCCL on card ``rank_``): runs
+    ``job["fn"](rank, world, job, device)`` (default: the MLP's
+    :func:`_mlp_rank`) inside the process group and writes what it returns
+    to the job's directory."""
     torch.set_num_threads(1)
     device = job["device"]
     if device == "cuda":
@@ -282,15 +297,7 @@ def _rank_main(rank_: int, world: int, job: dict) -> None:
         world_size=world, rank=rank_,
         timeout=datetime.timedelta(seconds=job["timeout"]))
     try:
-        from ..paper.mlp import params_from_numpy
-        model = LNSDataParallelMLP(job["cfg"], DPConfig.from_spec(
-            job["plan"], num_devices=world), device=device)
-        params = params_from_numpy(job["params"], device)
-        # With no fault plan train_step_faults is train_step.
-        out = _train(lambda p, x, y, m, i: model.train_step_faults(
-                         p, x, y, i, m), params,
-                     model.init_momentum(params), job["xb"], job["yb"],
-                     job["steps"])
+        out = job.get("fn", _mlp_rank)(rank_, world, job, device)
         path = Path(job["dir"]) / f"out_{world}_{rank_}.pkl"
         path.write_bytes(pickle.dumps(out))
     finally:
@@ -298,8 +305,7 @@ def _rank_main(rank_: int, world: int, job: dict) -> None:
 
 
 def _spawn(world: int, job: dict, deadline: float):
-    """Run ``world`` ranks; returns every rank's (params, momentum,
-    loss)."""
+    """Run ``world`` ranks; returns what every rank returned."""
     import torch.multiprocessing as mp
     ctx = mp.start_processes(_rank_main, args=(world, job), nprocs=world,
                              join=False, start_method="spawn")
@@ -317,6 +323,20 @@ def _spawn(world: int, job: dict, deadline: float):
                           ).read_bytes()) for r in range(world)]
 
 
+def run_on_ranks(world: int, fn, job: dict, *, device: str = "cuda",
+                 timeout: float = 300.0) -> list:
+    """``fn(rank, world, job, device)`` on ``world`` ranks of one process
+    group, each in a process of its own (gloo on the CPU, or NCCL with
+    rank r on card r); ``fn`` must be importable by name (a module-level
+    function).  Returns what each rank returned, in rank order."""
+    workdir = tempfile.mkdtemp()  # the ranks' file store and results
+    job = dict(job, fn=fn, dir=workdir, timeout=timeout, device=device)
+    try:
+        return _spawn(world, job, time.monotonic() + timeout)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def _train_on_ranks(world: int, cfg, plan, params, xb, yb, *,
                     steps: int = 3, device: str = "cuda",
                     timeout: float = 300.0) -> list:
@@ -328,13 +348,9 @@ def _train_on_ranks(world: int, cfg, plan, params, xb, yb, *,
     is ``train_step_faults`` at its index (``train_step`` when ``cfg``
     plans no faults).  Returns every rank's (params, momentum
     or None, last loss), in numpy form."""
-    workdir = tempfile.mkdtemp()  # the ranks' file store and results
-    job = dict(cfg=cfg, plan=plan, params=params, xb=xb, yb=yb,
-               steps=steps, dir=workdir, timeout=timeout, device=device)
-    try:
-        return _spawn(world, job, time.monotonic() + timeout)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    return run_on_ranks(world, _mlp_rank, dict(
+        cfg=cfg, plan=plan, params=params, xb=xb, yb=yb, steps=steps),
+        device=device, timeout=timeout)
 
 
 def _same(a, b) -> bool:

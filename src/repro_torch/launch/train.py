@@ -6,11 +6,20 @@ resumes from the latest atomic checkpoint at the exact batch index (the
 data are a function of the step).  The flags and the ``[train] ...`` lines
 are the JAX package's, plus ``--device`` (``cuda`` by default, which needs
 a card; ``cpu`` runs the kernels' plain versions).
+
+``--data-parallel N`` trains on N ranks (``float-psum``: each rank its
+block of the batch, the gradients all-reduced to their mean): the ranks of
+``torchrun``, or N processes this launcher spawns (gloo on the CPU, NCCL
+with one card each).  Rank 0 alone prints the loss and writes the
+checkpoints and the metrics.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
+
+import torch.distributed as dist
 
 from ..ckpt import CheckpointManager
 from ..configs import get_config, reduced
@@ -70,8 +79,8 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--data-parallel", type=int, default=1,
-                    help="ranks of the data-parallel step; only 1 is "
-                    "ported")
+                    help="ranks of the data-parallel step (torchrun's, or "
+                    "processes spawned here)")
     ap.add_argument("--reduce-mode", default=None,
                     choices=["float-psum", "boxplus"],
                     help="gradient all-reduce semantics; 'boxplus' is the "
@@ -97,10 +106,15 @@ def main(argv=None):
                     "plain PyTorch versions)")
     args = ap.parse_args(argv)
 
-    if args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel > 1: the LM train step on several ranks is not "
-            "ported (ROADMAP queue 1 items 5 and 13)")
+    dp = args.data_parallel
+    if dp > 1:
+        if args.batch % dp:
+            raise SystemExit(f"--batch {args.batch} not divisible by "
+                             f"--data-parallel {dp}")
+        if not dist.is_initialized():
+            return _launch_ranks(args, argv)
+    rank = dist.get_rank() if dp > 1 else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -117,7 +131,7 @@ def main(argv=None):
                     remat="none" if args.reduced else "block")
     known = known_layer_paths(cfg)
     plan.validate_paths(known)
-    print(f"[train] numerics spec: {plan}")
+    say(f"[train] numerics spec: {plan}")
     cell = ShapeCell("train_cli", args.seq, args.batch, "train")
 
     opt = (AdamWConfig(lr=args.lr) if args.optimizer == "adamw"
@@ -126,6 +140,13 @@ def main(argv=None):
                      compress_grads=args.compress_grads,
                      data_parallel=args.data_parallel)
     rt = Runtime()
+    if dp > 1:
+        from ..core.spec import NumericsSpec
+        eff_mode = (plan.reduce.mode
+                    if "reduce.mode" in NumericsSpec.explicit_keys(head)
+                    else "float-psum")
+        say(f"[train] data-parallel over {dp} devices "
+            f"(reduce.mode={eff_mode})")
 
     params = init_params(args.seed, cfg, device=device)
     state = init_train_state(params, opt, tc)
@@ -140,11 +161,13 @@ def main(argv=None):
         restored, step0 = mgr.restore_latest(state, device)
         if restored is not None:
             state, start = restored, int(step0)
-            print(f"[train] resumed from step {start}")
+            say(f"[train] resumed from step {start}")
+        if rank != 0:
+            mgr = None
 
     ds = SyntheticLMDataset(cfg, cell, DataConfig(seed=args.seed))
     base_step = make_train_step(cfg, opt, rt, tc)
-    if args.metrics:
+    if args.metrics and rank == 0:
         # The plain step inside a collector; the updated parameters are
         # observed per leaf after the step (reads only, so the weights are
         # those of a run without --metrics).
@@ -174,6 +197,10 @@ def main(argv=None):
     with maybe_profile(args.profile_dir):
         for step in range(start, args.steps):
             batch = ds.batch_on(step, device)
+            if dp > 1:
+                n = args.batch // dp
+                batch = {k: v[rank * n:(rank + 1) * n]
+                         for k, v in batch.items()}
             with timer.span("train.step"):
                 if sink is not None:
                     state, metrics, taps = step_fn(state, batch)
@@ -188,7 +215,7 @@ def main(argv=None):
                            step_time_ms=timer.last("train.step"))
             if (step + 1) % args.log_every == 0 or step == args.steps - 1:
                 dt = (time.time() - t0) / max(len(losses), 1)
-                print(f"[train] step {step + 1}/{args.steps} "
+                say(f"[train] step {step + 1}/{args.steps} "
                       f"loss {losses[-1]:.4f} ({dt * 1e3:.0f} ms/step)")
             if mgr is not None and (step + 1) % args.ckpt_every == 0:
                 mgr.save(step + 1, state, blocking=False)
@@ -200,11 +227,47 @@ def main(argv=None):
                         **summary, "arch": args.arch, "spec": str(plan),
                         "steps": len(losses), "final_loss": losses[-1]})
         sink.close()
-        print(f"[train] metrics written to {args.metrics} "
+        say(f"[train] metrics written to {args.metrics} "
               f"(mean step {summary['mean_ms']:.1f} ms)")
-    print(f"[train] done: first loss {losses[0]:.4f} → last "
+    say(f"[train] done: first loss {losses[0]:.4f} → last "
           f"{losses[-1]:.4f}")
     return losses
+
+
+def _cli_rank(rank: int, world: int, job: dict, device):
+    """One rank of :func:`_launch_ranks`: the launcher inside the group."""
+    return main(job["argv"])
+
+
+def _launch_ranks(args, argv):
+    """``--data-parallel N`` with no process group: join torchrun's
+    (``WORLD_SIZE`` in the environment), else spawn N ranks here and
+    return rank 0's losses."""
+    import sys
+    from ..distributed.lns_dp import run_on_ranks
+    dp = args.data_parallel
+    device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ:
+        if int(os.environ["WORLD_SIZE"]) != dp:
+            raise SystemExit(f"--data-parallel {dp} under torchrun with "
+                             f"WORLD_SIZE={os.environ['WORLD_SIZE']}")
+        if device.type == "cuda":
+            import torch
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        try:
+            return main(argv)
+        finally:
+            dist.destroy_process_group()
+    if device.type == "cuda":
+        import torch
+        if dp > torch.cuda.device_count():
+            raise SystemExit(f"--data-parallel {dp} needs {dp} CUDA cards; "
+                             f"this host has {torch.cuda.device_count()}")
+    outs = run_on_ranks(dp, _cli_rank,
+                        {"argv": sys.argv[1:] if argv is None else argv},
+                        device=device.type, timeout=24 * 3600)
+    return outs[0]
 
 
 if __name__ == "__main__":

@@ -109,19 +109,48 @@ def _banded_causal(qg, k, v, scale, cfg: ModelConfig, fl):
     return torch.cat(outs, dim=1)
 
 
+def _head_sharded(x, rt, heads_axis=2):
+    """This rank's block of the heads over the model axis under a mesh
+    (``rt`` the stream layout, ``distributed.spmd.Sharded``); ``x``
+    itself without one, or when the heads do not divide the axis."""
+    if rt is None or getattr(rt, "mesh", None) is None:
+        return x
+    return rt.own_heads(x, heads_axis)
+
+
+def _sdpa(q, k, v, scale, cfg: ModelConfig, fl, rt=None, kv_rt=None):
+    """The banded SDPA with one group per head: q (B,S,H,dq), k/v
+    (B,T,H,·) → (B,S,H,dv).  Under a mesh the tensors are the rank's
+    tokens (``rt`` the queries' stream layout, ``kv_rt`` the keys', by
+    default the same): the whole sequences are gathered, each rank attends
+    with its block of the heads, and the outputs go back to the queries'
+    layout (an all-to-all over the model axis)."""
+    h = q.shape[2]
+    if rt is not None and getattr(rt, "mesh", None) is not None:
+        kv_rt = kv_rt or rt
+        q = _head_sharded(rt.gather_seq(q), rt)
+        k = _head_sharded(kv_rt.gather_seq(k), rt)
+        v = _head_sharded(kv_rt.gather_seq(v), rt)
+    b, s, hl, dq = q.shape
+    o = _banded_causal(q.reshape(b, s, hl, 1, dq), k, v, scale, cfg, fl)
+    o = o.reshape(b, s, hl, o.shape[-1])
+    if rt is not None and getattr(rt, "mesh", None) is not None:
+        o = rt.heads_back(o, h)
+    return o
+
+
 def gqa_attention(p, x, cfg: ModelConfig, pol: NumericsPolicy,
                   positions, rt=None) -> "tuple[torch.Tensor, KVCache]":
     """Causal self-attention over a full sequence (train / prefill); K/V
-    repeated to the full head count."""
-    from .layers import _single_device
-    _single_device(rt, "gqa_attention")
+    repeated to the full head count.  Under a mesh (``rt`` the stream
+    layout) ``x`` and ``positions`` are the rank's tokens, and so is the
+    cache returned."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q, k, v = gqa_qkv(p, x, cfg, pol, positions)
     kr = torch.repeat_interleave(k, h // kv, dim=2)
     vr = torch.repeat_interleave(v, h // kv, dim=2)
-    qg = q.reshape(b, s, h, 1, hd)
-    o = _banded_causal(qg, kr, vr, hd ** -0.5, cfg, float_ops(pol))
+    o = _sdpa(q, kr, vr, hd ** -0.5, cfg, float_ops(pol), rt)
     o = o.reshape(b, s, h * hd)
     return pol.linear(o, p["wo"]), KVCache(k, v)
 
@@ -149,8 +178,17 @@ def gqa_decode(p, x, cfg: ModelConfig, pol: NumericsPolicy, cache: KVCache,
 
 
 # --------------------------------------------------------- paged GQA -----
+def _token_writer(bt, pos, active, write):
+    """``write(pages, vals)``: the slots' new lines into the pool; by
+    default this batch's slots (:func:`paged_write_token`)."""
+    if write is not None:
+        return write
+    return lambda pages, vals: paged_write_token(pages, bt, pos, vals,
+                                                 active)
+
+
 def gqa_decode_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
-                     cache: KVCache, bt, pos, active
+                     cache: KVCache, bt, pos, active, write=None
                      ) -> "tuple[torch.Tensor, KVCache]":
     """One-token batched decode against a paged (block) KV cache.
 
@@ -159,13 +197,15 @@ def gqa_decode_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
     slots write to the null block and their outputs carry no meaning.
     Attention runs over the gathered (B, W·bs) logical view with the same
     length mask as the dense path, so unallocated pages contribute
-    exactly-zero softmax weight.
+    exactly-zero softmax weight.  ``write(pages, new lines)`` replaces the
+    write of this batch's lines (under a mesh: every data rank's).
     """
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q, k_new, v_new = gqa_qkv(p, x, cfg, pol, pos[:, None])
-    k_pages = paged_write_token(cache.k, bt, pos, k_new[:, 0], active)
-    v_pages = paged_write_token(cache.v, bt, pos, v_new[:, 0], active)
+    write = _token_writer(bt, pos, active, write)
+    k_pages = write(cache.k, k_new[:, 0])
+    v_pages = write(cache.v, v_new[:, 0])
     k = paged_gather(k_pages, bt)                   # (B, W·bs, KV, hd)
     v = paged_gather(v_pages, bt)
     ar = torch.arange(k.shape[1], device=x.device)
@@ -250,9 +290,7 @@ def mla_attention(p, x, cfg: ModelConfig, pol: NumericsPolicy,
                   positions, rt=None) -> "tuple[torch.Tensor, KVCache]":
     """Full-sequence MLA (train / prefill): up-project the latents through
     ``pol.linear`` (a ⊞-MAC under the LNS train modes), then the banded
-    SDPA with one group per head."""
-    from .layers import _single_device
-    _single_device(rt, "mla_attention")
+    SDPA with one group per head (under a mesh as :func:`gqa_attention`)."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -265,8 +303,7 @@ def mla_attention(p, x, cfg: ModelConfig, pol: NumericsPolicy,
     q = torch.cat([q_nope, q_pe], -1)
     k = torch.cat([k_nope, k_pe_b], -1)
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
-    qg = q.reshape(b, s, h, 1, q.shape[-1])  # the grouped SDPA, G=1
-    o = _banded_causal(qg, k, v, scale, cfg, float_ops(pol))
+    o = _sdpa(q, k, v, scale, cfg, float_ops(pol), rt)
     o = o.reshape(b, s, h * m.v_head_dim)
     return pol.linear(o, p["wo"]), KVCache(c_kv, k_pe)
 
@@ -319,16 +356,17 @@ def mla_decode(p, x, cfg: ModelConfig, pol: NumericsPolicy, cache: KVCache,
 
 
 def mla_decode_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
-                     cache: KVCache, bt, pos, active
+                     cache: KVCache, bt, pos, active, write=None
                      ) -> "tuple[torch.Tensor, KVCache]":
     """Absorbed one-token MLA decode on paged latent caches.
 
     cache.k: (NB, bs, lora) latent pages; cache.v: (NB, bs, rope) k_pe
-    pages; bt/pos/active as in :func:`gqa_decode_paged`.
+    pages; bt/pos/active/write as in :func:`gqa_decode_paged`.
     """
     c_new, pe_new = _mla_latents(p, x, cfg, pol, pos[:, None])
-    ck_pages = paged_write_token(cache.k, bt, pos, c_new[:, 0], active)
-    pe_pages = paged_write_token(cache.v, bt, pos, pe_new[:, 0], active)
+    write = _token_writer(bt, pos, active, write)
+    ck_pages = write(cache.k, c_new[:, 0])
+    pe_pages = write(cache.v, pe_new[:, 0])
     ck = paged_gather(ck_pages, bt)                 # (B, W·bs, lora)
     kpe = paged_gather(pe_pages, bt)
     ar = torch.arange(ck.shape[1], device=x.device)

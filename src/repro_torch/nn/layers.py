@@ -5,8 +5,9 @@ tensors.  Weight products route through per-layer resolved numerics
 runtimes (:class:`~repro_torch.core.spec.LNSRuntime`): ``nn/model.py``
 parses the config's ``numerics`` as a plan and hands every component
 (``layers.attn``, ``layers.mlp``, ``emb``, ``head``, ...) the runtime its
-layer path resolves to.  Only the single-device branches are ported: a
-runtime with a mesh raises (ROADMAP queue 1 item 13).
+layer path resolves to.  Under a mesh (a ``Runtime`` with one, and the
+stream layout ``distributed.spmd.Sharded``) the embedding is the Megatron
+vocab-parallel lookup and the cross-entropy runs on the rank's tokens.
 """
 from __future__ import annotations
 
@@ -16,14 +17,19 @@ from ..core.numerics import NumericsPolicy  # = core.spec.LNSRuntime
 from .config import ModelConfig
 
 
-def _single_device(rt, what: str) -> None:
-    if rt is not None and getattr(rt, "mesh", None) is not None:
-        raise NotImplementedError(
-            f"{what} with a mesh (the shard_map branch) is not ported "
-            f"(ROADMAP queue 1 item 13)")
+def _mesh(rt):
+    return None if rt is None else getattr(rt, "mesh", None)
+
+
+class MetaGen:
+    """The generator of :func:`~repro_torch.nn.model.init_params` on the
+    ``meta`` device: shapes and dtypes, no values."""
+    device = torch.device("meta")
 
 
 def _normal(gen, shape, dtype, std: float):
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=dtype) * std
 
@@ -173,13 +179,35 @@ def init_embeddings(gen, cfg: ModelConfig, dtype):
     return p
 
 
-def embed_tokens(p, tokens, pol: NumericsPolicy, rt=None):
+def embed_tokens(p, tokens, pol: NumericsPolicy, rt=None, scatter=None):
     """Embedding lookup of the (STE-quantized) table: a gather.  The
     quantizer is elementwise, so the gathered rows are quantized, not the
     whole table: the same values and the same straight-through
-    gradient."""
-    _single_device(rt, "embed_tokens")
-    return pol.q_param(p["tok"][tokens.long()])
+    gradient.
+
+    Under a mesh (``rt`` a ``Runtime`` with one) the table is split over
+    the vocabulary on the model axis: the Megatron masked local lookup,
+    then a reduce-scatter over the sequence when its length divides the
+    model axis (``scatter``; the rank keeps its block of the sequence),
+    else an all-reduce.  Each token's row lives on one rank, so the sum
+    is exact."""
+    if _mesh(rt) is None:
+        return pol.q_param(p["tok"][tokens.long()])
+    from ..distributed.sharding import P
+    from ..distributed.spmd import Sharded, all_reduce, reduce_scatter
+    sh = Sharded(rt.mesh, tuple(rt.data_axes), rt.model_axis, False)
+    if scatter is None:
+        scatter = tokens.ndim > 1 and tokens.shape[1] % sh.tp == 0
+    w_loc = sh.use(p["tok"], P("model", None), gather=())
+    vloc = w_loc.shape[0]
+    idx = tokens.long() - sh.model_rank * vloc
+    ok = (idx >= 0) & (idx < vloc)
+    x = pol.q_param(w_loc[torch.clamp(idx, 0, vloc - 1)])
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    if scatter:
+        return reduce_scatter(x, 1, sh.model_group)
+    return all_reduce(x, sh.model_group)
 
 
 def _mask_pad(logits, cfg: ModelConfig):
@@ -191,13 +219,19 @@ def _mask_pad(logits, cfg: ModelConfig):
                                          device=logits.device), logits)
 
 
-def _head_weight(emb_params, cfg: ModelConfig):
-    """(d, V): the tied table's transposed view, or the head."""
+def _head_weight(emb_params, cfg: ModelConfig, sh=None):
+    """(d, V): the tied table's transposed view, or the head; under a mesh
+    (``sh``, a stream layout) gathered whole."""
+    if sh is not None:
+        from ..distributed.sharding import P
+        if cfg.tie_embeddings:
+            return sh.use(emb_params["tok"], P("model", None)).T
+        return sh.use(emb_params["head"], P(None, "model"))
     return emb_params["tok"].T if cfg.tie_embeddings else emb_params["head"]
 
 
-def lm_logits(p, x, pol: NumericsPolicy, cfg: ModelConfig):
-    return _mask_pad(pol.linear(x, _head_weight(p, cfg)), cfg)
+def lm_logits(p, x, pol: NumericsPolicy, cfg: ModelConfig, sh=None):
+    return _mask_pad(pol.linear(x, _head_weight(p, cfg, sh)), cfg)
 
 
 # ----------------------------------------------------------- rotary ------
@@ -225,11 +259,19 @@ def apply_rope(x, positions, theta: float):
 
 # ----------------------------------------------- chunked cross-entropy ---
 def chunked_ce_loss(x, emb_params, labels, pol: NumericsPolicy,
-                    cfg: ModelConfig, chunk: "int | None" = None, rt=None):
+                    cfg: ModelConfig, chunk: "int | None" = None, rt=None,
+                    offset: int = 0):
     """Mean CE over (B, S) without the (B, S, V) logits at once: a loop
-    over sequence chunks, logits and LSE in float32 per chunk."""
-    _single_device(rt, "chunked_ce_loss")
+    over sequence chunks, logits and LSE in float32 per chunk.
+
+    Under a mesh (``rt`` the stream layout of ``x``, whose position
+    ``offset + t`` carries label ``t``): :func:`_sharded_ce_loss`."""
     chunk = chunk or cfg.ce_chunk
+    if _mesh(rt) is not None:
+        return _sharded_ce_loss(x, emb_params, labels, pol, cfg, chunk, rt,
+                                offset)
+    if offset:
+        x = x[:, offset:]
     b, s, d = x.shape
     n = max(s // chunk, 1)
     c = s // n
@@ -243,3 +285,55 @@ def chunked_ce_loss(x, emb_params, labels, pol: NumericsPolicy,
         ll = torch.gather(logits, -1, ys[:, i, :, None])[..., 0]
         total = total + torch.sum(lse - ll)
     return total / (b * n * c)
+
+
+def _sharded_ce_loss(x, emb_params, labels, pol, cfg, chunk, sh, offset):
+    """The chunked CE on the rank's tokens: each chunk of label positions
+    cut to this rank's block of the sequence (batch → data, chunk
+    sequence → model), the head gathered whole.  The per-token terms of
+    every rank are gathered and summed chunk by chunk in the one-device
+    order, so the loss is the one-device float on every rank; its gradient
+    reaches each rank's own terms."""
+    from ..distributed.spmd import all_reduce_raw, shared_value
+    b, s_loc, _ = x.shape
+    s = labels.shape[1]
+    n = max(s // chunk, 1)
+    c = s // n
+    w = _head_weight(emb_params, cfg, sh)
+    pos0 = sh.model_rank * s_loc if sh.seq else 0
+    ys = labels.long()
+    segs, at = [], 0
+
+    def zeros(k):
+        return torch.zeros((b, k), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        lo = max(i * c + offset, pos0)
+        hi = min((i + 1) * c + offset, pos0 + s_loc)
+        if lo >= hi:
+            continue
+        logits = _mask_pad(pol.linear(x[:, lo - pos0:hi - pos0], w),
+                           cfg).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          ys[:, lo - offset:hi - offset, None])[..., 0]
+        if lo - offset > at:
+            segs.append(zeros(lo - offset - at))
+        segs.append(lse - ll)
+        at = hi - offset
+    if at < n * c:
+        segs.append(zeros(n * c - at))
+    grid = torch.cat(segs, dim=1)                 # this rank's terms
+    if at == 0:
+        # No label on this rank: its backward still runs every collective
+        # behind x and the head, with zero gradients.
+        grid = grid + 0.0 * (x.sum() + w.sum())
+    with torch.no_grad():
+        full = grid.detach()
+        if sh.seq:
+            full = all_reduce_raw(full, sh.model_group)
+        full = sh.gather_data(full)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n):
+            total = total + torch.sum(full[:, i * c:(i + 1) * c].contiguous())
+        denom = full.shape[0] * n * c
+    return shared_value(total / denom, grid.sum() / (denom * sh.rep))

@@ -52,12 +52,16 @@ then reproduces the dense token-by-token oracle exactly; under the float
 specs the weight products are float32 matmuls, which round by shape, and
 the two agree only up to those roundings.
 
-Ported on one device; a :class:`Runtime` with a mesh raises naming
-ROADMAP queue 1 item 13.
+Under a :class:`Runtime` with a mesh, every entry point runs on the
+rank's shards (see :class:`Runtime`): ``loss_fn`` returns the global loss
+on every rank, ``prefill`` returns the rank's caches in the
+``cache_specs`` layout, and the decode steps take and return caches in
+that layout (gathered over the model axis for the step).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
@@ -67,17 +71,19 @@ from torch.utils.checkpoint import checkpoint
 from ..core.numerics import get_plan
 from ..core.spec import TORCH_DTYPES
 from ..devices import resolve_device
+from ..distributed.spmd import own_block
 from ..pytree import tree_flatten, tree_map, tree_unflatten
-from .attention import (KVCache, _banded_causal, gqa_attention,
+from .attention import (KVCache, _sdpa, gqa_attention,
                         gqa_decode, gqa_decode_paged, gqa_prefill_paged,
                         init_gqa, init_mla, make_cache, make_paged_cache,
                         mla_attention, mla_decode, mla_decode_paged,
                         mla_prefill_paged)
 from .config import ModelConfig
-from .layers import (ORDER_FREE, _normal, apply_mlp, apply_norm,
+from .layers import (ORDER_FREE, MetaGen, _normal, apply_mlp, apply_norm,
                      chunked_ce_loss, embed_tokens, float_ops,
                      init_embeddings, init_mlp, init_norm, lm_logits)
 from .moe import init_moe, moe_block
+from .paged import paged_write_token
 from .ssm import (SSMCache, init_mamba2, make_ssm_cache, mamba2_decode,
                   mamba2_forward)
 
@@ -91,20 +97,46 @@ PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec",
 PAGED_FAMILIES = ("dense", "vlm", "moe")
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported (ROADMAP queue 1 "
-                               f"item {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Distribution context.  ``mesh=None`` is the single-device mode, the
-    only one ported: a mesh raises (ROADMAP queue 1 item 13)."""
+    """Distribution context; ``mesh=None`` is the single-device mode.
+
+    With a ``torch.distributed.device_mesh.DeviceMesh`` every rank runs the
+    same code on its local tensors (explicit SPMD,
+    :mod:`repro_torch.distributed.spmd`): parameters are the rank's shards
+    by :func:`~repro_torch.distributed.sharding.param_specs`, gathered
+    around their use; the batch is split over ``data_axes``; the token
+    stream's sequence over ``model_axis`` when its length divides that
+    axis (else replicated over it); attention heads over ``model``; MoE
+    experts over ``model`` (``moe_ep`` / ``moe_ep_replicated``); the
+    embedding is vocab-parallel."""
     mesh: Optional[Any] = None
+    data_axes: tuple = ("data",)
+    model_axis: str = "model"
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise _unported("Runtime(mesh=...): sharded execution", "13")
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(self.mesh, DeviceMesh):
+                raise TypeError(f"Runtime(mesh=...) takes a torch.distributed"
+                                f".device_mesh.DeviceMesh, not "
+                                f"{type(self.mesh).__name__}")
+        object.__setattr__(self, "data_axes", tuple(self.data_axes))
+
+    @property
+    def tp(self) -> int:
+        from ..distributed.sharding import axis_size
+        return 1 if self.mesh is None else axis_size(self.mesh,
+                                                     self.model_axis)
+
+    def sharded(self, seq_len: int):
+        """The layout of a token stream of ``seq_len`` positions (None
+        without a mesh)."""
+        if self.mesh is None:
+            return None
+        from ..distributed.spmd import Sharded
+        return Sharded(self.mesh, self.data_axes, self.model_axis,
+                       seq_len % self.tp == 0)
 
 
 # ----------------------------------------------- per-layer numerics ------
@@ -214,6 +246,13 @@ def _hybrid_split(cfg: ModelConfig):
     return groups, k, cfg.layers - groups * k
 
 
+def _device(device) -> torch.device:
+    """``resolve_device``, and the ``meta`` device (shapes, no values)."""
+    if str(device) == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def init_params(key, cfg: ModelConfig, device="cuda"):
     """Fresh parameters of a config of any family on ``device``.
 
@@ -225,11 +264,14 @@ def init_params(key, cfg: ModelConfig, device="cuda"):
     stacks ``max(fd, 1)`` dense layers and ``max(layers - fd, 1)`` MoE
     layers (``fd = moe.first_dense_layers``), and the hybrid
     ``max(groups · attn_every, 1)`` Mamba2 layers: a hybrid shallower than
-    ``attn_every`` stacks one layer that no group runs.
+    ``attn_every`` stacks one layer that no group runs.  On the ``meta``
+    device the tree has its shapes and dtypes and no values (for the
+    sharding specs of a config at any width).
     """
-    device = resolve_device(device)
+    device = _device(device)
     _check_family(cfg, "init_params")
-    gen = key if isinstance(key, torch.Generator) else \
+    gen = MetaGen() if device.type == "meta" else key \
+        if isinstance(key, torch.Generator) else \
         torch.Generator().manual_seed(int(key))
     dtype = TORCH_DTYPES[cfg.param_dtype]
     p: dict = {"emb": init_embeddings(gen, cfg, dtype),
@@ -316,13 +358,14 @@ def _dense_block(lp, x, cfg, bp: BlockPols, attn):
     return x, cache
 
 
-def _moe_layer_fwd(lp, x, cfg, bp: BlockPols, attn):
+def _moe_layer_fwd(lp, x, cfg, bp: BlockPols, attn, sh=None):
+    """``sh``: the stream layout under a mesh (``moe_block``'s EP forms)."""
     fl = float_ops(bp.attn)
     a, cache = attn(lp["attn"], apply_norm(lp["norm1"], x, cfg, fl=fl),
                     bp.attn)
     x = x + _res(x, a)
     y, aux = moe_block(lp["moe"], apply_norm(lp["norm2"], x, cfg, fl=fl),
-                       cfg, bp.moe)
+                       cfg, bp.moe, sh)
     return x + _res(x, y), cache, aux
 
 
@@ -335,22 +378,26 @@ def _ssm_block(lp, x, cfg, bp: BlockPols, mamba):
     return x + _res(x, y), cache
 
 
-def _xattn_block(lp, x, cfg, bp: BlockPols, attn, enc_out):
+def _xattn_block(lp, x, cfg, bp: BlockPols, attn, enc_out, sh=None,
+                 enc_sh=None):
     """Enc-dec decoder layer: self-attention, cross-attention over
-    ``enc_out``, MLP; returns (x, (self cache, cross cache))."""
+    ``enc_out``, MLP; returns (x, (self cache, cross cache)).  ``sh`` /
+    ``enc_sh``: the decoder's and the encoder's stream layouts under a
+    mesh."""
     fl = float_ops(bp.attn)
     a, cache = attn(lp["attn"], apply_norm(lp["norm1"], x, cfg, fl=fl),
                     bp.attn)
     x = x + _res(x, a)
     q = apply_norm(lp["norm2"], x, cfg, fl=fl)
-    xa, xcache = _cross_attention(lp["xattn"], q, enc_out, cfg, bp.xattn)
+    xa, xcache = _cross_attention(lp["xattn"], q, enc_out, cfg, bp.xattn,
+                                  sh, enc_sh)
     x = x + _res(x, xa)
     x = x + _res(x, apply_mlp(lp["mlp"], apply_norm(lp["norm3"], x, cfg,
                                                     fl=fl), cfg, bp.mlp))
     return x, (cache, xcache)
 
 
-def _cross_attention(lp, q_in, enc_out, cfg, pol):
+def _cross_attention(lp, q_in, enc_out, cfg, pol, sh=None, enc_sh=None):
     """Non-causal attention of decoder queries over the encoder memory:
     the banded SDPA with one band.  As in the JAX package, that band's
     keys are the first ``min(S, T)`` frames (its extent is the query
@@ -363,9 +410,8 @@ def _cross_attention(lp, q_in, enc_out, cfg, pol):
     v = pol.linear(enc_out, lp["wv"]).reshape(b, t, kv, hd)
     kr = torch.repeat_interleave(k, h // kv, dim=2)
     vr = torch.repeat_interleave(v, h // kv, dim=2)
-    qg = q.reshape(b, s, h, 1, hd)
-    o = _banded_causal(qg, kr, vr, hd ** -0.5, cfg.with_(causal=False),
-                       float_ops(pol))
+    o = _sdpa(q, kr, vr, hd ** -0.5, cfg.with_(causal=False), float_ops(pol),
+              sh, enc_sh)
     o = o.reshape(b, s, h * hd)
     return pol.linear(o, lp["wo"]), KVCache(k, v)
 
@@ -400,15 +446,38 @@ def _maybe_remat(fn, cfg):
 
 
 # ---------------------------------------------------------- forward ------
-def _embed_inputs(params, batch, cfg, plan, rt=None):
-    """tokens (+ optional stub frontend embeds) → (B, S, d)."""
+def _full(params, key, sh):
+    """``params[key]`` as used: gathered whole under a mesh."""
+    return params[key] if sh is None else sh.full(params[key], key)
+
+
+def _frontend_in(batch, cfg):
+    return batch.get("frontend_embeds") if cfg.frontend else None
+
+
+def _stream(batch, cfg, rt: Runtime):
+    """The layout of :func:`_embed_inputs`' stream (None without a
+    mesh)."""
+    fe = _frontend_in(batch, cfg)
+    return rt.sharded(batch["tokens"].shape[1]
+                      + (0 if fe is None else fe.shape[1]))
+
+
+def _embed_inputs(params, batch, cfg, plan, rt: Runtime = Runtime()):
+    """tokens (+ optional stub frontend embeds) → (B, S, d).  Under a mesh
+    the rank's block of the stream: the frontend's prefix and the text
+    are joined whole over the model axis, then cut to the rank's block of
+    the sequence."""
+    fe_in = _frontend_in(batch, cfg)
     x = embed_tokens(params["emb"], batch["tokens"], plan.runtime_for("emb"),
-                     rt)
-    if cfg.frontend and "frontend_embeds" in batch:
+                     rt, scatter=False if fe_in is not None else None)
+    if fe_in is not None:
         fpol = plan.runtime_for("frontend")
-        fe = fpol.linear(batch["frontend_embeds"].to(fpol.dtype),
-                         params["frontend_proj"])
+        proj = _full(params, "frontend_proj", rt.sharded(1))
+        fe = fpol.linear(fe_in.to(fpol.dtype), proj)
         x = torch.cat([fe.to(x.dtype), x], dim=1)
+        if rt.mesh is not None:
+            x = _stream(batch, cfg, rt).own_seq(x)
     return x
 
 
@@ -431,8 +500,22 @@ def _empty_hybrid_caches(cfg: ModelConfig, x):
             KVCache(empty(*kv), empty(*kv)))
 
 
+def _mamba_fn(cfg, sh):
+    """The full-sequence Mamba2 block; under a mesh over the whole
+    sequence (gathered), the output cut back to the rank's block and the
+    caches to its block of the channels and heads (``cache_specs``)."""
+    def mamba(mp, h, pol):
+        if sh is None:
+            return mamba2_forward(mp, h, cfg, pol)
+        y, c = mamba2_forward(mp, sh.gather_seq(h), cfg, pol)
+        grp = sh.model_group
+        return sh.own_seq(y), SSMCache(own_block(c.conv, 2, grp).clone(),
+                                       own_block(c.state, 1, grp).clone())
+    return mamba
+
+
 def _layer_stack(params, x, cfg: ModelConfig, rt: Runtime, positions,
-                 want_caches: bool = False):
+                 want_caches: bool = False, sh=None):
     """Full-sequence pass through the layer stacks of a decoder-only
     family → (x, caches, aux).
 
@@ -442,22 +525,25 @@ def _layer_stack(params, x, cfg: ModelConfig, rt: Runtime, positions,
     group of ``attn_every`` Mamba2 layers and then the shared attention
     block, then its tail, and its prefill caches stack the groups' Mamba2
     caches as (groups, attn_every, ...), as the JAX package's nested scan
-    does."""
+    does.  Under a mesh (``sh`` the stream layout of ``x``) each layer's
+    parameters are gathered inside its block (again in the recompute of
+    ``remat``)."""
     _check_family(cfg, "the layer stack")
     plan = _model_plan(cfg)
     caches = {}
 
     def attn(ap, h, pol):
-        return _attn_fwd(ap, h, cfg, pol, positions, rt)
+        return _attn_fwd(ap, h, cfg, pol, positions, sh)
 
-    def mamba(mp, h, pol):
-        return mamba2_forward(mp, h, cfg, pol)
+    mamba = _mamba_fn(cfg, sh)
+    moe_layer = functools.partial(_moe_layer_fwd, sh=sh)
 
     def run(x, lps, prefix, kinds, block, fn):
         """x through ``block`` for each layer of ``lps``; returns x and,
         per layer, what the block returns beside it."""
         bp = _block_pols(plan, prefix, *kinds)
-        blk = _maybe_remat(lambda h, lp: block(lp, h, cfg, bp, fn), cfg)
+        blk = _maybe_remat(lambda h, lp: block(
+            lp if sh is None else sh.full(lp, prefix), h, cfg, bp, fn), cfg)
         rest = []
         for lp in lps:
             x, *r = blk(x, lp)
@@ -474,7 +560,7 @@ def _layer_stack(params, x, cfg: ModelConfig, rt: Runtime, positions,
         x, dense = run(x, _unstack(params["dense_layers"])[:fd],
                        "dense_layers", ("attn", "mlp"), _dense_block, attn)
         x, rest = run(x, _unstack(params["layers"]), "layers",
-                      ("attn", "moe"), _moe_layer_fwd, attn)
+                      ("attn", "moe"), moe_layer, attn)
         if want_caches:
             caches["layers"] = _stack_caches(kept(rest))
             if dense:
@@ -521,22 +607,28 @@ def _backbone(params, x, cfg: ModelConfig, rt: Runtime, positions):
     return _layer_stack(params, x, cfg, rt, positions)[0]
 
 
-def _positions(x):
-    return torch.arange(x.shape[1], device=x.device)[None].expand(
-        x.shape[:2])
+def _positions(x, sh=None):
+    """The positions of ``x``'s tokens (of the rank's block under a
+    mesh)."""
+    pos = torch.arange(x.shape[1], device=x.device)
+    if sh is not None and sh.seq:
+        pos = pos + sh.model_rank * x.shape[1]
+    return pos[None].expand(x.shape[:2])
 
 
-def _encoder(params, enc_in, cfg: ModelConfig, rt: Runtime):
+def _encoder(params, enc_in, cfg: ModelConfig, rt: Runtime, sh=None):
     """The enc-dec encoder: dense blocks with non-causal attention."""
     plan = _model_plan(cfg)
     bp = _block_pols(plan, "enc_layers", "attn", "mlp")
     enc_cfg = cfg.with_(causal=False)
-    positions = _positions(enc_in)
+    positions = _positions(enc_in, sh)
 
     def attn(ap, h, pol):
-        return _attn_fwd(ap, h, enc_cfg, pol, positions, rt)
+        return _attn_fwd(ap, h, enc_cfg, pol, positions, sh)
     blk = _maybe_remat(
-        lambda h, lp: _dense_block(lp, h, enc_cfg, bp, attn)[0], cfg)
+        lambda h, lp: _dense_block(lp if sh is None else
+                                   sh.full(lp, "enc_layers"), h, enc_cfg,
+                                   bp, attn)[0], cfg)
     x = enc_in
     for lp in _unstack(params["enc_layers"]):
         x = blk(x, lp)
@@ -544,16 +636,18 @@ def _encoder(params, enc_in, cfg: ModelConfig, rt: Runtime):
 
 
 def _decoder(params, x, enc_out, cfg: ModelConfig, rt: Runtime, positions,
-             want_caches: bool = True):
+             want_caches: bool = True, sh=None, enc_sh=None):
     """The enc-dec decoder stack → (x, (self KV, cross KV) stacked along
     the layer axis, or None)."""
     plan = _model_plan(cfg)
     bp = _block_pols(plan, "layers", "attn", "mlp", "xattn")
 
     def attn(ap, h, pol):
-        return _attn_fwd(ap, h, cfg, pol, positions, rt)
+        return _attn_fwd(ap, h, cfg, pol, positions, sh)
     blk = _maybe_remat(
-        lambda h, lp: _xattn_block(lp, h, cfg, bp, attn, enc_out), cfg)
+        lambda h, lp: _xattn_block(lp if sh is None else sh.full(lp, "layers"),
+                                   h, cfg, bp, attn, enc_out, sh, enc_sh),
+        cfg)
     out = []
     for lp in _unstack(params["layers"]):
         x, c = blk(x, lp)
@@ -572,16 +666,22 @@ def _enc_dec(params, batch, cfg, plan, rt, want_caches):
     emb_pol = plan.runtime_for("emb")
     if cfg.frontend:
         fpol = plan.runtime_for("frontend")
-        enc_in = fpol.linear(batch["frontend_embeds"].to(fpol.dtype),
-                             params["frontend_proj"])
+        fe = batch["frontend_embeds"]
+        enc_sh = rt.sharded(fe.shape[1])
+        enc_in = fpol.linear(fe.to(fpol.dtype),
+                             _full(params, "frontend_proj", enc_sh))
+        if enc_sh is not None:
+            enc_in = enc_sh.own_seq(enc_in)
     else:
+        enc_sh = rt.sharded(batch["enc_tokens"].shape[1])
         enc_in = embed_tokens(params["emb"], batch["enc_tokens"], emb_pol,
                               rt)
-    enc_out = _encoder(params, enc_in, cfg, rt)
+    enc_out = _encoder(params, enc_in, cfg, rt, enc_sh)
+    sh = rt.sharded(batch["tokens"].shape[1])
     x = embed_tokens(params["emb"], batch["tokens"], emb_pol, rt)
-    x, caches = _decoder(params, x, enc_out, cfg, rt, _positions(x),
-                         want_caches=want_caches)
-    return x, caches, enc_out
+    x, caches = _decoder(params, x, enc_out, cfg, rt, _positions(x, sh),
+                         want_caches=want_caches, sh=sh, enc_sh=enc_sh)
+    return x, caches, enc_out, sh
 
 
 # ------------------------------------------------------------- API -------
@@ -592,17 +692,21 @@ def loss_fn(params, batch, cfg: ModelConfig, rt: Runtime = Runtime()):
     over the decoder tokens."""
     plan = _model_plan(cfg)
     if cfg.family in ("encdec", "audio"):
-        x, _, _ = _enc_dec(params, batch, cfg, plan, rt, want_caches=False)
+        x, _, _, sh = _enc_dec(params, batch, cfg, plan, rt,
+                               want_caches=False)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
+        sh = _stream(batch, cfg, rt)
         x = _embed_inputs(params, batch, cfg, plan, rt)
-        x, _, aux = _layer_stack(params, x, cfg, rt, _positions(x))
-    x = apply_norm(params["final_norm"], x, cfg)
+        x, _, aux = _layer_stack(params, x, cfg, rt, _positions(x, sh),
+                                 sh=sh)
+    x = apply_norm(_full(params, "final_norm", sh), x, cfg)
     labels = batch["labels"]
-    if x.shape[1] != labels.shape[1]:  # frontend prefix carries no loss
-        x = x[:, x.shape[1] - labels.shape[1]:]
+    # the frontend prefix carries no loss
+    s = x.shape[1] * (sh.tp if sh is not None and sh.seq else 1)
     loss = chunked_ce_loss(x, params["emb"], labels,
-                           plan.runtime_for("head"), cfg, rt=rt)
+                           plan.runtime_for("head"), cfg, rt=sh,
+                           offset=s - labels.shape[1])
     return loss + 0.01 * aux
 
 
@@ -612,15 +716,22 @@ def prefill(params, batch, cfg: ModelConfig, rt: Runtime = Runtime()):
     ``{"layers": (self KV, cross KV), "enc_out"}``)."""
     plan = _model_plan(cfg)
     if cfg.family in ("encdec", "audio"):
-        x, dec, enc_out = _enc_dec(params, batch, cfg, plan, rt,
-                                   want_caches=True)
+        x, dec, enc_out, sh = _enc_dec(params, batch, cfg, plan, rt,
+                                       want_caches=True)
         caches = {"layers": dec, "enc_out": enc_out}
     else:
+        sh = _stream(batch, cfg, rt)
         x = _embed_inputs(params, batch, cfg, plan, rt)
-        x, caches, _ = _layer_stack(params, x, cfg, rt, _positions(x),
-                                    want_caches=True)
-    x = apply_norm(params["final_norm"], x[:, -1:], cfg)
-    return lm_logits(params["emb"], x, plan.runtime_for("head"), cfg), caches
+        x, caches, _ = _layer_stack(params, x, cfg, rt, _positions(x, sh),
+                                    want_caches=True, sh=sh)
+    if sh is not None and not sh.seq:
+        raise ValueError(f"prefill under a mesh needs a sequence that "
+                         f"divides the {rt.model_axis!r} axis ({sh.tp}), so "
+                         f"that the caches take the cache_specs layout")
+    x = x[:, -1:] if sh is None else sh.gather_seq(x[:, -1:])[:, -1:]
+    x = apply_norm(_full(params, "final_norm", sh), x, cfg)
+    return lm_logits(params["emb"], x, plan.runtime_for("head"), cfg,
+                     sh), caches
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -631,7 +742,7 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     KV, cross KV)`` pair over ``enc_len`` frames (``max_len`` when None)
     with an ``enc_out`` of zeros."""
     _check_family(cfg, "init_decode_caches")
-    device = resolve_device(device)
+    device = _device(device)
 
     def stack(one, n):
         return type(one)(*(t.expand((n,) + t.shape).clone() for t in one))
@@ -746,7 +857,31 @@ def _serve_pols(bp: BlockPols, infer: bool) -> BlockPols:
         for v in [getattr(bp, f.name)]})
 
 
-def _serve(params, tok, caches, cfg, rt, infer, attn, last=None):
+def _cache_io(caches, rt: Runtime, paged: bool):
+    """Under a mesh, ``io(t, spec, whole)`` takes a cache leaf ``t`` whole
+    over the model axis (``whole``) or back to this rank's block of it
+    (a copy, so the whole does not stay alive under a view), along the
+    dims where ``spec`` splits it; with the ``cache_specs`` of
+    ``caches``.  (None, None) without a mesh."""
+    if rt.mesh is None:
+        return None, None
+    from ..distributed.sharding import axis_group, cache_specs
+    from ..distributed.spmd import all_gather_raw
+    grp = axis_group(rt.mesh, rt.model_axis)
+
+    def io(t, spec, whole):
+        for dim, entry in enumerate(spec):
+            if entry == rt.model_axis:
+                b = all_gather_raw(t, dim, grp) if whole else \
+                    own_block(t, dim, grp)
+                t = b if whole or b is t else b.clone()
+        return t
+    return io, cache_specs(caches, rt.data_axes, rt.model_axis,
+                           paged=paged)
+
+
+def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
+           paged=False):
     """One serving forward: embed ``tok``, run every layer stack through
     the serving views (:class:`_ServePol`) with ``attn(lp, h, pol, cache)
     → (out, cache)`` and the Mamba2 decode step, then the final norm and
@@ -755,19 +890,39 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None):
     package's decode does; the hybrid's Mamba2 caches stay flat
     (``groups · attn_every`` layers); the enc-dec cross cache passes
     through unchanged (K and V are recomputed from ``enc_out``).
-    Returns (logits, new caches)."""
+
+    Under a mesh the caches come and go in the ``cache_specs`` layout
+    (``paged`` the pool's); each layer's cache is gathered over the model
+    axis just before the layer's step and cut back to the rank's block
+    just after it, as the weights are, so one layer's cache at a time is
+    whole; the tokens are replicated over the model axis, the MoE layers'
+    experts split over it.  Returns (logits, new caches)."""
     plan = _model_plan(cfg)
+    sh = rt.sharded(tok.shape[1])
+    io, specs = _cache_io(caches, rt, paged)
+    if sh is not None:
+        sh = sh.with_seq(False)
     x = embed_tokens(params["emb"], tok,
-                     _ServePol(plan.runtime_for("emb"), infer), rt)
+                     _ServePol(plan.runtime_for("emb"), infer), rt,
+                     scatter=False)
     new_caches = dict(caches)
 
-    def run(x, lps, cs, prefix, kinds, block, fn):
+    def layer_cache(c, spec, whole):
+        """A layer's cache ``c`` (spec: the stacked caches')."""
+        if io is None:
+            return c
+        return type(c)(*(io(t, sp[1:], whole) for t, sp in zip(c, spec)))
+
+    def run(x, lps, cs, prefix, kinds, block, fn, spec):
         bp = _serve_pols(_block_pols(plan, prefix, *kinds), infer)
         out = []
         for lp, c in zip(lps, cs):
+            if sh is not None:
+                lp = sh.full(lp, prefix)
+            c = layer_cache(c, spec, True)
             x, c2 = block(lp, x, cfg, bp,
                           lambda p_, h, pol, c=c: fn(p_, h, pol, c))[:2]
-            out.append(c2)
+            out.append(layer_cache(c2, spec, False))
         return x, out
 
     def mamba(mp, h, pol, c):
@@ -776,13 +931,15 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None):
     def stack(prefix, kinds, block, fn):
         nonlocal x
         x, out = run(x, _unstack(params[prefix]),
-                     _layer_caches(caches[prefix]), prefix, kinds, block, fn)
+                     _layer_caches(caches[prefix]), prefix, kinds, block, fn,
+                     specs and specs[prefix])
         new_caches[prefix] = _stack_caches(out)
 
     fam = cfg.family
     if fam == "moe":
         stack("dense_layers", ("attn", "mlp"), _dense_block, attn)
-        stack("layers", ("attn", "moe"), _moe_layer_fwd, attn)
+        stack("layers", ("attn", "moe"),
+              functools.partial(_moe_layer_fwd, sh=sh), attn)
     elif fam == "ssm":
         stack("layers", ("mamba",), _ssm_block, mamba)
     elif fam == "hybrid":
@@ -792,10 +949,12 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None):
         ssm_c, kv = [], []
         for g in range(groups):
             x, out = run(x, lps[g * k:(g + 1) * k], cs[g * k:(g + 1) * k],
-                         "layers", ("mamba",), _ssm_block, mamba)
+                         "layers", ("mamba",), _ssm_block, mamba,
+                         specs and specs["layers"])
             ssm_c += out
             x, out = run(x, [params["shared_attn"]], shared[g:g + 1],
-                         "shared_attn", ("attn", "mlp"), _dense_block, attn)
+                         "shared_attn", ("attn", "mlp"), _dense_block, attn,
+                         specs and specs["shared_attn"])
             kv += out
         new_caches["layers"] = _stack_caches(ssm_c, caches["layers"])
         new_caches["shared_attn"] = _stack_caches(kv, caches["shared_attn"])
@@ -803,20 +962,24 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None):
             stack("tail_layers", ("mamba",), _ssm_block, mamba)
     elif fam in ("encdec", "audio"):
         self_c, cross_c = caches["layers"]
+        enc_out = caches["enc_out"] if io is None else io(
+            caches["enc_out"], specs["enc_out"], True)
 
         def block(lp, h, cfg_, bp, fn):
-            return _xattn_block(lp, h, cfg_, bp, fn, caches["enc_out"])
+            h, (c, _) = _xattn_block(lp, h, cfg_, bp, fn, enc_out)
+            return h, c
         x, out = run(x, _unstack(params["layers"]), _layer_caches(self_c),
-                     "layers", ("attn", "mlp", "xattn"), block, attn)
-        new_caches["layers"] = (_stack_caches([c for c, _ in out]), cross_c)
+                     "layers", ("attn", "mlp", "xattn"), block, attn,
+                     specs and specs["layers"][0])
+        new_caches["layers"] = (_stack_caches(out), cross_c)
     else:
         stack("layers", ("attn", "mlp"), _dense_block, attn)
     if last is not None:
         x = x[:, last]
-    x = apply_norm(params["final_norm"], x, cfg, fl=ORDER_FREE)
-    return lm_logits(params["emb"], x,
-                     _ServePol(plan.runtime_for("head"), infer), cfg), \
-        new_caches
+    x = apply_norm(_full(params, "final_norm", sh), x, cfg, fl=ORDER_FREE)
+    logits = lm_logits(params["emb"], x,
+                       _ServePol(plan.runtime_for("head"), infer), cfg, sh)
+    return logits, new_caches
 
 
 def decode_step(params, tok, caches, pos, cfg: ModelConfig,
@@ -855,7 +1018,7 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
             f"family {cfg.family!r} has no paged KV cache (supported: "
             f"{PAGED_FAMILIES}); serve it via the dense path "
             f"(init_decode_caches / reference_generate)")
-    device = resolve_device(device)
+    device = _device(device)
 
     def stack(n):
         one = make_paged_cache(cfg, num_blocks, block_size, dtype, device)
@@ -868,10 +1031,11 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
     return {"layers": stack(cfg.layers)}
 
 
-def _attn_dec_paged(lp, x, cfg, pol, cache, bt, pos, active):
+def _attn_dec_paged(lp, x, cfg, pol, cache, bt, pos, active, write):
     if cfg.attn_kind == "mla":
-        return mla_decode_paged(lp, x, cfg, pol, cache, bt, pos, active)
-    return gqa_decode_paged(lp, x, cfg, pol, cache, bt, pos, active)
+        return mla_decode_paged(lp, x, cfg, pol, cache, bt, pos, active,
+                                write)
+    return gqa_decode_paged(lp, x, cfg, pol, cache, bt, pos, active, write)
 
 
 def _attn_prefill_paged(lp, x, cfg, pol, cache, bt_row, pos_base, n_valid):
@@ -891,11 +1055,27 @@ def decode_step_paged(params, tok, caches, bt, pos, active,
     block and their logits are meaningless.  Matmuls run the fused-infer
     numerics path (:class:`_ServePol`).  Returns (logits (B, 1, V), new
     caches).
+
+    Under a mesh every rank holds its data block of the slots, and the
+    pool, replicated over the data axes, takes every data rank's new
+    lines, so that each replica holds what the one-device pool holds.
     """
     _check_paged(cfg, "decode_step_paged")
+    write = None
+    if rt.mesh is not None:
+        sh = rt.sharded(tok.shape[1])
+        bt_all, pos_all, act_all = (sh.gather_data(t) for t in (
+            bt, pos, active.to(torch.int32)))
+        act_all = act_all.bool()
+
+        def write(pages, vals):
+            return paged_write_token(pages, bt_all, pos_all,
+                                     sh.gather_data(vals), act_all)
     return _serve(params, tok, caches, cfg, rt, True,
                   lambda ap, h, pol, c: _attn_dec_paged(ap, h, cfg, pol, c,
-                                                        bt, pos, active))
+                                                        bt, pos, active,
+                                                        write),
+                  paged=True)
 
 
 def prefill_chunk(params, tok, caches, bt_row, pos_base, n_valid,
@@ -917,4 +1097,4 @@ def prefill_chunk(params, tok, caches, bt_row, pos_base, n_valid,
     return _serve(params, tok, caches, cfg, rt, True,
                   lambda ap, h, pol, c: _attn_prefill_paged(
                       ap, h, cfg, pol, c, bt_row, pos_base, n_valid),
-                  last=slice(last, last + 1))
+                  last=slice(last, last + 1), paged=True)

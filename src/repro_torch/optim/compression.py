@@ -18,10 +18,13 @@ _QF = 4            # fraction bits of the log2 code
 _CODE_MIN = -63    # reserved -64 → exact zero
 
 
-def compress_int8_log(g):
+def compress_int8_log(g, amax=None):
     """float grad → (int8 codes, float32 scale).  code = round(log2|g/s| ·
-    2^qf) with the sign in the int8's sign bit; |code| ≤ 63."""
-    s = torch.max(torch.abs(g)).to(torch.float32) + 1e-30
+    2^qf) with the sign in the int8's sign bit; |code| ≤ 63.  ``amax``:
+    the leaf's largest magnitude when ``g`` is one shard of it."""
+    if amax is None:
+        amax = torch.max(torch.abs(g))
+    s = amax.to(torch.float32) + 1e-30
     mag = torch.abs(g).to(torch.float32) / s
     code = torch.round(f32.log2(torch.clamp(mag, min=2.0 ** -40)) * (1 << _QF))
     code = torch.clamp(code, _CODE_MIN, 0.0)
@@ -39,16 +42,20 @@ def decompress_int8_log(codes, s):
     return torch.where(neg, -mag, mag)
 
 
-def fake_compress_roundtrip(grads, residual=None):
+def fake_compress_roundtrip(grads, residual=None, leaf_max=None):
     """Quantize → dequantize each leaf with error feedback.  Returns
-    ``(grads_hat, new_residual)``; ``residual=None`` starts at zero."""
+    ``(grads_hat, new_residual)``; ``residual=None`` starts at zero.
+    ``leaf_max(i, local max)`` gives leaf ``i``'s largest magnitude when
+    the leaves are shards (under a mesh)."""
     if residual is None:
         residual = tree_map(torch.zeros_like, grads)
     leaves, treedef = tree_flatten(grads)
     ghat, res = [], []
-    for g, r in zip(leaves, tree_flatten(residual)[0]):
+    for i, (g, r) in enumerate(zip(leaves, tree_flatten(residual)[0])):
         gc = g + r.to(g.dtype)
-        h = decompress_int8_log(*compress_int8_log(gc)).to(g.dtype)
+        amax = None if leaf_max is None else leaf_max(
+            i, torch.max(torch.abs(gc)))
+        h = decompress_int8_log(*compress_int8_log(gc, amax)).to(g.dtype)
         ghat.append(h)
         res.append((gc - h).to(g.dtype))
     return tree_unflatten(treedef, ghat), tree_unflatten(treedef, res)

@@ -4,9 +4,22 @@ compression and a non-finite guard.
 
 ``make_train_step`` returns a function ``(state, batch) → (state,
 metrics)``.  The train state is a plain dict, ``{"params", "opt", "step"
-[, "residual"]}``, the JAX package's tree, holding tensors on one device;
-gradients come from ``torch.autograd`` through the model's
-``LNSRuntime`` products (the ⊞-MAC kernels under ``lns16-train-*``).
+[, "residual"]}``, the JAX package's tree; gradients come from
+``torch.autograd`` through the model's ``LNSRuntime`` products (the ⊞-MAC
+kernels under ``lns16-train-*``).
+
+Three layouts:
+
+* one device: the state and the batch whole;
+* ``Runtime(mesh=...)``: every rank holds its shards of the state
+  (:func:`train_state_specs`: the optimizer state like its parameter,
+  ``step`` replicated) and its block of the batch (``batch_specs``); the
+  model's collectives give each shard its gradient, and the global-norm
+  clip, the non-finite guard and the compression's per-leaf scale reduce
+  over the ranks that split a leaf;
+* ``TrainConfig(data_parallel=N)``: the N ranks of the default process
+  group each hold the whole state and their block of the batch; the float
+  gradients and the loss are all-reduced to their mean (``float-psum``).
 """
 from __future__ import annotations
 
@@ -15,6 +28,7 @@ import warnings
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core.plan import NumericsPlan
 from ..core.spec import NumericsSpec
@@ -40,10 +54,11 @@ class TrainConfig:
     compress_grads: bool = False     # log-int8 roundtrip + error feedback
     loss_dtype: str = "float32"
     matmul_backend: Optional[str] = None  # DEPRECATED → 'backend='
-    data_parallel: int = 1           # ranks; only 1 is ported
-    nan_guard: bool = False          # skip the update (params and opt
-                                     # state unchanged, step advances) when
-                                     # the loss or a grad is non-finite;
+    data_parallel: int = 1           # ranks of the default process group
+    nan_guard: bool = False          # skip the update (params, opt state
+                                     # and residual unchanged, step
+                                     # advances) when the loss or a grad is
+                                     # non-finite;
                                      # metrics report 'update_skipped'
     reduce_mode: Optional[str] = None  # DEPRECATED → 'reduce.mode='
 
@@ -98,9 +113,42 @@ def _split_batch(batch, n):
     return [{k: v[i::n] for k, v in batch.items()} for i in range(n)]
 
 
-def _clip(grads, max_norm):
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in tree_leaves(grads)))
+def train_state_specs(state):
+    """The PartitionSpec tree of a train state under a mesh (the JAX
+    package's ``sspecs``)."""
+    from ..distributed.sharding import P, param_specs
+    pspecs = param_specs(state["params"])
+    out = {"params": pspecs, "step": P(),
+           "opt": {k: pspecs for k in state["opt"]}}
+    if "residual" in state:
+        out["residual"] = pspecs
+    return out
+
+
+def _leaf_reducer(rt: Runtime, params, op):
+    """``fn(i, t)``: ``t`` reduced by ``op`` over the ranks that split leaf
+    ``i`` of ``params`` (identity without a mesh)."""
+    if rt.mesh is None:
+        return None
+    from ..distributed.sharding import axis_group, param_specs, spec_axes
+    groups = [[g for g in (axis_group(rt.mesh, a) for a in spec_axes(s))
+               if g is not None]
+              for s in tree_leaves(param_specs(params))]
+
+    def fn(i, t):
+        for g in groups[i]:
+            t = t.clone()
+            dist.all_reduce(t, op=op, group=g)
+        return t
+    return fn
+
+
+def _clip(grads, max_norm, reduce=None):
+    sq = [torch.sum(torch.square(g.to(torch.float32)))
+          for g in tree_leaves(grads)]
+    if reduce is not None:
+        sq = [reduce(i, t) for i, t in enumerate(sq)]
+    gn = torch.sqrt(sum(sq))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
 
@@ -125,10 +173,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
             "path (distributed/lns_dp.LNSDataParallelMLP / "
             "run_experiment(..., data_parallel=...)); the LM train step "
             "reduces float gradients — use reduce.mode='float-psum'")
-    if tc.data_parallel > 1:
-        raise NotImplementedError(
-            "the LM train step on several ranks is not ported (ROADMAP "
-            "queue 1 items 5 and 13)")
+    dp = tc.data_parallel
+    if dp > 1:
+        if rt.mesh is not None:
+            raise ValueError("data_parallel > 1 with a mesh: the mesh's data "
+                             "axes carry the batch")
+        if not dist.is_initialized() or dist.get_world_size() != dp:
+            have = dist.get_world_size() if dist.is_initialized() else None
+            raise RuntimeError(
+                f"data_parallel={dp} runs on the {dp} ranks of the default "
+                f"process group (have: {have}): call torch.distributed."
+                f"init_process_group with world_size={dp} first (torchrun, "
+                f"or python -m repro_torch.launch.train --data-parallel "
+                f"{dp})")
     _, opt_update = make_optimizer(opt_cfg)
 
     def grads_of(params, batch):
@@ -138,7 +195,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(live, grads)]
-        return loss.detach(), tree_unflatten(treedef, grads)
+        loss = loss.detach()
+        if dp > 1:                                  # float-psum
+            flat = torch.cat([loss.reshape(1).to(torch.float32)]
+                             + [g.reshape(-1).to(torch.float32)
+                                for g in grads])
+            dist.all_reduce(flat)
+            flat = flat / dp
+            loss, at = flat[0].to(loss.dtype), 1
+            out = []
+            for g in grads:
+                out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+                at += g.numel()
+            grads = out
+        return loss, tree_unflatten(treedef, grads)
 
     def step(state, batch):
         params = state["params"]
@@ -158,26 +228,38 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         else:
             loss, grads = grads_of(params, batch)
         metrics = {"loss": loss}
-        if tc.grad_clip:
-            grads, gn = _clip(grads, tc.grad_clip)
-            metrics["grad_norm"] = gn
-        if tc.compress_grads:
-            grads, res = fake_compress_roundtrip(grads, state["residual"])
-        with torch.no_grad():
-            new_params, new_opt = opt_update(params, grads, state["opt"],
-                                             state["step"])
         if tc.nan_guard:
-            # A non-finite loss or gradient would poison the params and
-            # the optimizer state for good: keep the old ones instead,
-            # selected on the device (no host read).
+            # A non-finite loss or gradient would poison the params, the
+            # optimizer state and the residual for good: keep the old ones
+            # instead, selected on the device (no host read).  Read before
+            # the clip and the compression (its int8 code turns a NaN
+            # into zeros).
             finite = torch.isfinite(loss)
             for g in tree_leaves(grads):
                 finite = finite & torch.all(torch.isfinite(
                     g.to(torch.float32)))
+            if rt.mesh is not None:          # every rank keeps or skips
+                flag = finite.to(torch.int32)
+                dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+                finite = flag.to(torch.bool)
+        if tc.grad_clip:
+            grads, gn = _clip(grads, tc.grad_clip, _leaf_reducer(
+                rt, params, dist.ReduceOp.SUM))
+            metrics["grad_norm"] = gn
+        if tc.compress_grads:
+            grads, res = fake_compress_roundtrip(
+                grads, state["residual"],
+                _leaf_reducer(rt, params, dist.ReduceOp.MAX))
+        with torch.no_grad():
+            new_params, new_opt = opt_update(params, grads, state["opt"],
+                                             state["step"])
+        if tc.nan_guard:
             keep = lambda new, old: tree_map(
                 lambda n, o: torch.where(finite, n, o), new, old)
             new_params = keep(new_params, params)
             new_opt = keep(new_opt, state["opt"])
+            if tc.compress_grads:
+                res = keep(res, state["residual"])
             metrics["update_skipped"] = (~finite).to(torch.int32)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}

@@ -1065,3 +1065,62 @@ def test_autotune_lookup_on_card(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(autotune, "tune", real)
     assert len(autotune._load_disk()) == 1
     autotune.clear_caches()
+
+
+def test_mesh_of_two_ranks_on_one_card_raises(cuda):
+    """A mesh never puts two ranks on one card (nor falls back to gloo)."""
+    import subprocess
+    import sys
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("the host has two cards")
+    code = ("from repro_torch.launch.mesh import make_mesh\n"
+            "make_mesh((2,), ('data',), 'cuda')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "never puts two ranks on one card" in proc.stderr
+
+
+def test_one_rank_mesh_steps_equal_no_mesh_on_card(cuda):
+    """Phase 13b at the reduced width: 3 AdamW steps of olmo-1b under
+    lns16-train-pallas through a (1, 1) NCCL mesh give the no-mesh steps'
+    losses and parameters bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.distributed.sharding import batch_specs, shard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.nn import Runtime, init_params
+    from repro_torch.nn.config import ShapeCell
+    from repro_torch.optim.optimizers import AdamWConfig
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, train_state_specs)
+    cfg = reduced(get_config("olmo-1b")).with_(
+        numerics="lns16-train-pallas", remat="none")
+    opt, tc = AdamWConfig(lr=1e-3), TrainConfig(grad_clip=1.0)
+    ds = SyntheticLMDataset(cfg, ShapeCell("s", 32, 2, "train"),
+                            DataConfig(seed=0))
+    started = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    try:
+        out = []
+        for m in (None, mesh):
+            state = init_train_state(init_params(0, cfg, device=cuda), opt,
+                                     tc)
+            if m is not None:
+                state = shard_tree(state, train_state_specs(state), m)
+            step = make_train_step(cfg, opt, Runtime(mesh=m), tc)
+            losses = []
+            for i in range(3):
+                b = ds.batch_on(i, cuda)
+                if m is not None:
+                    b = shard_tree(b, batch_specs(b), m)
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))
+            out.append((losses, tree_leaves(state["params"])))
+        assert out[0][0] == out[1][0]
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    finally:
+        if started:
+            dist.destroy_process_group()

@@ -101,8 +101,8 @@ def test_unported_paths_raise():
     """The ssm, hybrid and encdec/audio families build and their decode
     caches are made (no ``NotImplementedError`` naming ROADMAP queue 1
     item 11 is left); the paged entry points and the engine refuse them
-    as the reference does; a mesh still raises naming item 13; a typo'd
-    plan pattern fails."""
+    as the reference does; a mesh that is not a DeviceMesh raises; a
+    typo'd plan pattern fails."""
     from repro_torch.serve import ServeConfig, ServingEngine
     for arch in ("mamba2-370m", "zamba2-7b", "seamless-m4t-medium"):
         cfg = tconfigs.reduced(tconfigs.get_config(arch))
@@ -118,7 +118,7 @@ def test_unported_paths_raise():
             tmodel.prefill_chunk({}, None, {}, None, 0, 1, cfg)
         with pytest.raises(ValueError, match="reference_generate"):
             ServingEngine(cfg, params, ServeConfig())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmodel.Runtime(mesh=object())
     cfg = tconfigs.reduced(tconfigs.get_config("olmo-1b")).with_(
         numerics="fp32;layers.mpl=fmt:lns12")

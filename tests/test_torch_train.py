@@ -278,6 +278,40 @@ def test_nan_guard_skips_the_update():
     assert int(m["update_skipped"]) == 0
 
 
+def test_nan_guard_with_compression_skips_and_keeps_the_residual():
+    """With ``compress_grads`` the guard reads the gradients before the
+    int8 log code, which would turn a NaN into zeros: a NaN gradient skips
+    the update and keeps the params, the optimizer state and the residual;
+    the next, finite step updates."""
+    from unittest import mock
+    cfg, params = _setup()
+    opt = AdamWConfig(lr=1e-3)
+    tc = TrainConfig(compress_grads=True, nan_guard=True)
+    ds = SyntheticLMDataset(cfg, CELL, DataConfig())
+    step = make_train_step(cfg, opt, Runtime(), tc)
+    state, _ = step(init_train_state(params, opt, tc), _batch(ds, 0))
+    orig = torch.autograd.grad
+
+    def nan_grad(*a, **k):
+        out = list(orig(*a, **k))
+        out[0] = torch.full_like(out[0], float("nan"))
+        return tuple(out)
+    with mock.patch.object(torch.autograd, "grad", nan_grad):
+        new, m = step(state, _batch(ds, 1))
+    assert int(m["update_skipped"]) == 1 and int(new["step"]) == 2
+    for a, b in zip(tree_leaves((state["params"], state["opt"],
+                                 state["residual"])),
+                    tree_leaves((new["params"], new["opt"],
+                                 new["residual"]))):
+        assert torch.equal(a, b)
+    after, m = step(new, _batch(ds, 2))
+    assert int(m["update_skipped"]) == 0
+    assert all(bool(torch.isfinite(t).all())
+               for t in tree_leaves((after["params"], after["residual"])))
+    assert not torch.equal(tree_leaves(after["params"])[0],
+                           tree_leaves(new["params"])[0])
+
+
 def test_compressed_step():
     """One fp32 step with the log-int8 round trip from the reference's
     parameters: the loss (taken before the compression) within rtol 1e-5
@@ -352,7 +386,7 @@ def test_train_state_and_numerics_like_reference():
     with pytest.raises(NotImplementedError, match="boxplus"):
         make_train_step(cfg.with_(numerics="fp32,reduce.mode=boxplus"),
                         SGDConfig(), tc=TrainConfig(data_parallel=2))
-    with pytest.raises(NotImplementedError, match="items 5 and 13"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         make_train_step(cfg, SGDConfig(), tc=TrainConfig(data_parallel=2))
 
 
@@ -542,8 +576,8 @@ def test_train_cli_numerics_alias_and_override(capsys):
         train_cli.main(common + ["--numerics", "lns17-qat"])
     with pytest.raises(ValueError, match="emulate, pallas"):
         train_cli.main(common + ["--numerics", "bf16,backend=cuda"])
-    with pytest.raises(NotImplementedError, match="items 5 and 13"):
-        train_cli.main(common + ["--data-parallel", "2"])
+    with pytest.raises(SystemExit, match="not divisible"):
+        train_cli.main(common + ["--batch", "3", "--data-parallel", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs a CUDA card"):
             train_cli.main(common[:-2])
