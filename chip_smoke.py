@@ -142,6 +142,23 @@ the result line:
    (``moe_ep`` at tp 1 with its capacity drops, row 1), teacher-forced,
    card vs CPU lane; ``moe_ep_replicated`` needs tp > 1 and runs only in
    the 2- and 4-rank gloo tests.
+14. the dry run and the example twins: (a) ``python -m
+   repro_torch.launch.dryrun`` in child processes (a fake world needs a
+   process with no group) for olmo-1b's three cells and
+   deepseek-v2-lite-16b's ``decode_32k`` (paged, MoE, MLA) on the fake
+   (16, 16) world: every cell ok, each rank's argument and temporary GiB
+   and GB on the wire per collective kind; (b) the dry run against the
+   card: 9c's shapes in the config's own bf16 numerics, dry-run on a fake
+   (1, 1) world in a child process and run on the card through a
+   one-rank mesh (as phase 13's) between ``reset_peak_memory_stats`` and
+   ``max_memory_allocated``: the arguments' bytes within 1% of what the
+   card allocates for them and the predicted peak within 10% of the
+   measured one, the tracker's split at the peak printed; (c) the
+   ``quickstart`` and ``serve_batched`` twins of ``examples/`` on the
+   card in child processes, each exiting 0; (d) row 1 at 13d's shapes
+   (one paged decode step of reduced deepseek-v2-lite-16b, 4 slots): each
+   product's card ms by CUDA events and its bound, their launches equal
+   to 13d's a step.
 
 Phase 3 also holds the tiled ⊞-MAC past 65535 row tiles (262 149 rows).
 
@@ -154,6 +171,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -3219,6 +3237,235 @@ def phase13(torch, device, card):
     return launches
 
 
+#: 14a: the dry run's cells (arch, --cell) on the fake (16, 16) world.
+DRY_CELLS = (("olmo-1b", "all"), ("deepseek-v2-lite-16b", "decode_32k"))
+#: 14b: the dry run's holds against the card.
+DRY_ARG_RTOL, DRY_PEAK_RTOL = 0.01, 0.10
+#: 14c: the example twins run on the card.
+EXAMPLES = ("quickstart", "serve_batched")
+CHILD_TIMEOUT = 600
+
+
+def start_child(args, threads=None):
+    """``python3 <args>`` with the port on the path (and ``threads``
+    OpenMP threads), started."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    return subprocess.Popen([sys.executable] + list(args), env=env,
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_child(proc, what):
+    """The output of a :func:`start_child` process, or an AssertionError
+    naming ``what`` with the end of its output; the process never
+    outlives the call."""
+    try:
+        out, err = proc.communicate(timeout=CHILD_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode:
+        raise AssertionError(f"{what} exited {proc.returncode}: "
+                             f"{(out + err)[-3000:]}")
+    return out
+
+
+def child(args, what):
+    return finish_child(start_child(args), what)
+
+
+def start_dryrun_cells(tmp):
+    """14a's CLI runs, one child process for each of ``DRY_CELLS`` (a fake
+    world needs a process with no group), each with its own output."""
+    return [(arch, cell, Path(tmp) / f"dryrun_{i}.json", start_child(
+        ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--cell", cell,
+         "--out", str(Path(tmp) / f"dryrun_{i}.json")], threads=1))
+        for i, (arch, cell) in enumerate(DRY_CELLS)]
+
+
+def dryrun_cells(runs):
+    """14a: the dry-run CLI's cells on the fake (16, 16) world; every cell
+    must read ok."""
+    res = {}
+    for arch, cell, out, proc in runs:
+        last = finish_child(proc, f"14a dryrun {arch} {cell}")
+        log("14a dryrun", last.rstrip().splitlines()[-1])
+        res.update(json.loads(out.read_text()))
+    bad = [k for k, r in res.items() if not r.get("ok")]
+    if bad or len(res) != 4:
+        raise AssertionError(f"14a: cells not ok: {bad} of {sorted(res)}")
+    for key, r in res.items():
+        coll = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                         sorted(r["collectives"].items()))
+        log("14a dryrun", f"{key}: per rank of {r['world']}, arguments "
+            f"{r['arg_bytes'] / 2**30:.3f} GiB, temporaries "
+            f"{r['temp_bytes'] / 2**30:.3f} GiB (peak "
+            f"{(r['arg_bytes'] + r['temp_bytes']) / 2**30:.3f}), alias "
+            f"{r['alias_bytes'] / 2**30:.3f} GiB, flops {r['flops']:.4e}, "
+            f"bytes accessed {r['bytes_accessed']:.4e}; GB on the wire by "
+            f"kind: {coll}; {r['trace_s']} s (counted on the host's CPU, "
+            f"no device)")
+
+
+def dry_14b_cfg():
+    """14b's model: 9c's (olmo-1b at published widths, ``FULL_LAYERS``
+    layers) in the config's own numerics (bf16) and remat."""
+    from repro_torch.configs import get_config
+    return get_config("olmo-1b").with_(n_layers=FULL_LAYERS)
+
+
+DRY_14B = f"""
+import json, sys
+sys.path.insert(0, {str(ROOT)!r})
+import chip_smoke as C
+from repro_torch.launch import dryrun as D
+from repro_torch.nn.config import ShapeCell
+with D.fake_world((1, 1), ("data", "model")) as mesh:
+    rec = D.run_cell(C.dry_14b_cfg(),
+                     ShapeCell("14b", C.FULL_SEQ, C.FULL_BATCH, "train"),
+                     mesh)
+print(json.dumps(rec))
+"""
+
+
+def card_bytes(torch, device, cell, mesh):
+    """(arguments' bytes, peak bytes over the step) of 14b's step built by
+    ``build_cell`` on the card, both less what was allocated before the
+    arguments, and the loss; the cyclic collector off during the step, as
+    in the dry run."""
+    import gc
+    from repro_torch.launch import dryrun as D
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    fn, args, _ = D.build_cell(dry_14b_cfg(), cell, mesh, device=device)
+    torch.cuda.synchronize()
+    arg_bytes = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    gc.disable()
+    try:
+        loss = float(fn(*args)[1]["loss"])
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    return arg_bytes, torch.cuda.max_memory_allocated() - base, loss
+
+
+def dry_vs_card(torch, device, card, dry):
+    """14b: the dry run's bytes for 9c's bf16 step against the card's
+    allocator: arguments within ``DRY_ARG_RTOL`` of what the card
+    allocates for them, the predicted peak within ``DRY_PEAK_RTOL`` of
+    ``max_memory_allocated`` over the step.  The held call is the
+    process's second: in the first step that runs
+    ``torch.utils.checkpoint`` (remat ``block``), torch imports
+    ``torch._dynamo`` on the way, and ``torch.fx``'s ``wrap`` keeps its
+    calling frames (the step's among them) in a reference cycle, which
+    holds the unclipped gradients until the collector runs; that call is
+    printed beside.  A bf16 matmul runs first, so that cuBLAS's workspace
+    is allocated before either."""
+    from repro_torch.nn.config import ShapeCell
+    cell = ShapeCell("14b", FULL_SEQ, FULL_BATCH, "train")
+    w = torch.ones((64, 64), dtype=torch.bfloat16, device=device)
+    (w @ w).sum().item()
+    del w
+    meshes, end = mesh_group(torch)
+    try:
+        first = card_bytes(torch, device, cell, meshes["cuda"])
+        t0 = time.perf_counter()
+        arg_bytes, peak, loss = card_bytes(torch, device, cell,
+                                           meshes["cuda"])
+        call_s = time.perf_counter() - t0
+    finally:
+        end()
+    rec = json.loads(finish_child(dry, "14b dry run").splitlines()[-1])
+    want = rec["arg_bytes"] + rec["temp_bytes"]
+    g = 2**30
+    split = ", ".join(f"{k} {v / g:.4f}" for k, v in
+                      sorted(rec["peak_split"].items(), key=lambda kv: -kv[1]))
+    log("14b dry vs card", f"olmo-1b bf16, {FULL_LAYERS} layers, batch "
+        f"{FULL_BATCH} x seq {FULL_SEQ}, AdamW, grad_clip 1.0, remat "
+        f"{dry_14b_cfg().remat}, through a (1, 1) mesh: arguments "
+        f"{rec['arg_bytes'] / g:.4f} GiB predicted (meta, fake world) vs "
+        f"{arg_bytes / g:.4f} GiB allocated on the card; peak "
+        f"{want / g:.4f} GiB predicted vs {peak / g:.4f} GiB "
+        f"max_memory_allocated (the process's first such step: "
+        f"{first[1] / g:.4f} GiB); loss {loss:.5f} ({first[2]:.5f} first); "
+        f"init and step {call_s:.1f} s on {card}")
+    log("14b dry vs card", f"the dry run's live GiB at the peak by what "
+        f"they hold: {split}; flops {rec['flops']:.4e}, bytes accessed "
+        f"{rec['bytes_accessed']:.4e}, outputs {rec['out_bytes'] / g:.4f} "
+        f"GiB, aliased {rec['alias_bytes'] / g:.4f} GiB")
+    if abs(rec["arg_bytes"] - arg_bytes) > DRY_ARG_RTOL * arg_bytes:
+        raise AssertionError(f"14b: arguments {rec['arg_bytes']} predicted, "
+                             f"{arg_bytes} allocated")
+    if abs(want - peak) > DRY_PEAK_RTOL * peak:
+        raise AssertionError(f"14b: peak {want} predicted, {peak} measured")
+
+
+def run_examples():
+    """14c: the example twins on the card, each in a child process."""
+    for name in EXAMPLES:
+        t0 = time.time()
+        out = child(["-m", f"repro_torch.examples.{name}"],
+                    f"14c {name}").rstrip().splitlines()
+        log("14c examples", f"python -m repro_torch.examples.{name} exit 0 "
+            f"in {time.time() - t0:.1f} s; its last line: {out[-1]}")
+
+
+def mesh_decode_rows(torch, device, card, decode_launches=None):
+    """14d: row 1's card ms and bound at 13d's shapes, per decode step
+    (``serve_products`` of 13d's model at ``MESH_DECODE_SLOTS`` rows);
+    the products must launch as often a step as 13d's
+    ``decode_launches`` over its steps (unchecked when None: phase 14
+    run alone)."""
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config("deepseek-v2-lite-16b")).with_(
+        numerics="lns16-train-pallas", remat="none")
+    products = serve_products(cfg, MESH_DECODE_SLOTS, MESH_DECODE_SLOTS)
+    q = lm_time_products(torch, device, products, card, None,
+                         tag="14d 13d row 1")["lns_matmul_fused"]
+    want = q["launches"] if decode_launches is None else \
+        decode_launches // MESH_DECODE_STEPS
+    if q["launches"] != want:
+        raise AssertionError(f"14d: {q['launches']} row-1 launches a step "
+                             f"from the model's linears, 13d makes {want}")
+    log("14d 13d row 1", f"{q['launches']} launches a decode step: "
+        f"{q['ms']:.4f} ms on the card (CUDA events, each shape's launch "
+        f"times its count), bound {q['bound_ms']:.4f} ms by "
+        f"{q['bound_by']} on {card}")
+
+
+def phase14(torch, device, card, decode_launches=None):
+    """Phase 14: the dry run (14a, 14b), the example twins (14c) and row
+    1 at 13d's shapes (14d; ``decode_launches``: 13d's row-1 launches).
+    The dry runs are child processes on the host's CPU, started first and
+    read after the card's work."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = start_dryrun_cells(tmp)
+        dry = start_child(["-c", DRY_14B], threads=1)
+        try:
+            dry_vs_card(torch, device, card, dry)
+            log("14b dry vs card", f"in {time.time() - t0:.1f} s")
+            t1 = time.time()
+            run_examples()
+            log("14c examples", f"in {time.time() - t1:.1f} s")
+            mesh_decode_rows(torch, device, card, decode_launches)
+            dryrun_cells(runs)
+            log("14a dryrun", f"read {time.time() - t0:.1f} s after its "
+                f"start")
+        finally:
+            for proc in [r[3] for r in runs] + [dry]:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    log("14", f"phase 14 in {time.time() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3449,6 +3696,7 @@ def main() -> int:
             k["mesh_launches"] = mesh_launches[row]
     log("13", "JSON mesh_launches are phase 13's card runs through the "
         "one-rank mesh (13a-13d); launches include them")
+    phase14(torch, device, card, mesh_launches["lns_matmul_fused"])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

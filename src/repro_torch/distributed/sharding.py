@@ -224,7 +224,10 @@ def _slot(mesh, entry) -> "tuple[int, int]":
 
 
 def local_shard(t, spec, mesh):
-    """This rank's block of the full tensor ``t`` under ``spec``."""
+    """This rank's block of the full tensor ``t`` under ``spec``: a copy
+    of its own where it is cut (a view would keep the whole storage
+    alive), ``t`` itself where it is not."""
+    full = t
     for dim, entry in enumerate(spec):
         i, n = _slot(mesh, entry)
         if n == 1:
@@ -234,7 +237,9 @@ def local_shard(t, spec, mesh):
                              f"not split over {n} ranks ({spec})")
         c = t.shape[dim] // n
         t = t.narrow(dim, i * c, c)
-    return t.contiguous()
+    if t is full:
+        return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def shard_tree(tree, specs, mesh):

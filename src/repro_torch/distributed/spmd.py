@@ -21,10 +21,15 @@ split across ranks: parallelism comes from the output rows (tokens) and
 the attention heads only.
 
 On the CPU the collectives run over gloo, on the card over NCCL; a group
-of one rank skips them.
+of one rank skips them.  The ``fake`` backend of the dry run
+(:mod:`repro_torch.launch.dryrun`) takes NCCL's calls.  The raw functions
+below are the model's only collectives; :func:`count_collectives` tallies
+their bytes on the wire by kind (:func:`wire_bytes`), the same whatever
+the backend.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Any
@@ -44,7 +49,55 @@ def _n(group) -> int:
 
 
 def _nccl(group) -> bool:
-    return dist.get_backend(group) == "nccl"
+    """NCCL's calls (``all_gather_into_tensor``, ``reduce_scatter_tensor``),
+    which the dry run's ``fake`` backend takes too; gloo has its own."""
+    return dist.get_backend(group) in ("nccl", "fake")
+
+
+# --------------------------------------------------- counting -------------
+def wire_bytes(kind: str, nbytes: float, g: int) -> float:
+    """Per-rank bytes on the wire of one collective over ``g`` ranks, on a
+    ring (the JAX package's dry-run cost model).  ``nbytes`` is the
+    gathered output of an all-gather, the scattered output of a
+    reduce-scatter, the reduced tensor of an all-reduce and the sent
+    tensor of an all-to-all or a collective-permute.  A group of one
+    moves nothing."""
+    if g <= 1:
+        return 0.0
+    if kind == "all-gather":
+        return nbytes * (g - 1) / g
+    if kind == "reduce-scatter":
+        return nbytes * (g - 1)
+    if kind == "all-reduce":
+        return 2 * nbytes * (g - 1) / g
+    if kind == "all-to-all":
+        return nbytes * (g - 1) / g
+    if kind == "collective-permute":
+        return nbytes
+    raise ValueError(f"unknown collective {kind!r}")
+
+
+_TALLIES: list = []       # the open count_collectives() dicts
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """``{kind: bytes on the wire}`` of every raw collective this process
+    runs inside the block (:func:`wire_bytes`, this rank's share); nested
+    blocks each count."""
+    tally: dict = {}
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+
+
+def _count(kind: str, t, g: int) -> None:
+    if _TALLIES:
+        w = wire_bytes(kind, t.numel() * t.element_size(), g)
+        for tally in _TALLIES:
+            tally[kind] = tally.get(kind, 0.0) + w
 
 
 # ------------------------------------------------------ raw ---------------
@@ -62,15 +115,18 @@ def all_gather_raw(x, dim: int, group):
         parts = [torch.empty_like(xs) for _ in range(n)]
         dist.all_gather(parts, xs, group=group)
         out = torch.cat(parts)
+    _count("all-gather", out, n)
     return out.movedim(0, dim)
 
 
-def all_reduce_raw(x, group):
-    """The sum of the ranks' ``x``."""
-    if _n(group) == 1:
+def all_reduce_raw(x, group, op=dist.ReduceOp.SUM):
+    """The ranks' ``x`` reduced by ``op`` (the sum)."""
+    n = _n(group)
+    if n == 1:
         return x
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
+    _count("all-reduce", out, n)
     return out
 
 
@@ -87,6 +143,7 @@ def reduce_scatter_raw(x, dim: int, group):
     else:                                   # gloo has no reduce-scatter
         dist.all_reduce(xs, group=group)
         out = xs.chunk(n)[dist.get_rank(group)]
+    _count("reduce-scatter", out, n)
     return out.movedim(0, dim).contiguous()
 
 
@@ -99,6 +156,7 @@ def all_to_all_raw(x, split_dim: int, cat_dim: int, group):
     send = torch.stack(x.chunk(n, split_dim)).contiguous()
     out = torch.empty_like(send)
     dist.all_to_all_single(out, send, group=group)
+    _count("all-to-all", send, n)
     return torch.cat(out.unbind(0), dim=cat_dim)
 
 

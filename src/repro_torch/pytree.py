@@ -12,35 +12,40 @@ from __future__ import annotations
 _LEAF = "*"
 
 
+def _walk(t, leaves: list):
+    if isinstance(t, dict):
+        return {k: _walk(t[k], leaves) for k in sorted(t)}
+    if type(t) in (list, tuple):
+        return type(t)(_walk(v, leaves) for v in t)
+    if t is None:
+        return None
+    leaves.append(t)
+    return _LEAF
+
+
+def _build(d, it):
+    if isinstance(d, dict):
+        return {k: _build(d[k], it) for k in sorted(d)}
+    if type(d) in (list, tuple):
+        return type(d)(_build(v, it) for v in d)
+    if d is None:
+        return None
+    return next(it)
+
+
+# Module-level walkers, not nested closures: a closure that calls itself
+# is a reference cycle, which would keep every leaf it saw alive until
+# the cyclic garbage collector ran.
 def tree_flatten(tree):
     """``(leaves, treedef)``; ``treedef`` is the tree with every leaf
     replaced by ``"*"``."""
-    leaves = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if type(t) in (list, tuple):
-            return type(t)(walk(v) for v in t)
-        if t is None:
-            return None
-        leaves.append(t)
-        return _LEAF
-    return leaves, walk(tree)
+    leaves: list = []
+    return leaves, _walk(tree, leaves)
 
 
 def tree_unflatten(treedef, leaves):
     it = iter(leaves)
-
-    def build(d):
-        if isinstance(d, dict):
-            return {k: build(d[k]) for k in sorted(d)}
-        if type(d) in (list, tuple):
-            return type(d)(build(v) for v in d)
-        if d is None:
-            return None
-        return next(it)
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out

@@ -131,14 +131,14 @@ def _leaf_reducer(rt: Runtime, params, op):
     if rt.mesh is None:
         return None
     from ..distributed.sharding import axis_group, param_specs, spec_axes
+    from ..distributed.spmd import all_reduce_raw
     groups = [[g for g in (axis_group(rt.mesh, a) for a in spec_axes(s))
                if g is not None]
               for s in tree_leaves(param_specs(params))]
 
     def fn(i, t):
         for g in groups[i]:
-            t = t.clone()
-            dist.all_reduce(t, op=op, group=g)
+            t = all_reduce_raw(t, g, op)
         return t
     return fn
 
@@ -239,9 +239,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                 finite = finite & torch.all(torch.isfinite(
                     g.to(torch.float32)))
             if rt.mesh is not None:          # every rank keeps or skips
-                flag = finite.to(torch.int32)
-                dist.all_reduce(flag, op=dist.ReduceOp.MIN)
-                finite = flag.to(torch.bool)
+                from ..distributed.spmd import all_reduce_raw
+                finite = all_reduce_raw(finite.to(torch.int32),
+                                        dist.group.WORLD,
+                                        dist.ReduceOp.MIN).to(torch.bool)
         if tc.grad_clip:
             grads, gn = _clip(grads, tc.grad_clip, _leaf_reducer(
                 rt, params, dist.ReduceOp.SUM))

@@ -38,7 +38,7 @@ def test_sources_found():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for pkg in ("distributed", "kernels/lns_boxsum", "obs", "resil",
                 "launch", "nn", "configs", "optim", "data", "train", "ckpt",
-                "serve", "search"):
+                "serve", "search", "examples"):
         assert f"src/repro_torch/{pkg}/__init__.py" in names, pkg
 
 
@@ -52,7 +52,12 @@ def test_sources_found():
     "repro_torch.serve.engine", "repro_torch.serve.queue",
     "repro_torch.serve.paged_cache", "repro_torch.launch.serve",
     "repro_torch.search", "repro_torch.launch.search",
-    "repro_torch.kernels.autotune"])
+    "repro_torch.kernels.autotune", "repro_torch.launch.dryrun",
+    "repro_torch.examples.train_lm",
+    "repro_torch.examples.lns_modes_comparison",
+    "repro_torch.examples.serve_batched",
+    "repro_torch.examples.train_data_parallel",
+    "repro_torch.examples.quickstart"])
 def test_import_loads_no_jax(module):
     """Importing the module in a fresh interpreter loads neither JAX nor
     the JAX package."""

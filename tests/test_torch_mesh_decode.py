@@ -46,6 +46,7 @@ def runs():
     f"{a}-{m[0]}x{m[1]}" + ("-paged" if p else "") for a, m, p in CASES])
 def test_decode_equals_one_device(runs, i):
     ranks, one = runs
+    ranks = [r["runs"] for r in ranks]
     arch, mesh, paged = CASES[i]
     logits, caches = ranks[0][i]
     want_logits, want_caches = one[arch, paged]
@@ -57,3 +58,25 @@ def test_decode_equals_one_device(runs, i):
                for a, b in zip(r[i][0], logits))
     assert [c.shape for c in caches] == [c.shape for c in want_caches]
     assert worst <= 1e-5 and cworst <= 1e-5
+
+
+def test_collective_counter_fake_world_equals_gloo(runs):
+    """``count_collectives`` on a fake (2, 2) world of ``meta`` tensors
+    counts, call by call and kind by kind, the bytes it counts on the
+    four gloo ranks for the same ``loss_fn`` with its gradients and the
+    same paged decode step (the dry run's counts are the real mesh's)."""
+    from repro_torch.launch.dryrun import fake_world
+    ranks, _ = runs
+    with fake_world((2, 2), mp.AXES) as mesh:
+        fake = mp.counted_calls(mesh, "meta")
+    print()
+    for call, tally in fake.items():
+        print(f"{call}: " + ", ".join(f"{k} {v:.0f} B"
+                                      for k, v in sorted(tally.items())))
+    assert set(fake) == {"olmo-1b loss_fn", "deepseek-v2-lite-16b loss_fn",
+                         "olmo-1b decode_step_paged"}
+    assert all(fake[c] for c in fake)
+    assert "all-to-all" in fake["deepseek-v2-lite-16b loss_fn"]
+    assert "reduce-scatter" in fake["olmo-1b loss_fn"]
+    for r in ranks:
+        assert r["counts"] == fake

@@ -405,10 +405,56 @@ def decode_run(arch, params, toks, mesh=None, paged=False, max_len=8,
 
 def rank_decode(rank, world, job, device):
     """:func:`decode_run` of each case of ``job["cases"]`` (arch, mesh
-    shape, paged) on the sharded parameters and caches."""
+    shape, paged) on the sharded parameters and caches, and
+    :func:`counted_calls` on the (2, 2) mesh."""
     meshes = {s: _tmesh(s) for s in MESHES}
-    return [decode_run(a, job["params"][a], job["toks"][a], meshes[m], paged)
+    runs = [decode_run(a, job["params"][a], job["toks"][a], meshes[m], paged)
             for a, m, paged in job["cases"]]
+    return dict(runs=runs, counts=counted_calls(meshes[(2, 2)], "cpu"))
+
+
+def counted_calls(mesh, device):
+    """``{call: bytes on the wire per kind}`` (``count_collectives``) of
+    ``loss_fn`` with its gradients (reduced olmo-1b and
+    deepseek-v2-lite-16b, fp32, batch 4 × 8) and of a paged decode step
+    (olmo-1b, 4 slots of 2 four-line blocks), on this rank's shards built
+    on ``device``: real tensors on gloo ranks, ``meta`` on a fake
+    world."""
+    import torch
+    from repro_torch.distributed.sharding import (batch_specs, cache_specs,
+                                                  param_specs, shard_tree)
+    from repro_torch.distributed.spmd import count_collectives
+    from repro_torch.nn import (Runtime, decode_step_paged,
+                                init_paged_caches, init_params)
+    rt, out = Runtime(mesh=mesh), {}
+
+    def local(tree, specs):
+        return shard_tree(tree, specs, mesh)
+
+    def ints(*shape):
+        return torch.ones(shape, dtype=torch.int32, device=device)
+    for arch in ("olmo-1b", "deepseek-v2-lite-16b"):
+        cfg = _tcfg(arch, "fp32")
+        p = init_params(0, cfg, device=device)
+        b = {"tokens": ints(4, 8), "labels": ints(4, 8)}
+        with count_collectives() as tally:
+            loss_and_grads(local(p, param_specs(p)),
+                           local(b, batch_specs(b)), cfg, rt)
+        out[f"{arch} loss_fn"] = tally
+    cfg = _tcfg("olmo-1b", "fp32")
+    p = init_params(0, cfg, device=device)
+    c = init_paged_caches(cfg, 9, 4, torch.float32, device=device)
+    x = {"tok": ints(4, 1), "pos": ints(4),
+         "bt": 1 + torch.arange(8, dtype=torch.int32,
+                                device=device).reshape(4, 2),
+         "active": torch.ones((4,), dtype=torch.bool, device=device)}
+    x = local(x, batch_specs(x))
+    with torch.no_grad(), count_collectives() as tally:
+        decode_step_paged(local(p, param_specs(p)), x["tok"],
+                          local(c, cache_specs(c, paged=True)), x["bt"],
+                          x["pos"], x["active"], cfg, rt)
+    out["olmo-1b decode_step_paged"] = tally
+    return out
 
 
 def rank_moe_jobs(rank, world, job, device):

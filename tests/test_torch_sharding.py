@@ -4,9 +4,9 @@ with no ranks: for all 10 archs at their published widths, the port's
 reference's leaf by leaf and path by path (the port's trees on the
 ``meta`` device, the reference's from ``jax.eval_shape``: nothing is
 allocated); ``batch_specs`` and the three input-structure functions give
-the same shapes and dtypes for every arch × valid cell (32 cells:
-``train_4k``, ``prefill_32k`` and ``decode_32k`` for every arch, and
-``long_500k`` for the sub-quadratic ones); ``data_axes``,
+the same shapes and dtypes for every arch × valid cell (the port's
+``valid_cells``, held against the reference's in
+``tests/test_torch_dryrun.py``: 32 cells); ``data_axes``,
 ``make_host_mesh(device="cpu")`` and the round trip of ``shard_tree`` /
 ``gather_tree`` on it.
 """
@@ -24,6 +24,7 @@ from repro.nn import model as jmodel
 from repro.nn.config import SHAPE_CELLS as JCELLS
 from repro_torch import configs as tconfigs
 from repro_torch.distributed import sharding as tsh
+from repro_torch.launch.dryrun import valid_cells
 from repro_torch.launch import input_specs as tin
 from repro_torch.launch import mesh as tmesh
 from repro_torch.nn import model as tmodel
@@ -33,17 +34,8 @@ ARCHS = list(tconfigs.ARCHS)
 DECODE_B, DECODE_LEN, PAGE = 128, 32768, 128
 
 
-def _cells(cfg):
-    """The valid cells of an arch (``repro.launch.dryrun.valid_cells``'s
-    rule; that module forces 512 host devices at import)."""
-    names = ["train_4k", "prefill_32k", "decode_32k"]
-    if cfg.sub_quadratic:
-        names.append("long_500k")
-    return names
-
-
-CELLS = [(a, c) for a in ARCHS
-         for c in _cells(tconfigs.get_config(a))]
+CELLS = [(a, c.name) for a in ARCHS
+         for c in valid_cells(tconfigs.get_config(a))]
 
 
 def _ref_specs(tree):
