@@ -151,14 +151,24 @@ the result line:
    card: 9c's shapes in the config's own bf16 numerics, dry-run on a fake
    (1, 1) world in a child process and run on the card through a
    one-rank mesh (as phase 13's) between ``reset_peak_memory_stats`` and
-   ``max_memory_allocated``: the arguments' bytes within 1% of what the
-   card allocates for them and the predicted peak within 10% of the
-   measured one, the tracker's split at the peak printed; (c) the
+   ``max_memory_allocated``, the step donating its state (the dry run's
+   cells do): the arguments' bytes within 1% of what the card allocates
+   for them and the predicted peak within 10% of the measured one, for
+   the process's first and second such step, the tracker's split at the
+   peak printed; the functional step (``donate=False``) after them, its
+   peak and prediction printed beside, its loss and new state equal to
+   the donated step's bit for bit; (c) the
    ``quickstart`` and ``serve_batched`` twins of ``examples/`` on the
    card in child processes, each exiting 0; (d) row 1 at 13d's shapes
    (one paged decode step of reduced deepseek-v2-lite-16b, 4 slots): each
    product's card ms by CUDA events and its bound, their launches equal
-   to 13d's a step.
+   to 13d's a step; (e) buffer donation on the card: 9c's lns16-train
+   step (rows 5, 2, 6) twice with ``donate=True`` and twice functional
+   from the same parameters, and 13d's paged decode (row 1) for its 4
+   steps donating the pool and functional, teacher-forced on the same
+   tokens: losses, parameters and AdamW moments, logits and caches equal
+   bit for bit, each run's peak memory printed, the donating runs'
+   launches counted.
 
 Phase 3 also holds the tiled ⊞-MAC past 65535 row tiles (262 149 rows).
 
@@ -3323,87 +3333,116 @@ sys.path.insert(0, {str(ROOT)!r})
 import chip_smoke as C
 from repro_torch.launch import dryrun as D
 from repro_torch.nn.config import ShapeCell
-with D.fake_world((1, 1), ("data", "model")) as mesh:
-    rec = D.run_cell(C.dry_14b_cfg(),
-                     ShapeCell("14b", C.FULL_SEQ, C.FULL_BATCH, "train"),
-                     mesh)
-print(json.dumps(rec))
+recs = {{}}
+for donate in (True, False):
+    with D.fake_world((1, 1), ("data", "model")) as mesh:
+        recs[donate] = D.run_cell(
+            C.dry_14b_cfg(), ShapeCell("14b", C.FULL_SEQ, C.FULL_BATCH,
+                                       "train"), mesh, donate=donate)
+print(json.dumps({{"donated": recs[True], "functional": recs[False]}}))
 """
 
 
-def card_bytes(torch, device, cell, mesh):
-    """(arguments' bytes, peak bytes over the step) of 14b's step built by
-    ``build_cell`` on the card, both less what was allocated before the
-    arguments, and the loss; the cyclic collector off during the step, as
-    in the dry run."""
+def card_bytes(torch, device, cell, mesh, donate=True):
+    """(arguments' bytes, peak bytes over the step, the loss, the new
+    state) of 14b's step built by ``build_cell`` on the card (``donate``:
+    as its), the bytes less what was allocated before the arguments; the
+    cyclic collector off during the step, as in the dry run."""
     import gc
     from repro_torch.launch import dryrun as D
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    fn, args, _ = D.build_cell(dry_14b_cfg(), cell, mesh, device=device)
+    fn, args, _ = D.build_cell(dry_14b_cfg(), cell, mesh, device=device,
+                               donate=donate)
     torch.cuda.synchronize()
     arg_bytes = torch.cuda.memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
     gc.disable()
     try:
-        loss = float(fn(*args)[1]["loss"])
+        state, metrics = fn(*args)
+        loss = metrics["loss"].item()
         torch.cuda.synchronize()
     finally:
         gc.enable()
-    return arg_bytes, torch.cuda.max_memory_allocated() - base, loss
+    return arg_bytes, torch.cuda.max_memory_allocated() - base, loss, state
 
 
 def dry_vs_card(torch, device, card, dry):
     """14b: the dry run's bytes for 9c's bf16 step against the card's
-    allocator: arguments within ``DRY_ARG_RTOL`` of what the card
-    allocates for them, the predicted peak within ``DRY_PEAK_RTOL`` of
-    ``max_memory_allocated`` over the step.  The held call is the
-    process's second: in the first step that runs
-    ``torch.utils.checkpoint`` (remat ``block``), torch imports
-    ``torch._dynamo`` on the way, and ``torch.fx``'s ``wrap`` keeps its
-    calling frames (the step's among them) in a reference cycle, which
-    holds the unclipped gradients until the collector runs; that call is
-    printed beside.  A bf16 matmul runs first, so that cuBLAS's workspace
-    is allocated before either."""
+    allocator, the step donating its state as the dry run's cells do:
+    arguments within ``DRY_ARG_RTOL`` of what the card allocates for them,
+    the predicted peak within ``DRY_PEAK_RTOL`` of
+    ``max_memory_allocated`` over the step, for the process's first and
+    second such step (the first ``checkpoint`` call of a process imports
+    ``torch._dynamo``; ``nn/model.py: _import_dynamo`` does that in a
+    thread of its own, so that no frame of the step is kept).  Then the
+    functional step (``donate=False``): its peak printed beside its own
+    prediction, its loss and new state equal to the first donated step's
+    bit for bit.  A bf16 matmul runs first, so that cuBLAS's workspace is
+    allocated before any."""
     from repro_torch.nn.config import ShapeCell
+    from repro_torch.pytree import tree_leaves
     cell = ShapeCell("14b", FULL_SEQ, FULL_BATCH, "train")
     w = torch.ones((64, 64), dtype=torch.bfloat16, device=device)
     (w @ w).sum().item()
     del w
     meshes, end = mesh_group(torch)
     try:
-        first = card_bytes(torch, device, cell, meshes["cuda"])
         t0 = time.perf_counter()
-        arg_bytes, peak, loss = card_bytes(torch, device, cell,
-                                           meshes["cuda"])
+        first = card_bytes(torch, device, cell, meshes["cuda"])
         call_s = time.perf_counter() - t0
+        second = card_bytes(torch, device, cell, meshes["cuda"])[:3]
+        fun = card_bytes(torch, device, cell, meshes["cuda"], donate=False)
+        same = first[2] == fun[2] and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(first[3]),
+                                              tree_leaves(fun[3])))
+        first, fun = first[:3], fun[:3]
     finally:
         end()
-    rec = json.loads(finish_child(dry, "14b dry run").splitlines()[-1])
+    recs = json.loads(finish_child(dry, "14b dry run").splitlines()[-1])
+    rec, frec = recs["donated"], recs["functional"]
     want = rec["arg_bytes"] + rec["temp_bytes"]
     g = 2**30
-    split = ", ".join(f"{k} {v / g:.4f}" for k, v in
-                      sorted(rec["peak_split"].items(), key=lambda kv: -kv[1]))
+
+    def split(r):
+        return ", ".join(f"{k} {v / g:.4f}" for k, v in sorted(
+            r["peak_split"].items(), key=lambda kv: -kv[1]))
     log("14b dry vs card", f"olmo-1b bf16, {FULL_LAYERS} layers, batch "
         f"{FULL_BATCH} x seq {FULL_SEQ}, AdamW, grad_clip 1.0, remat "
-        f"{dry_14b_cfg().remat}, through a (1, 1) mesh: arguments "
-        f"{rec['arg_bytes'] / g:.4f} GiB predicted (meta, fake world) vs "
-        f"{arg_bytes / g:.4f} GiB allocated on the card; peak "
-        f"{want / g:.4f} GiB predicted vs {peak / g:.4f} GiB "
-        f"max_memory_allocated (the process's first such step: "
-        f"{first[1] / g:.4f} GiB); loss {loss:.5f} ({first[2]:.5f} first); "
-        f"init and step {call_s:.1f} s on {card}")
-    log("14b dry vs card", f"the dry run's live GiB at the peak by what "
-        f"they hold: {split}; flops {rec['flops']:.4e}, bytes accessed "
-        f"{rec['bytes_accessed']:.4e}, outputs {rec['out_bytes'] / g:.4f} "
-        f"GiB, aliased {rec['alias_bytes'] / g:.4f} GiB")
-    if abs(rec["arg_bytes"] - arg_bytes) > DRY_ARG_RTOL * arg_bytes:
-        raise AssertionError(f"14b: arguments {rec['arg_bytes']} predicted, "
-                             f"{arg_bytes} allocated")
-    if abs(want - peak) > DRY_PEAK_RTOL * peak:
-        raise AssertionError(f"14b: peak {want} predicted, {peak} measured")
+        f"{dry_14b_cfg().remat}, through a (1, 1) mesh, the state donated: "
+        f"arguments {rec['arg_bytes'] / g:.4f} GiB predicted (meta, fake "
+        f"world) vs {first[0] / g:.4f} GiB allocated on the card; peak "
+        f"{want / g:.4f} GiB predicted vs {first[1] / g:.4f} GiB "
+        f"max_memory_allocated in the process's first such step and "
+        f"{second[1] / g:.4f} GiB in its second; loss {first[2]:.5f} "
+        f"({second[2]:.5f} second); the first init and step {call_s:.1f} "
+        f"s on {card}")
+    log("14b dry vs card", f"the functional step (donate=False) after "
+        f"them: peak {(frec['arg_bytes'] + frec['temp_bytes']) / g:.4f} "
+        f"GiB predicted vs {fun[1] / g:.4f} GiB max_memory_allocated; loss "
+        f"{fun[2]:.5f}; loss and new state equal to the first donated "
+        f"step's bit for bit: {same}; on {card}")
+    log("14b dry vs card", f"the dry run's live GiB at the donated peak by "
+        f"what they hold: {split(rec)} (functional: {split(frec)}); flops "
+        f"{rec['flops']:.4e}, bytes accessed {rec['bytes_accessed']:.4e}, "
+        f"outputs {rec['out_bytes'] / g:.4f} GiB, aliased "
+        f"{rec['alias_bytes'] / g:.4f} GiB (functional "
+        f"{frec['alias_bytes'] / g:.4f})")
+    if not same:
+        raise AssertionError(f"14b: the donated step's loss {first[2]} or "
+                             f"new state differs from the functional "
+                             f"step's (loss {fun[2]})")
+    for what, (arg_bytes, peak, _) in (("first", first),
+                                       ("second", second)):
+        if abs(rec["arg_bytes"] - arg_bytes) > DRY_ARG_RTOL * arg_bytes:
+            raise AssertionError(f"14b {what}: arguments "
+                                 f"{rec['arg_bytes']} predicted, "
+                                 f"{arg_bytes} allocated")
+        if abs(want - peak) > DRY_PEAK_RTOL * peak:
+            raise AssertionError(f"14b {what}: peak {want} predicted, "
+                                 f"{peak} measured")
 
 
 def run_examples():
@@ -3439,11 +3478,163 @@ def mesh_decode_rows(torch, device, card, decode_launches=None):
         f"{q['bound_by']} on {card}")
 
 
+def _peak_run(torch, fn):
+    """(fn's result, the launch counts, the peak bytes allocated over
+    ``fn`` less what was allocated before it): the counters set to 0 just
+    before ``fn`` and read just after."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = _counted(torch, fn)
+    return out, counts, torch.cuda.max_memory_allocated() - base
+
+
+def donate_lm(torch, device, card, cfg=None, steps=2):
+    """14e: 9c's lns16-train step (olmo-1b at published widths, 2 layers,
+    2 × 128, AdamW, grad_clip 1.0; rows 5, 2 and 6) ``steps`` times with
+    ``donate=True`` and ``steps`` times functional, from the same
+    parameters and batches: the losses, the parameters and the AdamW
+    moments equal bit for bit, the state returned by the donating step the
+    tensors it was given, the launches those of 9c's steps.  Returns the
+    donating run's launches."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.nn import Runtime, init_params
+    from repro_torch.nn.config import ShapeCell
+    from repro_torch.optim.optimizers import AdamWConfig
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    cfg = cfg or full_width_cfg()
+    opt, tc = AdamWConfig(lr=1e-3), TrainConfig(grad_clip=1.0)
+    params = init_params(torch.Generator(device=device).manual_seed(SEED),
+                         cfg, device=device)
+    ds = SyntheticLMDataset(cfg, ShapeCell("lm", FULL_SEQ, FULL_BATCH,
+                                           "train"), DataConfig(seed=SEED))
+    batches = [ds.batch_on(i, device) for i in range(steps)]
+    runs = {}
+    for donate in (True, False):
+        state = init_train_state(tree_map(torch.clone, params), opt, tc)
+        # held for the donated run only: the functional run frees each
+        # state as the next one is returned
+        given = tree_leaves(state) if donate else None
+        step = make_train_step(cfg, opt, Runtime(), tc, donate=donate)
+
+        def run():
+            nonlocal state
+            losses = []
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(m["loss"].item())
+            return losses
+        t0 = time.perf_counter()
+        losses, counts, peak = _peak_run(torch, run)
+        runs[donate] = (losses, counts, peak, state,
+                        time.perf_counter() - t0)
+        if donate and not all(a is b for a, b in zip(tree_leaves(state),
+                                                     given)):
+            raise AssertionError("14e: the donated step returned other "
+                                 "tensors than the state it was given")
+        del state
+    (dl, dc, dp, ds_, dt), (fl, fc, fp, fs, ft) = runs[True], runs[False]
+    same = dl == fl and all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(ds_), tree_leaves(fs)))
+    want = {k: v * steps for k, v in lm_expected(cfg, FULL_SEQ).items()}
+    g = 2**30
+    log("14e donate lm", f"olmo-1b lns16-train-pallas, {cfg.layers} "
+        f"layers, batch {FULL_BATCH} x seq {FULL_SEQ}, AdamW, {steps} "
+        f"steps: donated losses {dl} in {dt:.2f} s, peak {dp / g:.4f} GiB "
+        f"above what was allocated before the steps (the state, the "
+        f"batches, the initial parameters); functional {fl} in {ft:.2f} "
+        f"s, peak {fp / g:.4f} GiB; losses, parameters, AdamW moments and step "
+        f"equal bit for bit: {same}; launches {dc} donated, {fc} "
+        f"functional on {card}")
+    if not same:
+        raise AssertionError(f"14e: donated {dl} vs functional {fl}, or "
+                             f"the states differ")
+    if dc != want or fc != want:
+        raise AssertionError(f"14e: launches {dc} / {fc}, expected {want}")
+    return dc
+
+
+def donate_decode(torch, device, card, cfg=None):
+    """14e: 13d's paged decode (reduced deepseek-v2-lite-16b under
+    lns16-train-pallas, ``MESH_DECODE_SLOTS`` slots of
+    ``MESH_DECODE_BLOCK``-line blocks, every slot active, row 1) for
+    ``MESH_DECODE_STEPS`` steps with ``donate=True`` and functional, the
+    functional run's greedy tokens fed to both: every step's logits and
+    the final pool equal bit for bit, the donating steps returning the
+    pool they were given.  Returns the donating run's launches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.sharding import map_with_path
+    from repro_torch.nn import (decode_step_paged, init_paged_caches,
+                                init_params)
+    cfg = cfg or reduced(get_config("deepseek-v2-lite-16b")).with_(
+        numerics="lns16-train-pallas", remat="none")
+    b, blk, steps = MESH_DECODE_SLOTS, MESH_DECODE_BLOCK, MESH_DECODE_STEPS
+    w = -(-steps // blk)
+    bt = 1 + torch.arange(b * w, dtype=torch.int32,
+                          device=device).reshape(b, w)
+    active = torch.ones((b,), dtype=torch.bool, device=device)
+    params = init_params(SEED, cfg, device=device)
+    gen = torch.Generator().manual_seed(SEED)
+    toks = [torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                          dtype=torch.int32).to(device)]
+
+    def leaves(c):
+        out = []
+        map_with_path(lambda _p, t: out.append(t), c)
+        return out
+    runs = {}
+    for donate in (False, True):
+        caches = init_paged_caches(cfg, 1 + b * w, blk, torch.float32,
+                                   device=device)
+        given = leaves(caches) if donate else None
+
+        def run():
+            nonlocal caches
+            logits = []
+            with torch.no_grad():
+                for i in range(steps):
+                    lg, caches = decode_step_paged(
+                        params, toks[i], caches, bt,
+                        torch.full((b,), i, dtype=torch.int32,
+                                   device=device), active, cfg,
+                        donate=donate)
+                    logits.append(lg)
+                    if not donate:
+                        toks.append(torch.argmax(lg[:, -1], -1,
+                                                 keepdim=True).to(
+                                                     torch.int32))
+            return logits
+        logits, counts, peak = _peak_run(torch, run)
+        if donate and not all(a is c for a, c in zip(leaves(caches),
+                                                     given)):
+            raise AssertionError("14e: the donating decode returned other "
+                                 "caches than it was given")
+        runs[donate] = (logits, leaves(caches), counts, peak)
+    (fl, fc, fcount, fp), (dl, dc, dcount, dp) = runs[False], runs[True]
+    same = all(torch.equal(a, c) for a, c in zip(fl, dl)) and all(
+        torch.equal(a, c) for a, c in zip(fc, dc))
+    log("14e donate decode", f"reduced deepseek-v2-lite-16b "
+        f"lns16-train-pallas, {b} slots, {steps} decode_step_paged steps "
+        f"(paged MLA, the pool in float32): logits and pool equal bit for "
+        f"bit: {same}; peak above what was allocated before the steps "
+        f"(the parameters, the pool) {dp / 2**20:.3f} MiB donated vs {fp / 2**20:.3f} MiB functional; "
+        f"launches {dcount} donated, {fcount} functional on {card}")
+    if not same:
+        raise AssertionError("14e: the donating decode differs from the "
+                             "functional one")
+    if dcount != fcount or set(dcount) != {"lns_matmul_fused"}:
+        raise AssertionError(f"14e: launches {dcount} vs {fcount}")
+    return dcount
+
+
 def phase14(torch, device, card, decode_launches=None):
-    """Phase 14: the dry run (14a, 14b), the example twins (14c) and row
-    1 at 13d's shapes (14d; ``decode_launches``: 13d's row-1 launches).
-    The dry runs are child processes on the host's CPU, started first and
-    read after the card's work."""
+    """Phase 14: the dry run (14a, 14b), the example twins (14c), row 1
+    at 13d's shapes (14d; ``decode_launches``: 13d's row-1 launches) and
+    buffer donation (14e).  The dry runs are child processes on the host's
+    CPU, started first and read after the card's work.  Returns 14e's
+    donating runs' launches."""
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         runs = start_dryrun_cells(tmp)
@@ -3455,6 +3646,11 @@ def phase14(torch, device, card, decode_launches=None):
             run_examples()
             log("14c examples", f"in {time.time() - t1:.1f} s")
             mesh_decode_rows(torch, device, card, decode_launches)
+            t1 = time.time()
+            launches = dict(donate_lm(torch, device, card))
+            for k, v in donate_decode(torch, device, card).items():
+                launches[k] = launches.get(k, 0) + v
+            log("14e donate", f"in {time.time() - t1:.1f} s")
             dryrun_cells(runs)
             log("14a dryrun", f"read {time.time() - t0:.1f} s after its "
                 f"start")
@@ -3464,6 +3660,7 @@ def phase14(torch, device, card, decode_launches=None):
                     proc.kill()
                     proc.communicate()
     log("14", f"phase 14 in {time.time() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -3696,7 +3893,15 @@ def main() -> int:
             k["mesh_launches"] = mesh_launches[row]
     log("13", "JSON mesh_launches are phase 13's card runs through the "
         "one-rank mesh (13a-13d); launches include them")
-    phase14(torch, device, card, mesh_launches["lns_matmul_fused"])
+    donate_launches = phase14(torch, device, card,
+                              mesh_launches["lns_matmul_fused"])
+    for k in kernels:
+        row = k["name"]
+        if row in donate_launches:
+            k["launches"] += donate_launches[row]
+            k["donate_launches"] = donate_launches[row]
+    log("14", "JSON donate_launches are 14e's donating runs on the card "
+        "(9c's step twice, 13d's paged decode); launches include them")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

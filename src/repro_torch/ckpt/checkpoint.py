@@ -49,10 +49,15 @@ from ..pytree import tree_flatten, tree_unflatten, treedef_str
 
 
 def _host(tree):
-    """``(host numpy leaves, treedef)``: tensors copied to host memory."""
+    """``(host numpy leaves, treedef)``: tensors copied to host memory,
+    a CPU tensor too.  The copy is made before ``save`` returns, and the
+    next step depends on it: a step built with ``donate=True`` (the train
+    CLI's) writes its new state into these tensors, as the JAX package's
+    device buffers "may be donated by the next step"."""
     leaves, treedef = tree_flatten(tree)
-    return [t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
-            else np.asarray(t) for t in leaves], treedef
+    return [t.detach().to("cpu", copy=True).numpy()
+            if isinstance(t, torch.Tensor) else np.asarray(t)
+            for t in leaves], treedef
 
 
 def _canonical_numerics(numerics) -> Optional[str]:
@@ -225,7 +230,7 @@ class CheckpointManager:
             if not _writer():
                 return
         # Copy to the host before returning: the caller's next step may
-        # write new tensors in place of these.
+        # write its new state into these tensors (donate=True).
         host, treedef = _host(tree)
         snapshot = tree_unflatten(treedef, host)
 

@@ -183,13 +183,15 @@ def _local(tree, specs, mesh):
 
 
 def build_cell(cfg: ModelConfig, cell: ShapeCell, mesh, *,
-               microbatches: int | None = None, device="meta"):
+               microbatches: int | None = None, device="meta",
+               donate: bool = True):
     """``(fn, args, roles)`` of one cell: the step, this rank's local
     shards of its inputs on ``device`` (``meta``: shapes only; ``cpu``
     with ``mesh=None``: real tensors, for checking the shape-only route),
     and what each argument is (``state``, ``parameters``, ``caches``,
-    ``inputs``).  The JAX package's ``build_cell`` (``donate`` aside: the
-    port's steps return new trees and keep their inputs)."""
+    ``inputs``).  The JAX package's ``build_cell``, with its donation: the
+    train step writes the state in place, the decode steps the caches
+    (``donate=False``: the functional steps, which keep their inputs)."""
     abstract = str(device) == "meta"
     daxes = () if mesh is None else _effective_data_axes(
         mesh, cell.global_batch)
@@ -208,7 +210,7 @@ def build_cell(cfg: ModelConfig, cell: ShapeCell, mesh, *,
         tc = TrainConfig(grad_clip=1.0, microbatches=mb)
         state = init_train_state(init_params(0, cfg, device=device), opt, tc)
         state = _local(state, train_state_specs(state), mesh)
-        step = make_train_step(cfg, opt, rt, tc)
+        step = make_train_step(cfg, opt, rt, tc, donate=donate)
         return step, (state, batch_of(cfg)), ("state", "inputs")
     scfg = cfg.with_(param_dtype="bfloat16")
     params = init_params(0, scfg, device=device)
@@ -239,7 +241,7 @@ def build_cell(cfg: ModelConfig, cell: ShapeCell, mesh, *,
         def pfn(p, tok, c, bt, pos, active):
             with torch.no_grad():
                 return decode_step_paged(p, tok, c, bt, pos, active, scfg,
-                                         rt)
+                                         rt, donate=donate)
         return (pfn, (params, x["tok"], caches, x["bt"], x["pos"],
                       x["active"]),
                 ("parameters", "inputs", "caches", "inputs", "inputs",
@@ -252,7 +254,7 @@ def build_cell(cfg: ModelConfig, cell: ShapeCell, mesh, *,
 
     def fn(p, tok, c, pos):
         with torch.no_grad():
-            return decode_step(p, tok, c, pos, scfg, rt)
+            return decode_step(p, tok, c, pos, scfg, rt, donate=donate)
     return (fn, (params, x["tok"], caches, x["pos"]),
             ("parameters", "inputs", "caches", "inputs"))
 
@@ -349,7 +351,9 @@ class _Tracker(TorchDispatchMode):
         it), ``after backward`` (made after a backward and not returned:
         the clip's scaled gradients, the optimizer's intermediates, a
         later microbatch's forward); and the returned ``new parameters``,
-        ``new optimizer state``, ``new caches`` and ``outputs``."""
+        ``new optimizer state``, ``new caches`` (none of these three where
+        the step donates its arguments, as every cell's does) and
+        ``outputs``."""
         out: dict = {}
         for nb, label, _ in self._at_peak:
             label = "temporaries" if label == "backward" else label
@@ -381,7 +385,8 @@ def _out_roles(kind: str, out):
 
 
 def run_cell(cfg: ModelConfig, cell: ShapeCell, mesh, *,
-             microbatches: int | None = None, device="meta"):
+             microbatches: int | None = None, device="meta",
+             donate: bool = True):
     """Run one cell's step once on this rank's local inputs and count it.
 
     The record has the JAX package's keys: ``arg_bytes`` (the local bytes
@@ -394,9 +399,11 @@ def run_cell(cfg: ModelConfig, cell: ShapeCell, mesh, *,
     this rank's share), with ``trace_s`` (the call's wall seconds) where
     the JAX package has ``lower_s`` / ``compile_s`` (null here), ``world``
     and ``rank``; and ``peak_split``, the live bytes at the peak by what
-    they hold (:meth:`_Tracker.split`)."""
+    they hold (:meth:`_Tracker.split`).  ``donate``: as
+    :func:`build_cell`'s."""
     fn, args, roles = build_cell(cfg, cell, mesh,
-                                 microbatches=microbatches, device=device)
+                                 microbatches=microbatches, device=device,
+                                 donate=donate)
     tracker = _Tracker(device)
     for tree, label in _arg_roles(args, roles):
         tracker.hold(tree, label)

@@ -166,7 +166,9 @@ def main(argv=None):
             mgr = None
 
     ds = SyntheticLMDataset(cfg, cell, DataConfig(seed=args.seed))
-    base_step = make_train_step(cfg, opt, rt, tc)
+    # The state is donated, as the JAX package's CLI jits its step with
+    # donate_argnums=0: the step writes it in place.
+    base_step = make_train_step(cfg, opt, rt, tc, donate=True)
     if args.metrics and rank == 0:
         # The plain step inside a collector; the updated parameters are
         # observed per leaf after the step (reads only, so the weights are

@@ -62,6 +62,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
+import sys
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -439,9 +442,24 @@ def _layer_caches(stacked) -> list:
             for parts in zip(*(t.unbind(0) for t in stacked))]
 
 
+def _import_dynamo() -> None:
+    """Import ``torch._dynamo`` in a thread of its own, once.  The first
+    ``checkpoint`` call of a process imports it otherwise, with the
+    caller's frames on the stack, and ``torch.fx``'s ``wrap`` keeps those
+    frames in a reference cycle: the first remat step's gradients would
+    outlive it until the cyclic collector ran.  A fresh thread's stack
+    holds none of the caller's frames."""
+    if "torch._dynamo" not in sys.modules:
+        t = threading.Thread(target=importlib.import_module,
+                             args=("torch._dynamo",))
+        t.start()
+        t.join()
+
+
 def _maybe_remat(fn, cfg):
     if cfg.remat != "block":
         return fn
+    _import_dynamo()
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
@@ -881,7 +899,7 @@ def _cache_io(caches, rt: Runtime, paged: bool):
 
 
 def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
-           paged=False):
+           paged=False, donate=False):
     """One serving forward: embed ``tok``, run every layer stack through
     the serving views (:class:`_ServePol`) with ``attn(lp, h, pol, cache)
     → (out, cache)`` and the Mamba2 decode step, then the final norm and
@@ -896,7 +914,13 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
     axis just before the layer's step and cut back to the rank's block
     just after it, as the weights are, so one layer's cache at a time is
     whole; the tokens are replicated over the model axis, the MoE layers'
-    experts split over it.  Returns (logits, new caches)."""
+    experts split over it.
+
+    With ``donate`` (the JAX package's ``donate_argnums``) each layer's new
+    cache is copied into that layer's slice of the stacked input caches
+    (under a mesh: the rank's own block), and the caches returned are the
+    input tensors: no second stack of caches is built.  ``attn`` then
+    writes a paged pool in place.  Returns (logits, new caches)."""
     plan = _model_plan(cfg)
     sh = rt.sharded(tok.shape[1])
     io, specs = _cache_io(caches, rt, paged)
@@ -919,10 +943,17 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
         for lp, c in zip(lps, cs):
             if sh is not None:
                 lp = sh.full(lp, prefix)
-            c = layer_cache(c, spec, True)
+            cw = layer_cache(c, spec, True)
             x, c2 = block(lp, x, cfg, bp,
-                          lambda p_, h, pol, c=c: fn(p_, h, pol, c))[:2]
-            out.append(layer_cache(c2, spec, False))
+                          lambda p_, h, pol, c=cw: fn(p_, h, pol, c))[:2]
+            c2 = layer_cache(c2, spec, False)
+            if donate:
+                with torch.no_grad():
+                    for old, new in zip(c, c2):
+                        if new is not old:
+                            old.copy_(new)
+                c2 = c
+            out.append(c2)
         return x, out
 
     def mamba(mp, h, pol, c):
@@ -933,7 +964,8 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
         x, out = run(x, _unstack(params[prefix]),
                      _layer_caches(caches[prefix]), prefix, kinds, block, fn,
                      specs and specs[prefix])
-        new_caches[prefix] = _stack_caches(out)
+        new_caches[prefix] = caches[prefix] if donate else \
+            _stack_caches(out)
 
     fam = cfg.family
     if fam == "moe":
@@ -956,8 +988,10 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
                          "shared_attn", ("attn", "mlp"), _dense_block, attn,
                          specs and specs["shared_attn"])
             kv += out
-        new_caches["layers"] = _stack_caches(ssm_c, caches["layers"])
-        new_caches["shared_attn"] = _stack_caches(kv, caches["shared_attn"])
+        if not donate:
+            new_caches["layers"] = _stack_caches(ssm_c, caches["layers"])
+            new_caches["shared_attn"] = _stack_caches(kv,
+                                                      caches["shared_attn"])
         if "tail_layers" in params:
             stack("tail_layers", ("mamba",), _ssm_block, mamba)
     elif fam in ("encdec", "audio"):
@@ -971,7 +1005,8 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
         x, out = run(x, _unstack(params["layers"]), _layer_caches(self_c),
                      "layers", ("attn", "mlp", "xattn"), block, attn,
                      specs and specs["layers"][0])
-        new_caches["layers"] = (_stack_caches(out), cross_c)
+        if not donate:
+            new_caches["layers"] = (_stack_caches(out), cross_c)
     else:
         stack("layers", ("attn", "mlp"), _dense_block, attn)
     if last is not None:
@@ -983,17 +1018,20 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
 
 
 def decode_step(params, tok, caches, pos, cfg: ModelConfig,
-                rt: Runtime = Runtime()):
+                rt: Runtime = Runtime(), donate: bool = False):
     """One token for every sequence in the batch, against the dense
     fixed-capacity caches (:func:`init_decode_caches`); matmuls through
     the runtimes' ``linear``.
 
     tok: (B, 1) int32; pos: (B,) int32 current positions.
-    Returns (logits (B, 1, V), new caches).
+    Returns (logits (B, 1, V), new caches).  With ``donate`` the new
+    caches are written into ``caches``, which are returned (see
+    :func:`_serve`); bit-equal to ``donate=False``.
     """
     _check_family(cfg, "decode_step")
     return _serve(params, tok, caches, cfg, rt, False,
-                  lambda ap, h, pol, c: _attn_dec(ap, h, cfg, pol, c, pos))
+                  lambda ap, h, pol, c: _attn_dec(ap, h, cfg, pol, c, pos),
+                  donate=donate)
 
 
 # ------------------------------------------------- paged serving ---------
@@ -1047,7 +1085,8 @@ def _attn_prefill_paged(lp, x, cfg, pol, cache, bt_row, pos_base, n_valid):
 
 
 def decode_step_paged(params, tok, caches, bt, pos, active,
-                      cfg: ModelConfig, rt: Runtime = Runtime()):
+                      cfg: ModelConfig, rt: Runtime = Runtime(),
+                      donate: bool = False):
     """One token for every slot against the paged KV cache.
 
     tok: (B, 1) int32; bt: (B, W) block tables; pos: (B,) int32; active:
@@ -1059,9 +1098,16 @@ def decode_step_paged(params, tok, caches, bt, pos, active,
     Under a mesh every rank holds its data block of the slots, and the
     pool, replicated over the data axes, takes every data rank's new
     lines, so that each replica holds what the one-device pool holds.
+
+    With ``donate`` the lines are written into the pool in place and the
+    input caches are returned (see :func:`_serve`).
     """
     _check_paged(cfg, "decode_step_paged")
     write = None
+    if donate:
+        def write(pages, vals):
+            return paged_write_token(pages, bt, pos, vals, active,
+                                     inplace=True)
     if rt.mesh is not None:
         sh = rt.sharded(tok.shape[1])
         bt_all, pos_all, act_all = (sh.gather_data(t) for t in (
@@ -1070,12 +1116,13 @@ def decode_step_paged(params, tok, caches, bt, pos, active,
 
         def write(pages, vals):
             return paged_write_token(pages, bt_all, pos_all,
-                                     sh.gather_data(vals), act_all)
+                                     sh.gather_data(vals), act_all,
+                                     inplace=donate)
     return _serve(params, tok, caches, cfg, rt, True,
                   lambda ap, h, pol, c: _attn_dec_paged(ap, h, cfg, pol, c,
                                                         bt, pos, active,
                                                         write),
-                  paged=True)
+                  paged=True, donate=donate)
 
 
 def prefill_chunk(params, tok, caches, bt_row, pos_base, n_valid,

@@ -19,7 +19,9 @@ slot pos``) guarantees it is never read.  The free list of
 blocks ``1..num_blocks-1`` only.
 
 The functions are pure: each returns new pages and leaves its inputs as
-they were.  Allocation policy is host control plane and lives in
+they were, unless a write is asked to work ``inplace`` (a donating decode
+step, ``decode_step_paged(..., donate=True)``), which writes the given
+pages and returns them.  Allocation policy is host control plane and lives in
 ``repro_torch/serve/paged_cache.py``.
 """
 from __future__ import annotations
@@ -30,19 +32,20 @@ import torch
 NULL_BLOCK = 0
 
 
-def _scatter(pages, phys, off, vals):
-    out = pages.clone()
+def _scatter(pages, phys, off, vals, inplace=False):
+    out = pages if inplace else pages.clone()
     out[phys.long(), off.long()] = vals.to(pages.dtype)
     return out
 
 
-def paged_write_token(pages, bt, pos, vals, active):
+def paged_write_token(pages, bt, pos, vals, active, inplace=False):
     """Scatter one KV line per slot into its physical page.
 
     pages: ``(NB, bs, ...)``; bt: ``(B, W)`` int32; pos: ``(B,)`` int32
     logical positions; vals: ``(B, ...)``; active: ``(B,)`` bool.  Slots
     with ``active=False`` (or a position beyond their table) write to the
-    null block instead — their line is never attended.
+    null block instead — their line is never attended.  ``inplace``
+    writes into ``pages`` (no copy of the pool).
     """
     bs = pages.shape[1]
     w = bt.shape[1]
@@ -50,7 +53,7 @@ def paged_write_token(pages, bt, pos, vals, active):
     phys = torch.gather(bt, 1, blk[:, None].long())[:, 0]
     phys = torch.where(active & (pos // bs < w), phys,
                        torch.full_like(phys, NULL_BLOCK))
-    return _scatter(pages, phys, pos % bs, vals)
+    return _scatter(pages, phys, pos % bs, vals, inplace)
 
 
 def paged_write_chunk(pages, bt_row, pos_base, vals, n_valid):

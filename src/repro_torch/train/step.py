@@ -143,21 +143,52 @@ def _leaf_reducer(rt: Runtime, params, op):
     return fn
 
 
-def _clip(grads, max_norm, reduce=None):
+def _clip(grads, max_norm, reduce=None, inplace=False):
+    """``(grads scaled to a global norm of at most max_norm, the norm)``;
+    ``inplace`` scales the given gradients (the same bits)."""
     sq = [torch.sum(torch.square(g.to(torch.float32)))
           for g in tree_leaves(grads)]
     if reduce is not None:
         sq = [reduce(i, t) for i, t in enumerate(sq)]
     gn = torch.sqrt(sum(sq))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    if inplace:
+        for g in tree_leaves(grads):
+            g.mul_(scale.to(g.dtype))
+        return grads, gn
     return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
+
+
+def _check_donatable(state) -> None:
+    """Raise if two leaves of ``state`` share a storage: an in-place
+    update would be applied to it twice."""
+    seen = {}
+    for i, t in enumerate(tree_leaves(state)):
+        st = t.untyped_storage()
+        if id(st) in seen:
+            raise ValueError(
+                f"donate=True: leaves {seen[id(st)][0]} and {i} of the "
+                f"train state share one storage; give each leaf its own "
+                f"tensor (e.g. clone it) or build the step with "
+                f"donate=False")
+        seen[id(st)] = (i, st)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                     rt: Runtime = Runtime(),
-                    tc: TrainConfig = TrainConfig()):
-    """The step function ``(state, batch) → (new_state, metrics)``; the
-    state it is given is not modified."""
+                    tc: TrainConfig = TrainConfig(), donate: bool = False):
+    """The step function ``(state, batch) → (new_state, metrics)``.
+
+    With ``donate=False`` the state it is given is not modified.  With
+    ``donate=True`` (the JAX package's ``donate_argnums=0``) the step
+    writes the new parameters, optimizer state, ``step`` and
+    ``residual`` into the tensors of the state it is given, a slice of a
+    leaf at a time (``make_optimizer(..., inplace=True)``), and returns
+    that state: no second copy of the state is alive at the update.  The
+    results are bit-equal to ``donate=False``.  The caller must not read the old
+    state afterwards; a leaf it needs (a checkpoint) is copied first
+    (``CheckpointManager.save`` copies to the host before it returns).
+    Under a mesh the leaves are the rank's local shards."""
     # The LM step reduces float gradients; only an explicit request for
     # the ⊞ reduce (the paper MLP's) trips the guard, as in the JAX
     # package.
@@ -186,7 +217,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                 f"init_process_group with world_size={dp} first (torchrun, "
                 f"or python -m repro_torch.launch.train --data-parallel "
                 f"{dp})")
-    _, opt_update = make_optimizer(opt_cfg)
+    _, opt_update = make_optimizer(opt_cfg, inplace=donate)
 
     def grads_of(params, batch):
         leaves, treedef = tree_flatten(params)
@@ -211,6 +242,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         return loss, tree_unflatten(treedef, grads)
 
     def step(state, batch):
+        if donate:
+            _check_donatable(state)
         params = state["params"]
         if tc.microbatches > 1:
             loss = torch.zeros((), dtype=torch.float32,
@@ -245,12 +278,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                                         dist.ReduceOp.MIN).to(torch.bool)
         if tc.grad_clip:
             grads, gn = _clip(grads, tc.grad_clip, _leaf_reducer(
-                rt, params, dist.ReduceOp.SUM))
+                rt, params, dist.ReduceOp.SUM), inplace=donate)
             metrics["grad_norm"] = gn
         if tc.compress_grads:
             grads, res = fake_compress_roundtrip(
                 grads, state["residual"],
                 _leaf_reducer(rt, params, dist.ReduceOp.MAX))
+        if donate:
+            return donated(state, grads, res if tc.compress_grads else None,
+                           finite if tc.nan_guard else None, metrics)
         with torch.no_grad():
             new_params, new_opt = opt_update(params, grads, state["opt"],
                                              state["step"])
@@ -267,5 +303,33 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         if tc.compress_grads:
             new_state["residual"] = res
         return new_state, metrics
+
+    @torch.no_grad()
+    def donated(state, grads, res, finite, metrics):
+        """The update written into ``state``: the residual, then the
+        parameters and optimizer state (AdamW reads ``step`` first), then
+        ``step``; under the guard each leaf takes ``where(finite, new,
+        old)``."""
+        keep = None if finite is None else \
+            (lambda new, old: torch.where(finite, new, old))
+        if res is not None:
+            # A residual leaf takes its gradient's dtype (float32 under
+            # microbatches), as in the functional step; one whose dtype
+            # changes is replaced, as JAX leaves such a donated buffer
+            # unused.
+            olds, treedef = tree_flatten(state["residual"])
+            out = []
+            for old, new in zip(olds, tree_leaves(res)):
+                new = new if keep is None else keep(new, old)
+                if new.dtype == old.dtype:
+                    new = old.copy_(new)
+                out.append(new)
+            state["residual"] = tree_unflatten(treedef, out)
+        opt_update(state["params"], grads, state["opt"], state["step"],
+                   keep=keep)
+        state["step"].add_(1)
+        if finite is not None:
+            metrics["update_skipped"] = (~finite).to(torch.int32)
+        return state, metrics
 
     return step

@@ -12,7 +12,9 @@ package's helpers, and what it counts on fake worlds of ranks.
   full-depth count.
 * On one rank with no mesh, ``meta`` tensors and real CPU tensors give
   the same peak, flops and bytes accessed: the shape-only route drops no
-  allocation.
+  allocation.  Every cell donates, as the reference's do: the aliased
+  bytes are the state's or the caches', and the donated peak is below
+  the functional one (``donate=False``) by at least them.
 * olmo-1b's ``train_4k`` runs on the (16, 16) world; the CLI resumes and
   records a failing cell; no process group outlives a fake world.
 """
@@ -39,6 +41,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.nn import (init_decode_caches, init_paged_caches,
                             init_params)
 from repro_torch.nn.config import ShapeCell
+from repro_torch.optim import optimizers
 from repro_torch.optim.optimizers import AdamWConfig
 from repro_torch.train import init_train_state, train_state_specs
 
@@ -199,6 +202,26 @@ def _expected_arg_bytes(cfg, cell, sizes, daxes) -> int:
     return n + _local_bytes(c, c_specs, sizes)
 
 
+def _donated_bytes(cfg, cell, sizes, daxes) -> int:
+    """The local bytes of what a cell donates: the train state, or the
+    decode caches (none for prefill)."""
+    if cell.kind == "train":
+        st = init_train_state(init_params(0, cfg, device="meta"),
+                              AdamWConfig())
+        return _local_bytes(st, train_state_specs(st), sizes)
+    if cell.kind == "prefill":
+        return 0
+    scfg = cfg.with_(param_dtype="bfloat16")
+    b = cell.global_batch
+    if cell.name == "decode_32k":
+        c = init_paged_caches(scfg, 1 + b * -(-cell.seq_len // 128), 128,
+                              device="meta")
+        return _local_bytes(c, cache_specs(c, daxes, paged=True), sizes)
+    c = init_decode_caches(scfg, b, cell.seq_len, device="meta",
+                           enc_len=cell.seq_len)
+    return _local_bytes(c, cache_specs(c, daxes), sizes)
+
+
 @pytest.mark.parametrize("arch,cell", KIND_CASES,
                          ids=[f"{a}-{c.name}" for a, c in KIND_CASES])
 def test_cell_runs_on_fake_world(arch, cell):
@@ -215,10 +238,37 @@ def test_cell_runs_on_fake_world(arch, cell):
     assert rec["collectives"].get("all-gather", 0) > 0
     assert sum(rec["peak_split"].values()) == rec["arg_bytes"] + \
         rec["temp_bytes"]
+    # Donated, as the JAX package's cells are: the train step writes the
+    # state into its own tensors and the decode steps the caches, so the
+    # aliased bytes are the state's or the caches' local bytes.
+    assert rec["alias_bytes"] == _donated_bytes(
+        cfg, cell, {"data": 2, "model": 2}, daxes)
     if cell.kind == "train":
-        # a new state beside the old one: nothing donated
-        assert rec["alias_bytes"] == 0
         assert rec["collectives"]["reduce-scatter"] > 0
+
+
+@pytest.mark.parametrize("arch,cell", [
+    ("olmo-1b", ShapeCell("train_t", 8, 2, "train")),
+    ("olmo-1b", ShapeCell("decode_32k", 32, 4, "decode")),
+    ("deepseek-v2-lite-16b", ShapeCell("decode_32k", 32, 4, "decode"))],
+    ids=["train", "paged-dense", "paged-mla"])
+def test_donated_peak_below_functional(arch, cell, monkeypatch):
+    """One rank, CPU tensors: the donated peak is below the functional one
+    by at least the bytes donated (the new state, or the new pool that the
+    functional write copies).  The train cell is 4 layers over 8 × 2
+    tokens, so that the update, not the backward, sets the peak, and the
+    update runs in slices of 96 elements (``optimizers.CHUNK``), so that
+    the reduced leaves span several, as a full-size model's do."""
+    monkeypatch.setattr(optimizers, "CHUNK", 96)
+    cfg = _small(arch, n_layers=4) if cell.kind == "train" else \
+        _small(arch)
+    don = D.run_cell(cfg, cell, None, device="cpu")
+    fun = D.run_cell(cfg, cell, None, device="cpu", donate=False)
+    assert fun["alias_bytes"] == 0 and don["alias_bytes"] > 0
+    drop = fun["temp_bytes"] - don["temp_bytes"]
+    assert don["arg_bytes"] == fun["arg_bytes"]
+    assert drop >= don["alias_bytes"], (drop, don["alias_bytes"])
+    assert not any(k.startswith("new ") for k in don["peak_split"])
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "internvl2-76b"])

@@ -8,7 +8,9 @@ Six ``decode_step`` steps teacher-forced through the same tokens (batch
 2, caches of 8 positions and, for the enc-dec family, 8 frames), and for
 olmo-1b ``decode_step_paged`` over a pool of 4-line blocks: the caches
 come and go in the ``cache_specs`` layout, and each layer's cache is
-gathered over ``model`` only around its own step.  Every step's logits
+gathered over ``model`` only around its own step.  Four of the cases run
+again with ``donate=True`` and equal the functional mesh run bit for
+bit.  Every step's logits
 and every final cache leaf, gathered whole, within 1e-5 × the largest
 magnitude of the one-device run's (the fp32 tier of
 ``tests/lm_parity.py``; the heads split over ``model`` sum their floats
@@ -26,6 +28,10 @@ ARCHS = ("olmo-1b", "mamba2-370m", "zamba2-7b", "seamless-m4t-medium")
 CASES = [(a, m, False) for a in ARCHS for m in mp.MESHES] + \
     [("olmo-1b", m, True) for m in mp.MESHES]
 STEPS, B = 6, 2
+#: The cases run again with ``donate=True``.
+DONATED = [CASES.index(c) for c in (
+    ("olmo-1b", (2, 2), False), ("olmo-1b", (2, 2), True),
+    ("zamba2-7b", (2, 2), False), ("seamless-m4t-medium", (1, 4), False))]
 
 
 @pytest.fixture(scope="module")
@@ -36,10 +42,28 @@ def runs():
                             size=(STEPS, B, 1)).astype(np.int32)
             for a in ARCHS}
     ranks = mp.on_ranks(mp.rank_decode, dict(cases=CASES, params=params,
-                                             toks=toks))
+                                             toks=toks, donated=DONATED))
     one = {(a, paged): mp.decode_run(a, params[a], toks[a], paged=paged)
            for a, _, paged in CASES}
     return ranks, one
+
+
+@pytest.mark.parametrize("j", range(len(DONATED)), ids=[
+    f"{CASES[i][0]}-{CASES[i][1][0]}x{CASES[i][1][1]}"
+    + ("-paged" if CASES[i][2] else "") for i in DONATED])
+def test_donated_decode_equals_functional_on_the_mesh(runs, j):
+    """The donating steps write each layer's new cache into the rank's
+    local slice of the stacked caches and return them (checked on the
+    ranks); every step's logits and the final caches equal the
+    functional mesh run's bit for bit on every rank."""
+    ranks, _ = runs
+    for r in ranks:
+        logits, caches = r["donated"][j]
+        want_logits, want_caches = r["runs"][DONATED[j]]
+        assert all(np.array_equal(a, b) for a, b in zip(logits,
+                                                        want_logits))
+        assert all(np.array_equal(a, b) for a, b in zip(caches,
+                                                        want_caches))
 
 
 @pytest.mark.parametrize("i", range(len(CASES)), ids=[

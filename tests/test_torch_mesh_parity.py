@@ -349,11 +349,13 @@ def _decode_paged(c, mesh):
 
 
 def decode_run(arch, params, toks, mesh=None, paged=False, max_len=8,
-               block_size=4):
+               block_size=4, donate=False):
     """``decode_step`` (or ``decode_step_paged`` with ``paged``) of the
     reduced ``arch`` in fp32, teacher-forced through ``toks`` (steps × B
     × 1) from empty caches, on one device or sharded on ``mesh``: every
-    step's logits and the final caches, whole, as numpy."""
+    step's logits and the final caches, whole, as numpy.  ``donate``: the
+    donating steps, which must return the (local) caches they were
+    given."""
     import torch
     from repro_torch.distributed.sharding import (batch_specs, cache_specs,
                                                   gather_tree, map_with_path,
@@ -378,6 +380,8 @@ def decode_run(arch, params, toks, mesh=None, paged=False, max_len=8,
         p = shard_tree(p, param_specs(p), mesh)
         caches = shard_tree(caches, specs, mesh)
         rt = Runtime(mesh=mesh)
+    given = []
+    map_with_path(lambda _p, t: given.append(t), caches)
     logits = []
     for i, tok in enumerate(toks):
         x = {"tok": torch.from_numpy(tok),
@@ -389,13 +393,18 @@ def decode_run(arch, params, toks, mesh=None, paged=False, max_len=8,
         with torch.no_grad():
             if paged:
                 lg, caches = decode_step_paged(p, x["tok"], caches, x["bt"],
-                                               x["pos"], x["active"], cfg, rt)
+                                               x["pos"], x["active"], cfg, rt,
+                                               donate=donate)
             else:
                 lg, caches = decode_step(p, x["tok"], caches, x["pos"], cfg,
-                                         rt)
+                                         rt, donate=donate)
         if mesh is not None:
             lg = Sharded(mesh, ("data",), "model", False).gather_data(lg)
         logits.append(lg.numpy())
+    if donate:
+        now = []
+        map_with_path(lambda _p, t: now.append(t), caches)
+        assert all(a is b for a, b in zip(now, given))
     if mesh is not None:
         caches = gather_tree(caches, specs, mesh)
     leaves = []
@@ -405,12 +414,18 @@ def decode_run(arch, params, toks, mesh=None, paged=False, max_len=8,
 
 def rank_decode(rank, world, job, device):
     """:func:`decode_run` of each case of ``job["cases"]`` (arch, mesh
-    shape, paged) on the sharded parameters and caches, and
+    shape, paged) on the sharded parameters and caches, of the cases
+    ``job["donated"]`` names again with ``donate=True``, and
     :func:`counted_calls` on the (2, 2) mesh."""
     meshes = {s: _tmesh(s) for s in MESHES}
     runs = [decode_run(a, job["params"][a], job["toks"][a], meshes[m], paged)
             for a, m, paged in job["cases"]]
-    return dict(runs=runs, counts=counted_calls(meshes[(2, 2)], "cpu"))
+    donated = [decode_run(a, job["params"][a], job["toks"][a], meshes[m],
+                          paged, donate=True)
+               for a, m, paged in (job["cases"][i]
+                                   for i in job.get("donated", ()))]
+    return dict(runs=runs, donated=donated,
+                counts=counted_calls(meshes[(2, 2)], "cpu"))
 
 
 def counted_calls(mesh, device):
@@ -580,7 +595,8 @@ def rank_train_mesh_and_ckpt(rank, world, job, device):
     with ``shardings=``, and the reference's checkpoint restored at
     (1, 4).  Returns (dp result, (mesh losses, final full params), whether
     each restore equals the shards of the full tree,
-    :func:`rank_train_guard_compress`'s result)."""
+    :func:`rank_train_guard_compress`'s result,
+    :func:`rank_train_donated`'s result)."""
     import torch
     import torch.distributed as dist
     from repro_torch.ckpt import CheckpointManager, load_checkpoint
@@ -604,6 +620,8 @@ def rank_train_mesh_and_ckpt(rank, world, job, device):
         lambda b: shard_tree(b, batch_specs(b), m22))
     done = gather_tree(state, specs, m22)
     mesh_run = (losses, params_to_numpy(done["params"]))
+    donated = rank_train_donated(job, cfg, opt, tc, full, specs, m22,
+                                 (losses, done))
 
     def shardings(mesh):
         return map_with_path(lambda _p, s: NamedSharding(mesh, s), specs)
@@ -618,7 +636,33 @@ def rank_train_mesh_and_ckpt(rank, world, job, device):
         restored[name] = all(torch.equal(a, b) for a, b in zip(
             tree_leaves(got), tree_leaves(want)))
     return dp, mesh_run, restored, rank_train_guard_compress(
-        rank, world, job, device)
+        rank, world, job, device), donated
+
+
+def rank_train_donated(job, cfg, opt, tc, full, specs, mesh, functional):
+    """The (2, 2) mesh steps again with ``donate=True``, from a fresh
+    shard of the same state: (whether the losses and the gathered state
+    equal the functional steps' bit for bit, whether the state returned
+    holds the local shards it was given)."""
+    import torch
+    from repro_torch.distributed.sharding import (batch_specs, gather_tree,
+                                                  shard_tree)
+    from repro_torch.nn import Runtime
+    from repro_torch.pytree import tree_leaves, tree_map
+    from repro_torch.train import make_train_step
+    # A copy: a leaf the mesh does not split may be ``full``'s own tensor,
+    # which shares memory with the job's numpy parameters.
+    state = tree_map(torch.clone, shard_tree(full, specs, mesh))
+    given = tree_leaves(state)
+    losses, state = _steps(
+        make_train_step(cfg, opt, Runtime(mesh=mesh), tc, donate=True),
+        state, job["batches"], lambda b: shard_tree(b, batch_specs(b), mesh))
+    f_losses, f_done = functional
+    done = gather_tree(state, specs, mesh)
+    equal = losses == f_losses and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(done),
+                                          tree_leaves(f_done)))
+    return equal, all(a is b for a, b in zip(tree_leaves(state), given))
 
 
 def adamw_ratio(want_params, want_grads, got_params, lr=1e-3, eps=1e-8):

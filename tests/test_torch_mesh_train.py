@@ -13,7 +13,9 @@ parameters; ``tests/test_torch_mesh_parity.py``).
   (the int8 log code's per-leaf scale is the largest magnitude over the
   leaf's shards) one step's error-feedback residual and compressed
   gradient against the one-device step's; and ``nan_guard`` skips a step
-  on every rank when one rank's gradient is NaN.
+  on every rank when one rank's gradient is NaN.  The same mesh steps
+  with ``donate=True`` (the state written into its local shards) equal
+  the functional ones bit for bit.
 * ``python -m repro_torch.launch.train --data-parallel 2 --device cpu``
   (its own two ranks) gives the one-rank run's losses; a batch that the
   ranks do not divide exits with the reference's message.
@@ -141,6 +143,14 @@ def test_mesh_nan_guard_skips_on_every_rank(runs, i):
     reports ``update_skipped`` 1 and keeps its parameters and optimizer
     state bit for bit; the step counter advances."""
     assert [r[3][i] for r in runs["four"]] == [(1, True)] * 4
+
+
+def test_mesh_donated_steps_equal_functional(runs):
+    """``make_train_step(..., donate=True)`` under the (2, 2) mesh: the
+    three steps' losses and the gathered state equal the functional mesh
+    steps' bit for bit on every rank, and each rank's returned state holds
+    the local shards it was given."""
+    assert [r[4] for r in runs["four"]] == [(True, True)] * 4
 
 
 def test_checkpoint_restores_across_meshes_and_packages(runs):
