@@ -147,7 +147,9 @@ the result line:
    process with no group) for olmo-1b's three cells and
    deepseek-v2-lite-16b's ``decode_32k`` (paged, MoE, MLA) on the fake
    (16, 16) world: every cell ok, each rank's argument and temporary GiB
-   and GB on the wire per collective kind; (b) the dry run against the
+   and GB on the wire per collective kind, olmo-1b's ``decode_32k``
+   under the card's 80 GB (its KV caches split over ``model``, never
+   gathered); (b) the dry run against the
    card: 9c's shapes in the config's own bf16 numerics, dry-run on a fake
    (1, 1) world in a child process and run on the card through a
    one-rank mesh (as phase 13's) between ``reset_peak_memory_stats`` and
@@ -168,7 +170,12 @@ the result line:
    steps donating the pool and functional, teacher-forced on the same
    tokens: losses, parameters and AdamW moments, logits and caches equal
    bit for bit, each run's peak memory printed, the donating runs'
-   launches counted.
+   launches counted; (f) one layer's paged decode attention at olmo-1b's
+   16 heads × 128 over 8 slots × 4096 positions of bf16 pages in 128-line
+   blocks, whole and as 16 ranks' shares of every block combined through
+   ``combine_softmax`` (the reductions over a leading axis standing in
+   for the model axis's all-reduces): equal within the fp32 tier, both
+   timed by CUDA events.
 
 Phase 3 also holds the tiled ⊞-MAC past 65535 row tiles (262 149 rows).
 
@@ -3249,6 +3256,9 @@ def phase13(torch, device, card):
 
 #: 14a: the dry run's cells (arch, --cell) on the fake (16, 16) world.
 DRY_CELLS = (("olmo-1b", "all"), ("deepseek-v2-lite-16b", "decode_32k"))
+#: 14a: olmo-1b's decode_32k, arguments plus temporaries a rank, fits
+#: the card's 80 GB (the KV caches stay split over model).
+DRY_DECODE_FITS = 80e9
 #: 14b: the dry run's holds against the card.
 DRY_ARG_RTOL, DRY_PEAK_RTOL = 0.01, 0.10
 #: 14c: the example twins run on the card.
@@ -3307,6 +3317,11 @@ def dryrun_cells(runs):
     bad = [k for k, r in res.items() if not r.get("ok")]
     if bad or len(res) != 4:
         raise AssertionError(f"14a: cells not ok: {bad} of {sorted(res)}")
+    r = res["olmo-1b/decode_32k"]
+    if not r["arg_bytes"] + r["temp_bytes"] < DRY_DECODE_FITS:
+        raise AssertionError(
+            f"14a: olmo-1b decode_32k needs {r['arg_bytes']} + "
+            f"{r['temp_bytes']} bytes a rank, not under {DRY_DECODE_FITS}")
     for key, r in res.items():
         coll = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
                          sorted(r["collectives"].items()))
@@ -3629,11 +3644,218 @@ def donate_decode(torch, device, card, cfg=None):
     return dcount
 
 
+#: 14f: one paged decode attention layer at olmo-1b's published heads,
+#: (slots, positions a slot, lines a block, ranks the lines split over).
+SPLIT_SHAPE = (8, 4096, 128, 16)
+#: 14f: the fp32 tier of ``tests/lm_parity.py``, × the largest |output|.
+SPLIT_TIER = 1e-5
+SPLIT_REPS = 20
+
+
+def split_attention(torch, device, card, cfg=None, shape=SPLIT_SHAPE):
+    """14f: one layer's paged decode attention (olmo-1b's 16 heads × 128
+    unless ``cfg``) over ``shape``'s slots of bf16 pages, computed whole
+    (``_sdpa_block`` over the gathered view) and as the ranks' shares of
+    every block stacked on a leading axis, combined through
+    ``combine_softmax`` with max and sum over that axis, as the model
+    axis's all-reduces combine them under a mesh.  Both within
+    ``SPLIT_TIER``; their CUDA-event times logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import attention as A
+    from repro_torch.nn.layers import ORDER_FREE
+    from repro_torch.nn.paged import paged_gather, paged_positions
+    cfg = cfg or get_config("olmo-1b")
+    slots, seq, bs, ranks = shape
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    w, bsl = seq // bs, bs // ranks
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen).to(device, torch.bfloat16)
+    pages = [randn(1 + slots * w, bs, kv, hd) for _ in range(2)]
+    q = randn(slots, 1, kv, g, hd)
+    bt = (1 + torch.randperm(slots * w, generator=gen)).reshape(
+        slots, w).to(device, torch.int32)
+    # A slot at the first line (every rank but 0 masked), one at a
+    # rank's first line, one at the last; the rest anywhere.
+    pos = torch.randint(0, seq, (slots,), generator=gen)
+    pos[:3] = torch.tensor([0, bs + bsl, seq - 1])
+    pos = pos.to(device, torch.int32)
+    scale = hd ** -0.5
+
+    def whole():
+        k, v = (paged_gather(t, bt) for t in pages)
+        kpos = paged_positions(w, bs, device=device)
+        mask = (kpos[None, :] <= pos[:, None])[:, None, None, None, :]
+        return A._sdpa_block(q, k, v, scale, mask, ORDER_FREE)
+
+    def split():
+        k, v = (torch.stack([paged_gather(t[:, r * bsl:(r + 1) * bsl], bt)
+                             for r in range(ranks)]) for t in pages)
+        kpos = torch.stack([paged_positions(w, bsl, r, ranks, device)
+                            for r in range(ranks)])
+        mask = (kpos[:, None, :] <= pos[None, :, None]
+                )[:, :, None, None, None]
+        return A._sdpa_split(q, k, v, scale, mask, ORDER_FREE,
+                             lambda t: t.amax(0, keepdim=True),
+                             lambda t: t.sum(0, keepdim=True))[0]
+    want, got = whole(), split()
+    torch.cuda.synchronize()
+    gap = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    differ = int((got != want).sum().item())
+    times = {name: time_host(torch, fn, SPLIT_REPS) for name, fn in (
+        ("whole", whole), (f"{ranks} blocks", split))}
+    log("14f split attention", f"{cfg.name}'s {cfg.n_heads} heads × {hd} "
+        f"({kv} KV heads), {slots} slots × {seq} positions of bf16 pages "
+        f"in {bs}-line blocks: whole vs {ranks} ranks' shares combined, "
+        f"max |diff| {gap:.3g} of max |out| {top:.4g} (tier "
+        f"{SPLIT_TIER:g}), {differ} of {want.numel()} outputs differ; "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+        + f" a call (CUDA events around {SPLIT_REPS} calls back to back, "
+        f"the host's enqueueing included) on {card}")
+    if not gap <= SPLIT_TIER * top:
+        raise AssertionError(f"14f: split attention off by {gap} of {top}")
+    return times
+
+
+class ThreadRanks:
+    """``n`` ranks as threads of this process on one card: ``split(r)``
+    is rank r's ``attention.KVSplit``, whose max and sum reduce the
+    ranks' tensors stacked in rank order, as a model group's all-reduces
+    do."""
+
+    def __init__(self, torch, n):
+        import threading
+        self.torch, self.n = torch, n
+        self.bar = threading.Barrier(n, timeout=300)
+        self.slot = [None] * n
+
+    def _reduce(self, rank, t, fn):
+        self.slot[rank] = t
+        self.bar.wait()
+        out = fn(self.torch.stack(self.slot))
+        self.bar.wait()
+        return out
+
+    def split(self, rank):
+        from repro_torch.nn.attention import KVSplit
+        return KVSplit(rank, self.n,
+                       lambda t: self._reduce(rank, t, lambda s: s.amax(0)),
+                       lambda t: self._reduce(rank, t, lambda s: s.sum(0)))
+
+    def run(self, fn):
+        """``fn(rank)`` on every rank at once; the results in rank
+        order."""
+        import threading
+        out, err = [None] * self.n, []
+
+        def go(r):
+            try:
+                out[r] = fn(r)
+            except BaseException as e:        # noqa: BLE001
+                err.append(e)
+                self.bar.abort()
+        ts = [threading.Thread(target=go, args=(r,)) for r in range(self.n)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in ts):
+            raise AssertionError("14f: a rank's thread did not finish")
+        if err:
+            raise err[0]
+        return out
+
+
+#: 14f: the entry points run split over ranks, with their published
+#: widths: GQA (olmo-1b) and MLA (the moe family's, deepseek-v2-lite-16b).
+SPLIT_ARCHS = ("olmo-1b", "deepseek-v2-lite-16b")
+
+
+def split_entry_points(torch, device, card, shape=SPLIT_SHAPE):
+    """14f: ``gqa_decode_paged`` and ``mla_decode_paged`` at
+    ``SPLIT_ARCHS``' widths over ``shape``'s pool of bf16 pages, whole
+    and as ``ranks`` threads each handed its ``KVSplit``: each rank
+    writes the lines it holds, masks its view by their logical positions
+    and combines its softmax (for MLA its latent context, before
+    ``w_uv``) over the ranks.  Every rank's output within ``SPLIT_TIER``
+    of the whole call's and all ranks' equal; the ranks' pool shares put
+    together equal to the whole call's pool but for the null block,
+    which takes the inactive slot's line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.numerics import get_policy
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import model as M
+    slots, seq, bs, ranks = shape
+    w, bsl = seq // bs, bs // ranks
+    pol = M._ServePol(get_policy("fp32"), True)
+    for arch in SPLIT_ARCHS:
+        t0 = time.time()
+        cfg = get_config(arch)
+        mla = cfg.attn_kind == "mla"
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        p = (A.init_mla if mla else A.init_gqa)(gen, cfg, torch.bfloat16)
+        dims = (((cfg.mla.kv_lora_rank,), (cfg.mla.rope_head_dim,)) if mla
+                else ((cfg.n_kv_heads, cfg.d_head),) * 2)
+        pool = [torch.randn((1 + slots * w, bs) + d, generator=gen,
+                            device=device).to(torch.bfloat16) for d in dims]
+        x = torch.randn((slots, 1, cfg.d_model), generator=gen,
+                        device=device).to(torch.bfloat16)
+        bt = (1 + torch.randperm(slots * w, generator=gen, device=device)
+              ).reshape(slots, w).to(torch.int32)
+        # New lines at a slot's first line (every rank but 0 masked), on
+        # a block's first line, on rank 1's first line, on the last
+        # rank's last line; the last slot inactive.
+        pos = torch.randint(0, seq, (slots,), generator=gen, device=device)
+        pos[:4] = torch.tensor([0, 2 * bs, bs + bsl, seq - 1])
+        pos = pos.to(torch.int32)
+        active = torch.ones(slots, dtype=torch.bool, device=device)
+        active[-1] = False
+        fn = A.mla_decode_paged if mla else A.gqa_decode_paged
+        with torch.no_grad():
+            want, whole = fn(p, x, cfg, pol,
+                             A.KVCache(*(t.clone() for t in pool)), bt, pos,
+                             active)
+        shares = [[t[:, r * bsl:(r + 1) * bsl].clone() for t in pool]
+                  for r in range(ranks)]
+        group = ThreadRanks(torch, ranks)
+
+        def rank(r):
+            with torch.no_grad():
+                return fn(p, x, cfg, pol, A.KVCache(*shares[r]), bt, pos,
+                          active, None, group.split(r))
+        outs = group.run(rank)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, outs[0][0]) for o, _ in outs):
+            raise AssertionError(f"14f {arch}: the ranks' outputs differ")
+        got = outs[0][0]
+        gap = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        differ = int((got != want).sum().item())
+        pools_equal = all(torch.equal(
+            torch.cat([c[i] for _, c in outs], 1)[1:], whole[i][1:])
+            for i in range(2))
+        log("14f split entry points", f"{arch} {fn.__name__}, "
+            f"{cfg.n_heads} heads, {slots} slots × {seq} positions of bf16 "
+            f"pages in {bs}-line blocks, {ranks} ranks as threads on one "
+            f"card: max |diff| {gap:.3g} of max |out| {top:.4g} (tier "
+            f"{SPLIT_TIER:g}), {differ} of {want.numel()} outputs differ; "
+            f"joined pool shares equal to the whole call's: {pools_equal}; "
+            f"in {time.time() - t0:.1f} s on {card}")
+        if not gap <= SPLIT_TIER * top:
+            raise AssertionError(f"14f {arch}: split off by {gap} of {top}")
+        if not pools_equal:
+            raise AssertionError(f"14f {arch}: the ranks' pool shares "
+                                 "differ from the whole call's pool")
+
+
 def phase14(torch, device, card, decode_launches=None):
     """Phase 14: the dry run (14a, 14b), the example twins (14c), row 1
-    at 13d's shapes (14d; ``decode_launches``: 13d's row-1 launches) and
-    buffer donation (14e).  The dry runs are child processes on the host's
-    CPU, started first and read after the card's work.  Returns 14e's
+    at 13d's shapes (14d; ``decode_launches``: 13d's row-1 launches),
+    buffer donation (14e) and decode attention split over ranks (14f).
+    The dry runs are child processes on the host's CPU, started first
+    and read after the card's work.  Returns 14e's
     donating runs' launches."""
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3651,6 +3873,10 @@ def phase14(torch, device, card, decode_launches=None):
             for k, v in donate_decode(torch, device, card).items():
                 launches[k] = launches.get(k, 0) + v
             log("14e donate", f"in {time.time() - t1:.1f} s")
+            t1 = time.time()
+            split_attention(torch, device, card)
+            split_entry_points(torch, device, card)
+            log("14f split attention", f"in {time.time() - t1:.1f} s")
             dryrun_cells(runs)
             log("14a dryrun", f"read {time.time() - t0:.1f} s after its "
                 f"start")

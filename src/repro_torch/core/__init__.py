@@ -1,7 +1,8 @@
 """Log-domain (LNS) arithmetic on PyTorch tensors, and the linear
 fixed-point baseline (``linear_fixed``)."""
 from . import f32
-from .activations import beta_code, llrelu, llrelu_grad_from_sign
+from .activations import (beta_code, llrelu, llrelu_grad,
+                          llrelu_grad_from_sign)
 from .arithmetic import (bias_add, boxabs_max, boxdiv, boxdot, boxminus,
                          boxneg, boxplus, boxsum, boxsum_partials,
                          lns_affine, lns_matmul, matmul_dhist)
@@ -14,7 +15,7 @@ from .formats import (FORMATS, FXP12, FXP16, LNS12, LNS16, LNS21,
 from .initializers import (encode_init, he_sigma, linear_normal_init,
                            log_density_normal, log_normal_init)
 from .lns import (LNSArray, LNSMatmulBackend, convert_format, decode, encode,
-                  scalar, zeros)
+                  from_parts, quantization_bound, scalar, zeros)
 from .plan import NumericsPlan, PlanRule, get_plan, plan_diff
 from .sgd import (LogSGDConfig, UpdateEpilogue, apply_update,
                   apply_update_codes, init_momentum)

@@ -25,6 +25,12 @@ def llrelu(a: LNSArray, beta: int, fmt: LNSFormat) -> LNSArray:
     return LNSArray(code, a.sign)
 
 
+def llrelu_grad(a: LNSArray, beta: int, fmt: LNSFormat) -> LNSArray:
+    """d llReLU/dz in the log domain: 1 for positives, α = 2^β for
+    negatives (:func:`llrelu_grad_from_sign` of ``a``'s sign plane)."""
+    return llrelu_grad_from_sign(a.sign, beta)
+
+
 def llrelu_grad_from_sign(sign: torch.Tensor, beta: int) -> LNSArray:
     """d llReLU/dz from the pre-activation sign plane alone: code 0
     (= log2 1) for positives, β for negatives; always positive."""

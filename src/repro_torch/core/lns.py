@@ -83,6 +83,13 @@ def zeros(shape, fmt: LNSFormat, device="cpu") -> LNSArray:
         torch.zeros(shape, dtype=torch.int8, device=device))
 
 
+def from_parts(code, sign, device=None) -> LNSArray:
+    """An :class:`LNSArray` of the given code and sign planes, as int32
+    and int8 (on ``device``, else where ``code`` and ``sign`` are)."""
+    return LNSArray(torch.as_tensor(code, dtype=torch.int32, device=device),
+                    torch.as_tensor(sign, dtype=torch.int8, device=device))
+
+
 def scalar(v: float, fmt: LNSFormat, device="cpu") -> LNSArray:
     """Host-side scalar constant in LNS (e.g. learning rate, log2(e))."""
     if v == 0:
@@ -116,6 +123,12 @@ def convert_format(a: LNSArray, src: LNSFormat, dst: LNSFormat) -> LNSArray:
     code = torch.clamp(code, dst.min_nonzero_code, dst.code_max)
     return LNSArray(torch.where(zero, dst.zero_code, code),
                     torch.where(zero, 0, a.sign).to(torch.int8))
+
+
+def quantization_bound(fmt: LNSFormat) -> float:
+    """The largest relative error of encode/decode for in-range values:
+    |v̂ - v| / |v| <= 2^(2^-(qf+1)) - 1 (half an ulp of the log code)."""
+    return float(2.0 ** (0.5 / fmt.scale) - 1.0)
 
 
 # ------------------------------------------------------------------------

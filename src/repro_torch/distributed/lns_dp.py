@@ -49,6 +49,7 @@ import torch.distributed as dist
 
 from ..core.plan import NumericsPlan
 from ..core.spec import ReduceSpec
+from ..devices import resolve_device
 from ..obs import metrics as _obs
 from ..obs.trace import phase_scope
 from ..resil import inject as _inj
@@ -116,6 +117,30 @@ class DPConfig:
 DPConfig.reduce_mode = property(lambda self: self.reduce.mode)
 DPConfig.grad_segments = property(lambda self: self.reduce.grad_segments)
 DPConfig.reduce_schedule = property(lambda self: self.reduce.schedule)
+
+
+def _attached(device: torch.device) -> int:
+    """The devices a mesh on ``device`` can take: the cards of this host,
+    or on the CPU the ranks of the process group (one without one)."""
+    if device.type == "cuda":
+        return torch.cuda.device_count()
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def make_data_mesh(num_devices: int, axis_name: str = "data",
+                   device="cuda"):
+    """A one-axis ``DeviceMesh`` of ``num_devices`` ranks named
+    ``axis_name`` (``launch/mesh.py: make_mesh``, one card a rank on
+    ``cuda``).  Raises when fewer devices are attached than asked for."""
+    from ..launch.mesh import make_mesh
+    device = resolve_device(device)
+    have = _attached(device)
+    if num_devices > have:
+        raise ValueError(
+            f"requested data_parallel={num_devices} but only {have} "
+            f"devices are attached (on the CPU, run that many ranks of "
+            f"a gloo process group)")
+    return make_mesh((num_devices,), (axis_name,), device)
 
 
 class LNSDataParallelMLP:

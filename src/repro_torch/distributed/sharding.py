@@ -146,9 +146,11 @@ def cache_specs(caches, data_axes=("data",), model_axis="model",
                 paged: bool = False):
     """Decode caches: batch over data; sequence (or the last dim) over model.
 
-    Layouts: GQA KV (L,B,S,KV,hd) → sequence on model; MLA latents
-    (L,B,S,r) and SSM conv (L,B,K,C) → last dim on model; SSM state
-    (L,B,H,P,N) → heads on model; enc_out (B,S,d) → sequence on model.
+    Layouts: GQA KV (L,B,S,KV,hd) and MLA latents (L,B,S,r) → sequence
+    on model (each rank attends over its block and the softmax is
+    combined over model: ``nn/attention.py: combine_softmax``); SSM conv
+    (L,B,K,C) → last dim on model; SSM state (L,B,H,P,N) → heads on
+    model; enc_out (B,S,d) → sequence on model.
 
     ``paged=True`` is the serving pool layout (no batch dim): GQA pages
     (L,NB,bs,KV,hd) / MLA pages (L,NB,bs,r) shard the within-block dim

@@ -11,6 +11,12 @@ Decode uses a fixed-capacity KV cache written at each slot's position
 with a length mask, or a paged cache (``nn/paged.py``); chunked prefill
 splices a chunk's lines into a slot's pages and attends causally over
 them.  MLA decode is *absorbed* (q projected into the latent space).
+Under a mesh the decode caches stay split over the model axis
+(:class:`KVSplit`): each rank writes only the lines it holds, scores its
+own keys, and :func:`combine_softmax` joins the ranks' softmax and value
+sums with two reductions over the axis (flash-decoding).  A whole cache
+is one rank's share (:data:`WHOLE`), so every decode and prefill
+function runs the one combine.
 
 Every function takes its float reductions (norms, score and value
 contractions, softmax) from its numerics runtime (``layers.float_ops``):
@@ -22,19 +28,43 @@ under the LNS modes an ulp can move a code, and the ⊞-MAC carries it on.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..core.numerics import NumericsPolicy
 from .config import ModelConfig
 from .layers import _normal, apply_rope, float_ops, rms_head_norm
-from .paged import paged_gather, paged_write_chunk, paged_write_token
+from .paged import (paged_gather, paged_positions, paged_write_chunk,
+                    paged_write_token)
 
 
 class KVCache(NamedTuple):
     k: torch.Tensor          # GQA: (B, S, KV, hd) | MLA: (B, S, lora)
     v: torch.Tensor          # GQA: (B, S, KV, hd) | MLA: (B, S, rope)
+
+
+class KVSplit(NamedTuple):
+    """This rank's share of a decode cache split over ``n`` ranks, as
+    ``distributed.sharding.cache_specs`` lays it out: the ``rank``-th
+    contiguous block of the sequence (dense caches) or of each block's
+    lines (the paged pool).  ``pmax`` / ``psum`` reduce a tensor
+    elementwise over the ranks (max, sum), each rank getting the result.
+    Under a mesh they are the model group's all-reduces; a test or a
+    single card can stand in ``n`` blocks for them.  A whole cache is
+    :data:`WHOLE`, one rank's."""
+    rank: int
+    n: int
+    pmax: Callable
+    psum: Callable
+
+
+def _same(t):
+    return t
+
+
+#: The whole cache: one rank, the reductions over it the identity.
+WHOLE = KVSplit(0, 1, _same, _same)
 
 
 # ------------------------------------------------------------- GQA -------
@@ -66,6 +96,68 @@ def _sdpa_block(q, k, v, scale, mask, fl):
     if mask is not None:
         sc = _masked(sc, mask)
     return fl.einsum("bkgct,btkh->bckgh", fl.softmax(sc).to(v.dtype), v)
+
+
+def _wide_einsum(eq: str, *ops):
+    """An einsum in float64, not rounded: one rank's share of a sum that
+    a reduction over the ranks completes."""
+    return torch.einsum(eq, *(o.to(torch.float64) for o in ops))
+
+
+def combine_softmax(sc, pv, pmax, psum):
+    """``softmax(sc) · V`` when the keys, the last axis of the float32
+    scores ``sc`` (masked), are split in blocks over ranks, each holding
+    its block's scores and values.  ``pmax`` / ``psum`` reduce over the
+    ranks; ``pv(p)`` is the rank's share of the value product for its
+    float32 probabilities ``p``, in float64 and not rounded.
+
+    Forms the same float64 values as ``ORDER_FREE.softmax`` over the
+    whole row: the global maximum, ``exp(s - max)``, their sum (the
+    denominator) and each probability rounded to float32.  Only the
+    order of the float64 sums differs.  Returns the summed value product
+    in float64; the caller rounds it once."""
+    m = pmax(sc.amax(-1, keepdim=True))
+    e = torch.exp(sc.to(torch.float64) - m.to(torch.float64))
+    p = (e / psum(e.sum(-1, keepdim=True))).to(sc.dtype)
+    return psum(pv(p))
+
+
+def _sdpa_split(q, k, v, scale, mask, fl, pmax, psum):
+    """:func:`_sdpa_block` of ``q`` against one block of the keys, the
+    softmax and the value sum combined over the blocks
+    (:func:`combine_softmax`).  Leading dims beyond the batch broadcast,
+    so ``n`` blocks stacked on a leading axis run in one call with
+    reductions over that axis."""
+    sc = fl.einsum("...ckgh,...tkh->...kgct", q, k).to(torch.float32) \
+        * scale
+    if mask is not None:
+        sc = _masked(sc, mask)
+    o = combine_softmax(sc, lambda p: _wide_einsum(
+        "...kgct,...tkh->...ckgh", p.to(v.dtype), v), pmax, psum)
+    return o.to(v.dtype)
+
+
+def _write_lines(t, lpos, vals, inplace):
+    """Each row ``b`` of a dense cache ``t`` (B, S, ...) takes its new
+    line ``vals[b]`` at position ``lpos[b]`` where that lies in ``[0,
+    S)``, and writes nothing elsewhere (it puts back the line it holds).
+    ``inplace`` writes into ``t`` (no copy of the cache)."""
+    s = t.shape[1]
+    at = lpos.clamp(0, s - 1).long()
+    rows = torch.arange(t.shape[0], device=t.device)
+    own = ((lpos >= 0) & (lpos < s)).reshape((-1,) + (1,) * (t.ndim - 2))
+    new = torch.where(own, vals.to(t.dtype), t[rows, at])
+    out = t if inplace else t.clone()
+    out[rows, at] = new
+    return out
+
+
+def _dense_share(cache_t, split):
+    """The first logical position of this rank's block of a dense
+    cache's sequence, and the logical positions of its lines."""
+    s = cache_t.shape[1]
+    lo = split.rank * s
+    return lo, lo + torch.arange(s, device=cache_t.device)
 
 
 def gqa_qkv(p, x, cfg: ModelConfig, pol: NumericsPolicy, positions):
@@ -156,39 +248,54 @@ def gqa_attention(p, x, cfg: ModelConfig, pol: NumericsPolicy,
 
 
 def gqa_decode(p, x, cfg: ModelConfig, pol: NumericsPolicy, cache: KVCache,
-               pos) -> "tuple[torch.Tensor, KVCache]":
+               pos, split: KVSplit = WHOLE, inplace: bool = False
+               ) -> "tuple[torch.Tensor, KVCache]":
     """One-token decode against a fixed-capacity cache.
 
     x: (B, 1, d); pos: (B,) current positions; cache tensors (B, S, KV,
-    hd).
+    hd): the whole cache, or with ``split`` this rank's block of the
+    sequence, whose owner alone writes the new line.  ``inplace`` writes
+    the line into ``cache`` and returns its tensors.
     """
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q, k_new, v_new = gqa_qkv(p, x, cfg, pol, pos[:, None])
-    smax = cache.k.shape[1]
-    ar = torch.arange(smax, device=x.device)
-    at = (ar[None, :] == pos[:, None])[:, :, None, None]
-    k = torch.where(at, k_new.to(cache.k.dtype), cache.k)
-    v = torch.where(at, v_new.to(cache.v.dtype), cache.v)
+    lo, kpos = _dense_share(cache.k, split)
+    k = _write_lines(cache.k, pos - lo, k_new[:, 0], inplace)
+    v = _write_lines(cache.v, pos - lo, v_new[:, 0], inplace)
     qg = q.reshape(b, 1, kv, h // kv, hd)
-    mask = (ar[None, :] <= pos[:, None])[:, None, None, None, :]
-    o = _sdpa_block(qg, k, v, hd ** -0.5, mask, float_ops(pol)
-                    ).reshape(b, 1, h * hd)
+    mask = (kpos[None, :] <= pos[:, None])[:, None, None, None, :]
+    o = _sdpa_split(qg, k, v, hd ** -0.5, mask, float_ops(pol),
+                    split.pmax, split.psum).reshape(b, 1, h * hd)
     return pol.linear(o, p["wo"]), KVCache(k, v)
 
 
 # --------------------------------------------------------- paged GQA -----
-def _token_writer(bt, pos, active, write):
-    """``write(pages, vals)``: the slots' new lines into the pool; by
-    default this batch's slots (:func:`paged_write_token`)."""
-    if write is not None:
-        return write
-    return lambda pages, vals: paged_write_token(pages, bt, pos, vals,
-                                                 active)
+def token_writer(bt, pos, active, split: KVSplit = WHOLE,
+                 inplace: bool = False, gather=None):
+    """``write(pages, vals)``: the slots' new lines into the pool, or
+    into ``split``'s share of it (:func:`paged_write_token`); ``inplace``
+    writes into ``pages``.  Under a mesh ``gather`` takes a tensor of
+    this data rank's slots to every data rank's (the pool's replicas
+    take them all)."""
+    if gather is not None:
+        bt, pos = gather(bt), gather(pos)
+        active = gather(active.to(torch.int32)).bool()
+    return lambda pages, vals: paged_write_token(
+        pages, bt, pos, vals if gather is None else gather(vals), active,
+        inplace, split)
+
+
+def _view_positions(pages, bt, split):
+    """The logical position of each line of :func:`paged_gather`'s view
+    of ``pages`` through the tables ``bt`` (W blocks a slot)."""
+    return paged_positions(bt.shape[-1], pages.shape[1], split.rank,
+                           split.n, pages.device)
 
 
 def gqa_decode_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
-                     cache: KVCache, bt, pos, active, write=None
+                     cache: KVCache, bt, pos, active, write=None,
+                     split: KVSplit = WHOLE
                      ) -> "tuple[torch.Tensor, KVCache]":
     """One-token batched decode against a paged (block) KV cache.
 
@@ -198,26 +305,29 @@ def gqa_decode_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
     Attention runs over the gathered (B, W·bs) logical view with the same
     length mask as the dense path, so unallocated pages contribute
     exactly-zero softmax weight.  ``write(pages, new lines)`` replaces the
-    write of this batch's lines (under a mesh: every data rank's).
+    write of this batch's lines (under a mesh: every data rank's).  With
+    ``split`` the pool holds this rank's lines of every block, and the
+    view its (B, W·bs/n) lines, masked by their logical positions.
     """
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q, k_new, v_new = gqa_qkv(p, x, cfg, pol, pos[:, None])
-    write = _token_writer(bt, pos, active, write)
+    write = write or token_writer(bt, pos, active, split)
     k_pages = write(cache.k, k_new[:, 0])
     v_pages = write(cache.v, v_new[:, 0])
     k = paged_gather(k_pages, bt)                   # (B, W·bs, KV, hd)
     v = paged_gather(v_pages, bt)
-    ar = torch.arange(k.shape[1], device=x.device)
-    mask = (ar[None, :] <= pos[:, None])[:, None, None, None, :]
+    kpos = _view_positions(k_pages, bt, split)
+    mask = (kpos[None, :] <= pos[:, None])[:, None, None, None, :]
     qg = q.reshape(b, 1, kv, h // kv, hd)
-    o = _sdpa_block(qg, k, v, hd ** -0.5, mask, float_ops(pol)
-                    ).reshape(b, 1, h * hd)
+    o = _sdpa_split(qg, k, v, hd ** -0.5, mask, float_ops(pol),
+                    split.pmax, split.psum).reshape(b, 1, h * hd)
     return pol.linear(o, p["wo"]), KVCache(k_pages, v_pages)
 
 
 def gqa_prefill_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
-                      cache: KVCache, bt_row, pos_base, n_valid
+                      cache: KVCache, bt_row, pos_base, n_valid,
+                      split: KVSplit = WHOLE
                       ) -> "tuple[torch.Tensor, KVCache]":
     """Chunked-prefill attention for ONE slot: splice then attend.
 
@@ -226,21 +336,23 @@ def gqa_prefill_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
     lines are written directly into the slot's pages, then the C queries
     attend causally over the gathered logical view — which already holds
     every previous chunk's lines, so cross-chunk attention needs no extra
-    state.
+    state.  ``split``: as in :func:`gqa_decode_paged`.
     """
     c = x.shape[1]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     lpos = pos_base + torch.arange(c, device=x.device)
     q, k_new, v_new = gqa_qkv(p, x, cfg, pol, lpos[None])
-    k_pages = paged_write_chunk(cache.k, bt_row, pos_base, k_new[0], n_valid)
-    v_pages = paged_write_chunk(cache.v, bt_row, pos_base, v_new[0], n_valid)
+    k_pages = paged_write_chunk(cache.k, bt_row, pos_base, k_new[0], n_valid,
+                                split)
+    v_pages = paged_write_chunk(cache.v, bt_row, pos_base, v_new[0], n_valid,
+                                split)
     k = paged_gather(k_pages, bt_row[None])         # (1, W·bs, KV, hd)
     v = paged_gather(v_pages, bt_row[None])
-    ar = torch.arange(k.shape[1], device=x.device)
-    mask = (ar[None, :] <= lpos[:, None])[None, None, None]
+    kpos = _view_positions(k_pages, bt_row, split)
+    mask = (kpos[None, :] <= lpos[:, None])[None, None, None]
     qg = q.reshape(1, c, kv, h // kv, hd)
-    o = _sdpa_block(qg, k, v, hd ** -0.5, mask, float_ops(pol)
-                    ).reshape(1, c, h * hd)
+    o = _sdpa_split(qg, k, v, hd ** -0.5, mask, float_ops(pol),
+                    split.pmax, split.psum).reshape(1, c, h * hd)
     return pol.linear(o, p["wo"]), KVCache(k_pages, v_pages)
 
 
@@ -309,7 +421,7 @@ def mla_attention(p, x, cfg: ModelConfig, pol: NumericsPolicy,
 
 
 def _mla_absorbed(p, x, cfg: ModelConfig, pol: NumericsPolicy, ck, kpe,
-                  positions, mask):
+                  positions, mask, split: KVSplit):
     """Absorbed MLA attention of (B, Q, d) queries over latent caches.
 
     ck: (B, S, lora) compressed latents; kpe: (B, S, rope) positional
@@ -317,7 +429,9 @@ def _mla_absorbed(p, x, cfg: ModelConfig, pol: NumericsPolicy, ck, kpe,
     float einsums of ``pol.q_param(w_ukv)``, not as a ⊞-MAC, so its
     logits differ from :func:`mla_attention`'s under LNS, as the JAX
     package's do.  Shared by one-token decode (Q=1, length mask) and
-    chunked prefill (Q=C, causal mask).
+    chunked prefill (Q=C, causal mask).  With ``split`` the latents are
+    this rank's lines: the latent context ``p·ck`` is combined over the
+    ranks (:func:`combine_softmax`) before ``w_uv``.
     """
     m = cfg.mla
     b, qn = x.shape[0], x.shape[1]
@@ -332,51 +446,54 @@ def _mla_absorbed(p, x, cfg: ModelConfig, pol: NumericsPolicy, ck, kpe,
     sc = fl.einsum("bqhl,bsl->bhqs", q_lat, ck)
     sc = sc + fl.einsum("bqhr,bsr->bhqs", q_pe, kpe)
     sc = sc.to(torch.float32) * (m.nope_head_dim + m.rope_head_dim) ** -0.5
-    pr = fl.softmax(_masked(sc, mask)).to(x.dtype)
-    ctx = fl.einsum("bhqs,bsl->bqhl", pr, ck)
+    ctx = combine_softmax(_masked(sc, mask), lambda pr: _wide_einsum(
+        "bhqs,bsl->bqhl", pr.to(x.dtype), ck), split.pmax,
+        split.psum).to(torch.promote_types(x.dtype, ck.dtype))
     o = fl.einsum("bqhl,lhv->bqhv", ctx, w_uv).reshape(b, qn, -1)
     return pol.linear(o, p["wo"])
 
 
 def mla_decode(p, x, cfg: ModelConfig, pol: NumericsPolicy, cache: KVCache,
-               pos) -> "tuple[torch.Tensor, KVCache]":
+               pos, split: KVSplit = WHOLE, inplace: bool = False
+               ) -> "tuple[torch.Tensor, KVCache]":
     """Absorbed one-token MLA decode on the latent cache.
 
-    cache.k: (B, S, lora) compressed latents; cache.v: (B, S, rope) k_pe.
+    cache.k: (B, S, lora) compressed latents; cache.v: (B, S, rope) k_pe;
+    ``split`` and ``inplace`` as in :func:`gqa_decode`.
     """
     c_new, pe_new = _mla_latents(p, x, cfg, pol, pos[:, None])
-    smax = cache.k.shape[1]
-    ar = torch.arange(smax, device=x.device)
-    at = (ar[None, :] == pos[:, None])[:, :, None]
-    ck = torch.where(at, c_new.to(cache.k.dtype), cache.k)
-    kpe = torch.where(at, pe_new.to(cache.v.dtype), cache.v)
-    mask = (ar[None, :] <= pos[:, None])[:, None, None, :]
-    o = _mla_absorbed(p, x, cfg, pol, ck, kpe, pos[:, None], mask)
+    lo, kpos = _dense_share(cache.k, split)
+    ck = _write_lines(cache.k, pos - lo, c_new[:, 0], inplace)
+    kpe = _write_lines(cache.v, pos - lo, pe_new[:, 0], inplace)
+    mask = (kpos[None, :] <= pos[:, None])[:, None, None, :]
+    o = _mla_absorbed(p, x, cfg, pol, ck, kpe, pos[:, None], mask, split)
     return o, KVCache(ck, kpe)
 
 
 def mla_decode_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
-                     cache: KVCache, bt, pos, active, write=None
+                     cache: KVCache, bt, pos, active, write=None,
+                     split: KVSplit = WHOLE
                      ) -> "tuple[torch.Tensor, KVCache]":
     """Absorbed one-token MLA decode on paged latent caches.
 
     cache.k: (NB, bs, lora) latent pages; cache.v: (NB, bs, rope) k_pe
-    pages; bt/pos/active/write as in :func:`gqa_decode_paged`.
+    pages; bt/pos/active/write/split as in :func:`gqa_decode_paged`.
     """
     c_new, pe_new = _mla_latents(p, x, cfg, pol, pos[:, None])
-    write = _token_writer(bt, pos, active, write)
+    write = write or token_writer(bt, pos, active, split)
     ck_pages = write(cache.k, c_new[:, 0])
     pe_pages = write(cache.v, pe_new[:, 0])
     ck = paged_gather(ck_pages, bt)                 # (B, W·bs, lora)
     kpe = paged_gather(pe_pages, bt)
-    ar = torch.arange(ck.shape[1], device=x.device)
-    mask = (ar[None, :] <= pos[:, None])[:, None, None, :]
-    o = _mla_absorbed(p, x, cfg, pol, ck, kpe, pos[:, None], mask)
+    kpos = _view_positions(ck_pages, bt, split)
+    mask = (kpos[None, :] <= pos[:, None])[:, None, None, :]
+    o = _mla_absorbed(p, x, cfg, pol, ck, kpe, pos[:, None], mask, split)
     return o, KVCache(ck_pages, pe_pages)
 
 
 def mla_prefill_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
-                      cache: KVCache, bt_row, pos_base, n_valid
+                      cache: KVCache, bt_row, pos_base, n_valid,
+                      split: KVSplit = WHOLE
                       ) -> "tuple[torch.Tensor, KVCache]":
     """Chunked-prefill MLA for one slot: splice latents, attend absorbed.
 
@@ -388,14 +505,14 @@ def mla_prefill_paged(p, x, cfg: ModelConfig, pol: NumericsPolicy,
     lpos = pos_base + torch.arange(c, device=x.device)
     c_new, pe_new = _mla_latents(p, x, cfg, pol, lpos[None])
     ck_pages = paged_write_chunk(cache.k, bt_row, pos_base, c_new[0],
-                                 n_valid)
+                                 n_valid, split)
     pe_pages = paged_write_chunk(cache.v, bt_row, pos_base, pe_new[0],
-                                 n_valid)
+                                 n_valid, split)
     ck = paged_gather(ck_pages, bt_row[None])       # (1, W·bs, lora)
     kpe = paged_gather(pe_pages, bt_row[None])
-    ar = torch.arange(ck.shape[1], device=x.device)
-    mask = (ar[None, :] <= lpos[:, None])[None, None]
-    o = _mla_absorbed(p, x, cfg, pol, ck, kpe, lpos[None], mask)
+    kpos = _view_positions(ck_pages, bt_row, split)
+    mask = (kpos[None, :] <= lpos[:, None])[None, None]
+    o = _mla_absorbed(p, x, cfg, pol, ck, kpe, lpos[None], mask, split)
     return o, KVCache(ck_pages, pe_pages)
 
 

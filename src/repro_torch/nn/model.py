@@ -56,7 +56,10 @@ Under a :class:`Runtime` with a mesh, every entry point runs on the
 rank's shards (see :class:`Runtime`): ``loss_fn`` returns the global loss
 on every rank, ``prefill`` returns the rank's caches in the
 ``cache_specs`` layout, and the decode steps take and return caches in
-that layout (gathered over the model axis for the step).
+that layout.  The KV caches stay split over the model axis: each rank
+attends over its own lines and the softmax is combined over the axis
+(``attention.KVSplit``); only the Mamba2 caches and ``enc_out`` are
+gathered for the step.
 """
 from __future__ import annotations
 
@@ -76,17 +79,16 @@ from ..core.spec import TORCH_DTYPES
 from ..devices import resolve_device
 from ..distributed.spmd import own_block
 from ..pytree import tree_flatten, tree_map, tree_unflatten
-from .attention import (KVCache, _sdpa, gqa_attention,
+from .attention import (WHOLE, KVCache, KVSplit, _sdpa, gqa_attention,
                         gqa_decode, gqa_decode_paged, gqa_prefill_paged,
                         init_gqa, init_mla, make_cache, make_paged_cache,
                         mla_attention, mla_decode, mla_decode_paged,
-                        mla_prefill_paged)
+                        mla_prefill_paged, token_writer)
 from .config import ModelConfig
 from .layers import (ORDER_FREE, MetaGen, _normal, apply_mlp, apply_norm,
                      chunked_ce_loss, embed_tokens, float_ops,
                      init_embeddings, init_mlp, init_norm, lm_logits)
 from .moe import init_moe, moe_block
-from .paged import paged_write_token
 from .ssm import (SSMCache, init_mamba2, make_ssm_cache, mamba2_decode,
                   mamba2_forward)
 
@@ -334,10 +336,10 @@ def _attn_fwd(lp, x, cfg, pol, positions, rt=None):
     return gqa_attention(lp, x, cfg, pol, positions, rt)
 
 
-def _attn_dec(lp, x, cfg, pol, cache, pos):
+def _attn_dec(lp, x, cfg, pol, cache, pos, split=WHOLE, inplace=False):
     if cfg.attn_kind == "mla":
-        return mla_decode(lp, x, cfg, pol, cache, pos)
-    return gqa_decode(lp, x, cfg, pol, cache, pos)
+        return mla_decode(lp, x, cfg, pol, cache, pos, split, inplace)
+    return gqa_decode(lp, x, cfg, pol, cache, pos, split, inplace)
 
 
 # Each block takes ``attn(attn params, normed x, pol) → (out, cache)``: the
@@ -875,12 +877,44 @@ def _serve_pols(bp: BlockPols, infer: bool) -> BlockPols:
         for v in [getattr(bp, f.name)]})
 
 
-def _cache_io(caches, rt: Runtime, paged: bool):
+def _kv_split(rt: Runtime) -> KVSplit:
+    """This rank's share of the KV caches under a mesh whose model axis
+    has more than one rank (the ``cache_specs`` block, the model group's
+    max and sum all-reduces); ``attention.WHOLE`` otherwise, when the
+    caches are whole."""
+    if rt.mesh is None:
+        return WHOLE
+    import torch.distributed as dist
+    from ..distributed.sharding import axis_group, axis_rank
+    from ..distributed.spmd import all_reduce_raw
+    grp = axis_group(rt.mesh, rt.model_axis)
+    if grp is None:
+        return WHOLE
+    return KVSplit(axis_rank(rt.mesh, rt.model_axis), rt.tp,
+                   functools.partial(all_reduce_raw, group=grp,
+                                     op=dist.ReduceOp.MAX),
+                   functools.partial(all_reduce_raw, group=grp))
+
+
+def _drop_kv(tree):
+    """``tree`` of caches with each :class:`KVCache` None."""
+    if isinstance(tree, KVCache):
+        return None
+    if isinstance(tree, dict):
+        return {k: _drop_kv(v) for k, v in tree.items()}
+    if type(tree) in (list, tuple):
+        return type(tree)(_drop_kv(v) for v in tree)
+    return tree
+
+
+def _cache_io(caches, rt: Runtime):
     """Under a mesh, ``io(t, spec, whole)`` takes a cache leaf ``t`` whole
     over the model axis (``whole``) or back to this rank's block of it
     (a copy, so the whole does not stay alive under a view), along the
-    dims where ``spec`` splits it; with the ``cache_specs`` of
-    ``caches``.  (None, None) without a mesh."""
+    dims where ``spec`` splits it; with the ``cache_specs`` of the
+    leaves that go through it, the Mamba2 caches and ``enc_out`` (None
+    for each KV cache, which stays split).  (None, None) without a
+    mesh."""
     if rt.mesh is None:
         return None, None
     from ..distributed.sharding import axis_group, cache_specs
@@ -894,12 +928,11 @@ def _cache_io(caches, rt: Runtime, paged: bool):
                     own_block(t, dim, grp)
                 t = b if whole or b is t else b.clone()
         return t
-    return io, cache_specs(caches, rt.data_axes, rt.model_axis,
-                           paged=paged)
+    return io, cache_specs(_drop_kv(caches), rt.data_axes, rt.model_axis)
 
 
 def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
-           paged=False, donate=False):
+           donate=False):
     """One serving forward: embed ``tok``, run every layer stack through
     the serving views (:class:`_ServePol`) with ``attn(lp, h, pol, cache)
     → (out, cache)`` and the Mamba2 decode step, then the final norm and
@@ -910,20 +943,23 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
     through unchanged (K and V are recomputed from ``enc_out``).
 
     Under a mesh the caches come and go in the ``cache_specs`` layout
-    (``paged`` the pool's); each layer's cache is gathered over the model
-    axis just before the layer's step and cut back to the rank's block
-    just after it, as the weights are, so one layer's cache at a time is
-    whole; the tokens are replicated over the model axis, the MoE layers'
-    experts split over it.
+    (the pool's for the paged steps).  The KV caches stay split over the
+    model axis: ``attn`` gets the rank's block of a layer's cache and
+    combines its attention over the axis (the callers hand it their
+    :func:`_kv_split`).  A Mamba2 layer's cache is gathered over the
+    model axis just before the layer's step and cut back to the rank's
+    block just after it, as the weights are; the tokens are replicated
+    over the model axis, the MoE layers' experts split over it.
 
     With ``donate`` (the JAX package's ``donate_argnums``) each layer's new
-    cache is copied into that layer's slice of the stacked input caches
-    (under a mesh: the rank's own block), and the caches returned are the
-    input tensors: no second stack of caches is built.  ``attn`` then
-    writes a paged pool in place.  Returns (logits, new caches)."""
+    cache goes into that layer's slice of the stacked input caches (under
+    a mesh: the rank's own block), and the caches returned are the input
+    tensors: no second stack of caches is built.  ``attn`` then writes
+    its KV lines in place; a Mamba2 cache is copied in.  Returns
+    (logits, new caches)."""
     plan = _model_plan(cfg)
     sh = rt.sharded(tok.shape[1])
-    io, specs = _cache_io(caches, rt, paged)
+    io, specs = _cache_io(caches, rt)
     if sh is not None:
         sh = sh.with_seq(False)
     x = embed_tokens(params["emb"], tok,
@@ -932,8 +968,9 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
     new_caches = dict(caches)
 
     def layer_cache(c, spec, whole):
-        """A layer's cache ``c`` (spec: the stacked caches')."""
-        if io is None:
+        """A layer's cache ``c`` (spec: the stacked caches', None for a
+        KV cache)."""
+        if io is None or spec is None:
             return c
         return type(c)(*(io(t, sp[1:], whole) for t, sp in zip(c, spec)))
 
@@ -1029,8 +1066,10 @@ def decode_step(params, tok, caches, pos, cfg: ModelConfig,
     :func:`_serve`); bit-equal to ``donate=False``.
     """
     _check_family(cfg, "decode_step")
+    split = _kv_split(rt)
     return _serve(params, tok, caches, cfg, rt, False,
-                  lambda ap, h, pol, c: _attn_dec(ap, h, cfg, pol, c, pos),
+                  lambda ap, h, pol, c: _attn_dec(ap, h, cfg, pol, c, pos,
+                                                  split, donate),
                   donate=donate)
 
 
@@ -1069,19 +1108,21 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
     return {"layers": stack(cfg.layers)}
 
 
-def _attn_dec_paged(lp, x, cfg, pol, cache, bt, pos, active, write):
+def _attn_dec_paged(lp, x, cfg, pol, cache, bt, pos, active, write, split):
     if cfg.attn_kind == "mla":
         return mla_decode_paged(lp, x, cfg, pol, cache, bt, pos, active,
-                                write)
-    return gqa_decode_paged(lp, x, cfg, pol, cache, bt, pos, active, write)
+                                write, split)
+    return gqa_decode_paged(lp, x, cfg, pol, cache, bt, pos, active, write,
+                            split)
 
 
-def _attn_prefill_paged(lp, x, cfg, pol, cache, bt_row, pos_base, n_valid):
+def _attn_prefill_paged(lp, x, cfg, pol, cache, bt_row, pos_base, n_valid,
+                        split):
     if cfg.attn_kind == "mla":
         return mla_prefill_paged(lp, x, cfg, pol, cache, bt_row, pos_base,
-                                 n_valid)
+                                 n_valid, split)
     return gqa_prefill_paged(lp, x, cfg, pol, cache, bt_row, pos_base,
-                             n_valid)
+                             n_valid, split)
 
 
 def decode_step_paged(params, tok, caches, bt, pos, active,
@@ -1095,34 +1136,25 @@ def decode_step_paged(params, tok, caches, bt, pos, active,
     numerics path (:class:`_ServePol`).  Returns (logits (B, 1, V), new
     caches).
 
-    Under a mesh every rank holds its data block of the slots, and the
+    Under a mesh every rank holds its data block of the slots and its
+    share of each block's lines (the model axis splits them), and the
     pool, replicated over the data axes, takes every data rank's new
-    lines, so that each replica holds what the one-device pool holds.
+    lines that the rank holds, so that each replica holds its share of
+    what the one-device pool holds.
 
     With ``donate`` the lines are written into the pool in place and the
     input caches are returned (see :func:`_serve`).
     """
     _check_paged(cfg, "decode_step_paged")
-    write = None
-    if donate:
-        def write(pages, vals):
-            return paged_write_token(pages, bt, pos, vals, active,
-                                     inplace=True)
-    if rt.mesh is not None:
-        sh = rt.sharded(tok.shape[1])
-        bt_all, pos_all, act_all = (sh.gather_data(t) for t in (
-            bt, pos, active.to(torch.int32)))
-        act_all = act_all.bool()
-
-        def write(pages, vals):
-            return paged_write_token(pages, bt_all, pos_all,
-                                     sh.gather_data(vals), act_all,
-                                     inplace=donate)
+    split = _kv_split(rt)
+    write = token_writer(bt, pos, active, split, donate, None
+                         if rt.mesh is None else
+                         rt.sharded(tok.shape[1]).gather_data)
     return _serve(params, tok, caches, cfg, rt, True,
                   lambda ap, h, pol, c: _attn_dec_paged(ap, h, cfg, pol, c,
                                                         bt, pos, active,
-                                                        write),
-                  paged=True, donate=donate)
+                                                        write, split),
+                  donate=donate)
 
 
 def prefill_chunk(params, tok, caches, bt_row, pos_base, n_valid,
@@ -1135,13 +1167,16 @@ def prefill_chunk(params, tok, caches, bt_row, pos_base, n_valid,
     into the slot's pages (cache splice) — prompt tokens never pass
     through the batched decode step.  Returns (logits (1, 1, V), new
     caches); the logits are those of position ``pos_base + n_valid - 1``
-    (what the first sampled continuation token conditions on).
+    (what the first sampled continuation token conditions on).  Under a
+    mesh each rank writes the chunk's lines it holds and attends over
+    its share of the pool (:func:`decode_step_paged`).
     """
     _check_paged(cfg, "prefill_chunk")
     # Only the last valid position's logits matter: slicing before the
     # head keeps the head's product at (1, 1, d) whatever the chunk.
     last = max(int(n_valid) - 1, 0)
+    split = _kv_split(rt)
     return _serve(params, tok, caches, cfg, rt, True,
                   lambda ap, h, pol, c: _attn_prefill_paged(
-                      ap, h, cfg, pol, c, bt_row, pos_base, n_valid),
-                  last=slice(last, last + 1), paged=True)
+                      ap, h, cfg, pol, c, bt_row, pos_base, n_valid, split),
+                  last=slice(last, last + 1))
