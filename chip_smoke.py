@@ -175,7 +175,12 @@ the result line:
    blocks, whole and as 16 ranks' shares of every block combined through
    ``combine_softmax`` (the reductions over a leading axis standing in
    for the model axis's all-reduces): equal within the fp32 tier, both
-   timed by CUDA events.
+   timed by CUDA events; (g) one Mamba2 decode layer at zamba2-7b's
+   widths (8 slots) and seamless-m4t-medium's cross-attention over 8 ×
+   4096 frames, under lns16-train-pallas (row 5), whole and as 16 ranks
+   as threads on one card, each stepping its block of the conv channels
+   and the state's heads or of the frames: equal within the fp32 tier,
+   the joined Mamba2 caches bit for bit, both timed by CUDA events.
 
 Phase 3 also holds the tiled ⊞-MAC past 65535 row tiles (262 149 rows).
 
@@ -3721,9 +3726,9 @@ def split_attention(torch, device, card, cfg=None, shape=SPLIT_SHAPE):
 
 class ThreadRanks:
     """``n`` ranks as threads of this process on one card: ``split(r)``
-    is rank r's ``attention.KVSplit``, whose max and sum reduce the
-    ranks' tensors stacked in rank order, as a model group's all-reduces
-    do."""
+    is rank r's ``attention.KVSplit``, whose max and sum reduce and whose
+    gather joins the ranks' tensors in rank order, as a model group's
+    collectives do."""
 
     def __init__(self, torch, n):
         import threading
@@ -3742,7 +3747,9 @@ class ThreadRanks:
         from repro_torch.nn.attention import KVSplit
         return KVSplit(rank, self.n,
                        lambda t: self._reduce(rank, t, lambda s: s.amax(0)),
-                       lambda t: self._reduce(rank, t, lambda s: s.sum(0)))
+                       lambda t: self._reduce(rank, t, lambda s: s.sum(0)),
+                       lambda t, dim: self._reduce(
+                           rank, t, lambda s: self.torch.cat(list(s), dim)))
 
     def run(self, fn):
         """``fn(rank)`` on every rank at once; the results in rank
@@ -3850,13 +3857,128 @@ def split_entry_points(torch, device, card, shape=SPLIT_SHAPE):
                                  "differ from the whole call's pool")
 
 
+#: 14g: (slots, encoder frames a slot, ranks the caches split over) of
+#: one Mamba2 decode layer at zamba2-7b's published widths and one
+#: cross-attention at seamless-m4t-medium's.
+SPLIT_SSM_SHAPE = (8, 4096, 16)
+SPLIT_SSM_ARCHS = ("zamba2-7b", "seamless-m4t-medium")
+SPLIT_SSM_NUMERICS = "lns16-train-pallas"
+SPLIT_SSM_REPS = 3
+
+
+def _split_gap(torch, got, want):
+    """(max |got - want|, max |want|, how many outputs differ)."""
+    gap = (got.float() - want.float()).abs().max().item()
+    return gap, want.float().abs().max().item(), int((got != want).sum())
+
+
+def split_ssm_xattn(torch, device, card, shape=SPLIT_SSM_SHAPE,
+                    archs=SPLIT_SSM_ARCHS):
+    """14g: ``mamba2_decode`` at ``archs[0]``'s widths and
+    ``_cross_attention`` at ``archs[1]``'s, under ``SPLIT_SSM_NUMERICS``
+    (their linears on row 5), each whole and as ``ranks`` threads on one
+    card each handed its ``KVSplit``: a rank steps its block of the conv
+    channels and the state's heads, joining the conv outputs and ``y``
+    by gathers, or projects K and V over its block of the frames and
+    combines its softmax.  Every rank's output within ``SPLIT_TIER`` of
+    the whole call's and all ranks' equal; the Mamba2 ranks' caches put
+    together equal to the whole call's, bit for bit.  Logs each path's
+    ms by CUDA events; returns the whole calls' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.numerics import get_policy
+    from repro_torch.nn import model as M
+    from repro_torch.nn import ssm as S
+    from repro_torch.nn.attention import init_gqa
+    slots, frames, ranks = shape
+    pol = M._ServePol(get_policy(SPLIT_SSM_NUMERICS), False)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device=device)
+    group = ThreadRanks(torch, ranks)
+    launches = {}
+
+    def check(tag, whole, split, what):
+        counted, counts = _counted(torch, whole)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        outs = group.run(split)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o[0], outs[0][0]) for o in outs):
+            raise AssertionError(f"14g {tag}: the ranks' outputs differ")
+        gap, top, differ = _split_gap(torch, outs[0][0], counted[0])
+        times = {"whole": time_host(torch, whole, SPLIT_SSM_REPS),
+                 f"{ranks} ranks": time_host(
+                     torch, lambda: group.run(split), SPLIT_SSM_REPS)}
+        log(f"14g split {tag}", f"{what}, {SPLIT_SSM_NUMERICS}: whole vs "
+            f"{ranks} ranks as threads on one card, max |diff| {gap:.3g} of "
+            f"max |out| {top:.4g} (tier {SPLIT_TIER:g}), {differ} of "
+            f"{counted[0].numel()} outputs differ; "
+            + "; ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + f" a call (CUDA events around {SPLIT_SSM_REPS} calls, the "
+            f"threads' start and the host's enqueueing included); whole "
+            f"call's launches {counts} on {card}")
+        if not gap <= SPLIT_TIER * top:
+            raise AssertionError(f"14g {tag}: split off by {gap} of {top}")
+        return counted, outs
+
+    cfg = get_config(archs[0])
+    with torch.no_grad():
+        p = S.init_mamba2(gen, cfg, torch.float32)
+        x = randn(slots, 1, cfg.d_model)
+        cache = S.SSMCache(*(randn(*t.shape) for t in S.make_ssm_cache(
+            cfg, slots, torch.float32, device)))
+        shares = [S.SSMCache(cache.conv.chunk(ranks, 2)[r].clone(),
+                             cache.state.chunk(ranks, 1)[r].clone())
+                  for r in range(ranks)]
+    s_cfg = cfg.ssm
+    d_in = s_cfg.expand * cfg.d_model
+
+    def mamba_split(r):
+        with torch.no_grad():
+            return S.mamba2_decode(p, x, cfg, pol, shares[r],
+                                   group.split(r))
+    (_, whole), outs = check(
+        "mamba2", lambda: S.mamba2_decode(p, x, cfg, pol, cache),
+        mamba_split, f"one Mamba2 decode layer at {cfg.name}'s widths "
+        f"(d_model {cfg.d_model}, {d_in // s_cfg.head_dim} heads × "
+        f"{s_cfg.head_dim}, d_state {s_cfg.d_state}), {slots} slots")
+    joined = [torch.cat([c[i] for _, c in outs], 2 - i) for i in range(2)]
+    caches_equal = all(torch.equal(j, w) for j, w in zip(joined, whole))
+    log("14g split mamba2", f"the {ranks} ranks' conv and state blocks put "
+        f"together equal to the whole call's caches: {caches_equal}")
+    if not caches_equal:
+        raise AssertionError("14g mamba2: the ranks' caches differ from "
+                             "the whole call's")
+    del p, cache, shares, whole, outs, joined
+
+    cfg = get_config(archs[1])
+    with torch.no_grad():
+        lp = init_gqa(gen, cfg, torch.float32)
+        q_in = randn(slots, 1, cfg.d_model)
+        enc_out = randn(slots, frames, cfg.d_model)
+        blocks = [c.clone() for c in enc_out.chunk(ranks, 1)]
+
+    def xattn_split(r):
+        with torch.no_grad():
+            return M._cross_attention(lp, q_in, blocks[r], cfg, pol,
+                                      split=group.split(r))
+    check("cross-attention", lambda: M._cross_attention(
+        lp, q_in, enc_out, cfg, pol), xattn_split,
+        f"{cfg.name}'s cross-attention (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads × {cfg.d_head}), {slots} slots × {frames} "
+        f"frames of enc_out")
+    return launches
+
+
 def phase14(torch, device, card, decode_launches=None):
     """Phase 14: the dry run (14a, 14b), the example twins (14c), row 1
     at 13d's shapes (14d; ``decode_launches``: 13d's row-1 launches),
-    buffer donation (14e) and decode attention split over ranks (14f).
-    The dry runs are child processes on the host's CPU, started first
-    and read after the card's work.  Returns 14e's
-    donating runs' launches."""
+    buffer donation (14e), decode attention split over ranks (14f) and
+    the Mamba2 step and cross-attention split over ranks (14g).  The dry
+    runs are child processes on the host's CPU, started first and read
+    after the card's work.  Returns 14e's donating runs' launches and
+    14g's whole calls' launches."""
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         runs = start_dryrun_cells(tmp)
@@ -3877,6 +3999,10 @@ def phase14(torch, device, card, decode_launches=None):
             split_attention(torch, device, card)
             split_entry_points(torch, device, card)
             log("14f split attention", f"in {time.time() - t1:.1f} s")
+            t1 = time.time()
+            split_launches = split_ssm_xattn(torch, device, card)
+            log("14g split mamba2 and cross-attention",
+                f"in {time.time() - t1:.1f} s")
             dryrun_cells(runs)
             log("14a dryrun", f"read {time.time() - t0:.1f} s after its "
                 f"start")
@@ -3886,7 +4012,7 @@ def phase14(torch, device, card, decode_launches=None):
                     proc.kill()
                     proc.communicate()
     log("14", f"phase 14 in {time.time() - t0:.1f} s")
-    return launches
+    return launches, split_launches
 
 
 def main() -> int:
@@ -4119,15 +4245,19 @@ def main() -> int:
             k["mesh_launches"] = mesh_launches[row]
     log("13", "JSON mesh_launches are phase 13's card runs through the "
         "one-rank mesh (13a-13d); launches include them")
-    donate_launches = phase14(torch, device, card,
-                              mesh_launches["lns_matmul_fused"])
+    donate_launches, split_launches = phase14(
+        torch, device, card, mesh_launches["lns_matmul_fused"])
     for k in kernels:
         row = k["name"]
         if row in donate_launches:
             k["launches"] += donate_launches[row]
             k["donate_launches"] = donate_launches[row]
+        if row in split_launches:
+            k["launches"] += split_launches[row]
+            k["split_launches"] = split_launches[row]
     log("14", "JSON donate_launches are 14e's donating runs on the card "
-        "(9c's step twice, 13d's paged decode); launches include them")
+        "(9c's step twice, 13d's paged decode), split_launches 14g's whole "
+        "Mamba2 layer and cross-attention; launches include them")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

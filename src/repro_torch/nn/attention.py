@@ -47,24 +47,27 @@ class KVCache(NamedTuple):
 class KVSplit(NamedTuple):
     """This rank's share of a decode cache split over ``n`` ranks, as
     ``distributed.sharding.cache_specs`` lays it out: the ``rank``-th
-    contiguous block of the sequence (dense caches) or of each block's
-    lines (the paged pool).  ``pmax`` / ``psum`` reduce a tensor
-    elementwise over the ranks (max, sum), each rank getting the result.
-    Under a mesh they are the model group's all-reduces; a test or a
-    single card can stand in ``n`` blocks for them.  A whole cache is
-    :data:`WHOLE`, one rank's."""
+    contiguous block of the sequence (dense KV caches, ``enc_out``), of
+    each block's lines (the paged pool), of the channels (a Mamba2 conv
+    cache) or of the heads (a Mamba2 state).  ``pmax`` / ``psum`` reduce
+    a tensor elementwise over the ranks (max, sum), each rank getting the
+    result; ``gather(t, dim)`` joins the ranks' ``t`` along ``dim`` in
+    rank order.  Under a mesh they are the model group's collectives; a
+    test or a single card can stand in ``n`` threads for them.  A whole
+    cache is :data:`WHOLE`, one rank's."""
     rank: int
     n: int
     pmax: Callable
     psum: Callable
+    gather: Callable
 
 
-def _same(t):
+def _same(t, *_):
     return t
 
 
-#: The whole cache: one rank, the reductions over it the identity.
-WHOLE = KVSplit(0, 1, _same, _same)
+#: The whole cache: one rank, the collectives over it the identity.
+WHOLE = KVSplit(0, 1, _same, _same, _same)
 
 
 # ------------------------------------------------------------- GQA -------

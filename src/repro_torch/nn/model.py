@@ -44,9 +44,11 @@ component the serving view of its runtime (:class:`_ServePol`), which
 takes the float reductions (norms, attention and cross-attention, MoE
 routing and routed experts) in the order-free float64 form of
 ``layers.ORDER_FREE``, so that a token's logits do not depend on the
-batch, chunk or cache width it is computed in.  The Mamba2 block's own
-conv, scan and gated norm stay float32, as in the JAX package (no paged
-engine serves the ssm and hybrid families).  Under the LNS specs every
+batch, chunk or cache width it is computed in.  The Mamba2 decode step
+takes its conv and C·h contractions in that form too (so that its heads
+split over a mesh give the one-device values); its scan in prefill, its
+elementwise ops and its gated norm stay float32, as in the JAX package
+(no paged engine serves the ssm and hybrid families).  Under the LNS specs every
 weight product is a ⊞-MAC, whose order is fixed, and the paged engine
 then reproduces the dense token-by-token oracle exactly; under the float
 specs the weight products are float32 matmuls, which round by shape, and
@@ -56,10 +58,10 @@ Under a :class:`Runtime` with a mesh, every entry point runs on the
 rank's shards (see :class:`Runtime`): ``loss_fn`` returns the global loss
 on every rank, ``prefill`` returns the rank's caches in the
 ``cache_specs`` layout, and the decode steps take and return caches in
-that layout.  The KV caches stay split over the model axis: each rank
-attends over its own lines and the softmax is combined over the axis
-(``attention.KVSplit``); only the Mamba2 caches and ``enc_out`` are
-gathered for the step.
+that layout.  No cache leaf is gathered over the model axis
+(``attention.KVSplit``): each rank attends over its own KV lines and its
+own frames of ``enc_out``, the softmax combined over the axis, and steps
+its own Mamba2 channels and heads.
 """
 from __future__ import annotations
 
@@ -79,9 +81,10 @@ from ..core.spec import TORCH_DTYPES
 from ..devices import resolve_device
 from ..distributed.spmd import own_block
 from ..pytree import tree_flatten, tree_map, tree_unflatten
-from .attention import (WHOLE, KVCache, KVSplit, _sdpa, gqa_attention,
-                        gqa_decode, gqa_decode_paged, gqa_prefill_paged,
-                        init_gqa, init_mla, make_cache, make_paged_cache,
+from .attention import (WHOLE, KVCache, KVSplit, _dense_share, _sdpa,
+                        _sdpa_split, gqa_attention, gqa_decode,
+                        gqa_decode_paged, gqa_prefill_paged, init_gqa,
+                        init_mla, make_cache, make_paged_cache,
                         mla_attention, mla_decode, mla_decode_paged,
                         mla_prefill_paged, token_writer)
 from .config import ModelConfig
@@ -384,29 +387,37 @@ def _ssm_block(lp, x, cfg, bp: BlockPols, mamba):
 
 
 def _xattn_block(lp, x, cfg, bp: BlockPols, attn, enc_out, sh=None,
-                 enc_sh=None):
+                 enc_sh=None, split: KVSplit = WHOLE):
     """Enc-dec decoder layer: self-attention, cross-attention over
     ``enc_out``, MLP; returns (x, (self cache, cross cache)).  ``sh`` /
     ``enc_sh``: the decoder's and the encoder's stream layouts under a
-    mesh."""
+    mesh; ``split``: in decode, this rank's share of ``enc_out``'s
+    frames (:func:`_cross_attention`)."""
     fl = float_ops(bp.attn)
     a, cache = attn(lp["attn"], apply_norm(lp["norm1"], x, cfg, fl=fl),
                     bp.attn)
     x = x + _res(x, a)
     q = apply_norm(lp["norm2"], x, cfg, fl=fl)
     xa, xcache = _cross_attention(lp["xattn"], q, enc_out, cfg, bp.xattn,
-                                  sh, enc_sh)
+                                  sh, enc_sh, split)
     x = x + _res(x, xa)
     x = x + _res(x, apply_mlp(lp["mlp"], apply_norm(lp["norm3"], x, cfg,
                                                     fl=fl), cfg, bp.mlp))
     return x, (cache, xcache)
 
 
-def _cross_attention(lp, q_in, enc_out, cfg, pol, sh=None, enc_sh=None):
+def _cross_attention(lp, q_in, enc_out, cfg, pol, sh=None, enc_sh=None,
+                     split: KVSplit = WHOLE):
     """Non-causal attention of decoder queries over the encoder memory:
     the banded SDPA with one band.  As in the JAX package, that band's
     keys are the first ``min(S, T)`` frames (its extent is the query
-    count S), so a one-token decode step attends to frame 0 only."""
+    count S), so a one-token decode step attends to frame 0 only.
+
+    With ``split`` (decode under a mesh) ``enc_out`` is this rank's
+    block of the frames: K and V are projected over it alone, the band
+    is masked by global frame index, and the softmax is combined over
+    the ranks (``attention.combine_softmax``; a rank whose frames all lie
+    past the band adds nothing)."""
     b, s, _ = q_in.shape
     t = enc_out.shape[1]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -415,8 +426,14 @@ def _cross_attention(lp, q_in, enc_out, cfg, pol, sh=None, enc_sh=None):
     v = pol.linear(enc_out, lp["wv"]).reshape(b, t, kv, hd)
     kr = torch.repeat_interleave(k, h // kv, dim=2)
     vr = torch.repeat_interleave(v, h // kv, dim=2)
-    o = _sdpa(q, kr, vr, hd ** -0.5, cfg.with_(causal=False), float_ops(pol),
-              sh, enc_sh)
+    if split.n > 1:
+        _, frames = _dense_share(enc_out, split)
+        mask = (frames < s)[None, None, None, None, :]
+        o = _sdpa_split(q.reshape(b, s, h, 1, hd), kr, vr, hd ** -0.5, mask,
+                        float_ops(pol), split.pmax, split.psum)
+    else:
+        o = _sdpa(q, kr, vr, hd ** -0.5, cfg.with_(causal=False),
+                  float_ops(pol), sh, enc_sh)
     o = o.reshape(b, s, h * hd)
     return pol.linear(o, lp["wo"]), KVCache(k, v)
 
@@ -878,61 +895,27 @@ def _serve_pols(bp: BlockPols, infer: bool) -> BlockPols:
 
 
 def _kv_split(rt: Runtime) -> KVSplit:
-    """This rank's share of the KV caches under a mesh whose model axis
-    has more than one rank (the ``cache_specs`` block, the model group's
-    max and sum all-reduces); ``attention.WHOLE`` otherwise, when the
-    caches are whole."""
+    """This rank's share of the decode caches under a mesh whose model
+    axis has more than one rank (the ``cache_specs`` block; the model
+    group's max and sum all-reduces and its all-gather);
+    ``attention.WHOLE`` otherwise, when the caches are whole."""
     if rt.mesh is None:
         return WHOLE
     import torch.distributed as dist
     from ..distributed.sharding import axis_group, axis_rank
-    from ..distributed.spmd import all_reduce_raw
+    from ..distributed.spmd import all_gather_raw, all_reduce_raw
     grp = axis_group(rt.mesh, rt.model_axis)
     if grp is None:
         return WHOLE
     return KVSplit(axis_rank(rt.mesh, rt.model_axis), rt.tp,
                    functools.partial(all_reduce_raw, group=grp,
                                      op=dist.ReduceOp.MAX),
-                   functools.partial(all_reduce_raw, group=grp))
+                   functools.partial(all_reduce_raw, group=grp),
+                   functools.partial(all_gather_raw, group=grp))
 
 
-def _drop_kv(tree):
-    """``tree`` of caches with each :class:`KVCache` None."""
-    if isinstance(tree, KVCache):
-        return None
-    if isinstance(tree, dict):
-        return {k: _drop_kv(v) for k, v in tree.items()}
-    if type(tree) in (list, tuple):
-        return type(tree)(_drop_kv(v) for v in tree)
-    return tree
-
-
-def _cache_io(caches, rt: Runtime):
-    """Under a mesh, ``io(t, spec, whole)`` takes a cache leaf ``t`` whole
-    over the model axis (``whole``) or back to this rank's block of it
-    (a copy, so the whole does not stay alive under a view), along the
-    dims where ``spec`` splits it; with the ``cache_specs`` of the
-    leaves that go through it, the Mamba2 caches and ``enc_out`` (None
-    for each KV cache, which stays split).  (None, None) without a
-    mesh."""
-    if rt.mesh is None:
-        return None, None
-    from ..distributed.sharding import axis_group, cache_specs
-    from ..distributed.spmd import all_gather_raw
-    grp = axis_group(rt.mesh, rt.model_axis)
-
-    def io(t, spec, whole):
-        for dim, entry in enumerate(spec):
-            if entry == rt.model_axis:
-                b = all_gather_raw(t, dim, grp) if whole else \
-                    own_block(t, dim, grp)
-                t = b if whole or b is t else b.clone()
-        return t
-    return io, cache_specs(_drop_kv(caches), rt.data_axes, rt.model_axis)
-
-
-def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
-           donate=False):
+def _serve(params, tok, caches, cfg, rt, infer, attn, split=WHOLE,
+           last=None, donate=False):
     """One serving forward: embed ``tok``, run every layer stack through
     the serving views (:class:`_ServePol`) with ``attn(lp, h, pol, cache)
     → (out, cache)`` and the Mamba2 decode step, then the final norm and
@@ -943,13 +926,14 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
     through unchanged (K and V are recomputed from ``enc_out``).
 
     Under a mesh the caches come and go in the ``cache_specs`` layout
-    (the pool's for the paged steps).  The KV caches stay split over the
-    model axis: ``attn`` gets the rank's block of a layer's cache and
-    combines its attention over the axis (the callers hand it their
-    :func:`_kv_split`).  A Mamba2 layer's cache is gathered over the
-    model axis just before the layer's step and cut back to the rank's
-    block just after it, as the weights are; the tokens are replicated
-    over the model axis, the MoE layers' experts split over it.
+    (the pool's for the paged steps), and no leaf is gathered over the
+    model axis: each rank steps its own share (``split``, the callers'
+    :func:`_kv_split`).  ``attn`` gets the rank's block of a layer's KV
+    cache and combines its attention over the axis; the Mamba2 step its
+    block of the channels and heads (``ssm.mamba2_decode``); the
+    cross-attention its frames of ``enc_out`` (:func:`_cross_attention`).
+    The tokens are replicated over the model axis, the weights gathered
+    around their use, the MoE layers' experts split over it.
 
     With ``donate`` (the JAX package's ``donate_argnums``) each layer's new
     cache goes into that layer's slice of the stacked input caches (under
@@ -959,7 +943,6 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
     (logits, new caches)."""
     plan = _model_plan(cfg)
     sh = rt.sharded(tok.shape[1])
-    io, specs = _cache_io(caches, rt)
     if sh is not None:
         sh = sh.with_seq(False)
     x = embed_tokens(params["emb"], tok,
@@ -967,23 +950,14 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
                      scatter=False)
     new_caches = dict(caches)
 
-    def layer_cache(c, spec, whole):
-        """A layer's cache ``c`` (spec: the stacked caches', None for a
-        KV cache)."""
-        if io is None or spec is None:
-            return c
-        return type(c)(*(io(t, sp[1:], whole) for t, sp in zip(c, spec)))
-
-    def run(x, lps, cs, prefix, kinds, block, fn, spec):
+    def run(x, lps, cs, prefix, kinds, block, fn):
         bp = _serve_pols(_block_pols(plan, prefix, *kinds), infer)
         out = []
         for lp, c in zip(lps, cs):
             if sh is not None:
                 lp = sh.full(lp, prefix)
-            cw = layer_cache(c, spec, True)
             x, c2 = block(lp, x, cfg, bp,
-                          lambda p_, h, pol, c=cw: fn(p_, h, pol, c))[:2]
-            c2 = layer_cache(c2, spec, False)
+                          lambda p_, h, pol, c=c: fn(p_, h, pol, c))[:2]
             if donate:
                 with torch.no_grad():
                     for old, new in zip(c, c2):
@@ -994,13 +968,12 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
         return x, out
 
     def mamba(mp, h, pol, c):
-        return mamba2_decode(mp, h, cfg, pol, c)
+        return mamba2_decode(mp, h, cfg, pol, c, split)
 
     def stack(prefix, kinds, block, fn):
         nonlocal x
         x, out = run(x, _unstack(params[prefix]),
-                     _layer_caches(caches[prefix]), prefix, kinds, block, fn,
-                     specs and specs[prefix])
+                     _layer_caches(caches[prefix]), prefix, kinds, block, fn)
         new_caches[prefix] = caches[prefix] if donate else \
             _stack_caches(out)
 
@@ -1018,12 +991,10 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
         ssm_c, kv = [], []
         for g in range(groups):
             x, out = run(x, lps[g * k:(g + 1) * k], cs[g * k:(g + 1) * k],
-                         "layers", ("mamba",), _ssm_block, mamba,
-                         specs and specs["layers"])
+                         "layers", ("mamba",), _ssm_block, mamba)
             ssm_c += out
             x, out = run(x, [params["shared_attn"]], shared[g:g + 1],
-                         "shared_attn", ("attn", "mlp"), _dense_block, attn,
-                         specs and specs["shared_attn"])
+                         "shared_attn", ("attn", "mlp"), _dense_block, attn)
             kv += out
         if not donate:
             new_caches["layers"] = _stack_caches(ssm_c, caches["layers"])
@@ -1033,15 +1004,13 @@ def _serve(params, tok, caches, cfg, rt, infer, attn, last=None,
             stack("tail_layers", ("mamba",), _ssm_block, mamba)
     elif fam in ("encdec", "audio"):
         self_c, cross_c = caches["layers"]
-        enc_out = caches["enc_out"] if io is None else io(
-            caches["enc_out"], specs["enc_out"], True)
 
         def block(lp, h, cfg_, bp, fn):
-            h, (c, _) = _xattn_block(lp, h, cfg_, bp, fn, enc_out)
+            h, (c, _) = _xattn_block(lp, h, cfg_, bp, fn, caches["enc_out"],
+                                     split=split)
             return h, c
         x, out = run(x, _unstack(params["layers"]), _layer_caches(self_c),
-                     "layers", ("attn", "mlp", "xattn"), block, attn,
-                     specs and specs["layers"][0])
+                     "layers", ("attn", "mlp", "xattn"), block, attn)
         if not donate:
             new_caches["layers"] = (_stack_caches(out), cross_c)
     else:
@@ -1070,7 +1039,7 @@ def decode_step(params, tok, caches, pos, cfg: ModelConfig,
     return _serve(params, tok, caches, cfg, rt, False,
                   lambda ap, h, pol, c: _attn_dec(ap, h, cfg, pol, c, pos,
                                                   split, donate),
-                  donate=donate)
+                  split, donate=donate)
 
 
 # ------------------------------------------------- paged serving ---------
@@ -1154,7 +1123,7 @@ def decode_step_paged(params, tok, caches, bt, pos, active,
                   lambda ap, h, pol, c: _attn_dec_paged(ap, h, cfg, pol, c,
                                                         bt, pos, active,
                                                         write, split),
-                  donate=donate)
+                  split, donate=donate)
 
 
 def prefill_chunk(params, tok, caches, bt_row, pos_base, n_valid,
@@ -1179,4 +1148,4 @@ def prefill_chunk(params, tok, caches, bt_row, pos_base, n_valid,
     return _serve(params, tok, caches, cfg, rt, True,
                   lambda ap, h, pol, c: _attn_prefill_paged(
                       ap, h, cfg, pol, c, bt_row, pos_base, n_valid, split),
-                  last=slice(last, last + 1))
+                  split, last=slice(last, last + 1))

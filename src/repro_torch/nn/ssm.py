@@ -6,13 +6,19 @@ scan splits the sequence into chunks: quadratic attention-like compute
 within a chunk + a linear inter-chunk state scan (a loop over chunks,
 where the JAX package runs ``lax.scan``).
 
-Decode keeps (conv_state, ssd_state) per layer: O(1) per token.
+Decode keeps (conv_state, ssd_state) per layer: O(1) per token.  Under
+a mesh each rank keeps its block of the conv channels and of the state's
+heads and steps them alone (:func:`mamba2_decode`'s ``split``).
 
 The two projections (``in_proj``, ``out_proj``) go through the numerics
 runtime's ``linear`` (the ⊞-MAC under the LNS train modes); the conv, the
 scan, the softplus and the gated norm are float32 tensor ops, as the JAX
-package computes them in jnp, in every path (the serving views' order-free
-float reductions do not reach them).  The multi-operand einsums of the
+package computes them in jnp.  The decode step alone takes its two
+contractions (the conv over its window, C·h over the state) from its
+runtime's float reductions (``layers.float_ops``): the serving views'
+order-free float64 form, so that a head's or a channel's value does not
+depend on how many share the call (a card's batched float32 contraction
+orders its sums by the batch count).  The multi-operand einsums of the
 JAX package are written here as fixed pairwise contractions: the same
 values up to float32 rounding.
 """
@@ -23,8 +29,9 @@ from typing import NamedTuple
 import torch
 
 from ..core.numerics import NumericsPolicy
+from .attention import WHOLE, KVSplit
 from .config import ModelConfig
-from .layers import _normal
+from .layers import _normal, float_ops
 
 
 class SSMCache(NamedTuple):
@@ -189,32 +196,60 @@ def mamba2_forward(p, x, cfg: ModelConfig, pol: NumericsPolicy
     return _gated_out(p, y, z, cfg, pol), SSMCache(conv_tail, final)
 
 
+def _own(extent: int, split: KVSplit, leaf: str) -> slice:
+    """This rank's contiguous block of ``extent`` entries (all of them
+    for ``WHOLE``); raises where the ranks cannot share them evenly."""
+    if extent % split.n:
+        raise ValueError(f"{leaf}: {extent} do not divide over {split.n} "
+                         f"ranks of the model axis")
+    c = extent // split.n
+    return slice(split.rank * c, (split.rank + 1) * c)
+
+
 def mamba2_decode(p, x, cfg: ModelConfig, pol: NumericsPolicy,
-                  cache: SSMCache) -> "tuple[torch.Tensor, SSMCache]":
-    """One-token recurrent step: h ← exp(ΔtA)·h + Δt·x⊗B; y = C·h + D·x."""
+                  cache: SSMCache, split: KVSplit = WHOLE
+                  ) -> "tuple[torch.Tensor, SSMCache]":
+    """One-token recurrent step: h ← exp(ΔtA)·h + Δt·x⊗B; y = C·h + D·x.
+
+    With ``split`` (under a mesh: the model axis) ``cache`` is this
+    rank's share in the ``cache_specs`` layout, its block of the conv
+    channels and of the state's heads, and so is the cache returned.
+    The projections run whole (the token is replicated over the ranks);
+    the rank convolves its own channels and updates its own heads, and
+    two gathers join the ranks' conv outputs (each head reads the whole
+    B and C rows) and ``y`` (the gated norm and ``out_proj`` read all of
+    it).  The activations and the per-head Δt and decay are taken on the
+    whole tensors, as the one-rank step takes them, and the two
+    contractions by ``pol``'s float reductions (order-free under the
+    serving views), so a rank's caches hold the same values as its block
+    of the one-rank step's."""
     s_cfg, d_in, nh, conv_dim = _dims(cfg)
     b = x.shape[0]
     g, n, hd = s_cfg.n_groups, s_cfg.d_state, s_cfg.head_dim
+    ch = _own(conv_dim, split, "the Mamba2 conv cache's channels")
+    hs = _own(nh, split, "the Mamba2 state's heads")
     z, xbc_raw, dt = _split_proj(p, x, cfg, pol)       # (B,1,·)
-    window = torch.cat([cache.conv, xbc_raw], dim=1)   # (B,K,C)
-    conv = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
-    xbc = torch.nn.functional.silu(conv)               # (B,C)
-    xh = xbc[..., :d_in].reshape(b, nh, hd)
+    window = torch.cat([cache.conv, xbc_raw[..., ch]], dim=1)  # (B,K,C/n)
+    fl = float_ops(pol)
+    conv = fl.einsum("bkc,kc->bc", window, p["conv_w"][:, ch]) \
+        + p["conv_b"][ch]
+    xbc = torch.nn.functional.silu(split.gather(conv, 1))     # (B,C)
+    xh = xbc[..., :d_in].reshape(b, nh, hd)[:, hs]
     bvec = xbc[..., d_in:d_in + g * n].reshape(b, g, n)
     cvec = xbc[..., d_in + g * n:].reshape(b, g, n)
     rep = nh // g
-    bvec = torch.repeat_interleave(bvec, rep, dim=1)
-    cvec = torch.repeat_interleave(cvec, rep, dim=1)
+    bvec = torch.repeat_interleave(bvec, rep, dim=1)[:, hs]
+    cvec = torch.repeat_interleave(cvec, rep, dim=1)[:, hs]
     dt = softplus(dt[:, 0].to(torch.float32)
                   + p["dt_bias"].to(torch.float32))    # (B,H)
     a = -torch.exp(p["A_log"].to(torch.float32))
-    decay = torch.exp(dt * a[None, :]).to(x.dtype)     # (B,H)
-    upd = (dt.to(x.dtype)[:, :, None] * xh)[..., None] \
-        * bvec[:, :, None, :]                          # (B,H,P,N)
+    decay = torch.exp(dt * a[None, :]).to(x.dtype)[:, hs]     # (B,H/n)
+    upd = (dt[:, hs].to(x.dtype)[:, :, None] * xh)[..., None] \
+        * bvec[:, :, None, :]                          # (B,H/n,P,N)
     state = cache.state * decay[..., None, None] + upd
-    y = torch.einsum("bhpn,bhn->bhp", state, cvec)
-    y = y + xh * p["D"].to(xh.dtype)[None, :, None]
-    y = y.reshape(b, 1, d_in)
+    y = fl.einsum("bhpn,bhn->bhp", state, cvec)
+    y = y + xh * p["D"][hs].to(xh.dtype)[None, :, None]
+    y = split.gather(y.reshape(b, -1), 1).reshape(b, 1, d_in)
     out = _gated_out(p, y, z[:, :1], cfg, pol)
     return out, SSMCache(window[:, 1:], state)
 

@@ -21,10 +21,12 @@ tensors in rank order (:class:`Ranks`):
   handed its share through ``nn/model.py: _kv_split``;
 * R blocks stacked on a leading axis in one call, as ``chip_smoke.py``
   14f runs them on the card;
-* on a fake (2, 2) world a small olmo-1b ``decode_32k`` cell's
-  all-gathers are the parameters' and the slots' inputs' over the data
-  axis alone (no cache line), and its all-reduces the embedding's and
-  each layer's max and float64 sums.
+* on a fake (2, 2) world a small ``decode_32k`` cell of olmo-1b,
+  mamba2-370m and seamless-m4t-medium gathers no cache line, no Mamba2
+  cache and no ``enc_out``: its all-gathers are the parameters', the
+  paged slots' inputs over the data axis and the Mamba2 layers'
+  activations, its all-reduces the embedding's and each attention's max
+  and float64 sums.
 """
 import threading
 
@@ -53,8 +55,8 @@ TIER = 1e-5
 
 class Ranks:
     """``n`` ranks as threads of this process; ``split(r)`` is rank r's
-    share, its reductions over the ranks' tensors stacked in rank
-    order."""
+    share, its reductions and its gather over the ranks' tensors stacked
+    in rank order."""
 
     def __init__(self, n):
         self.n = n
@@ -73,7 +75,9 @@ class Ranks:
                          lambda t: self._reduce(rank, t,
                                                 lambda s: s.amax(0)),
                          lambda t: self._reduce(rank, t,
-                                                lambda s: s.sum(0)))
+                                                lambda s: s.sum(0)),
+                         lambda t, dim: self._reduce(
+                             rank, t, lambda s: torch.cat(list(s), dim)))
 
     def run(self, fn):
         """``fn(rank)`` on every rank at once; the results in rank
@@ -370,22 +374,11 @@ def _gather_wire(local_bytes, sizes):
     return wire
 
 
-def test_fake_world_decode_gathers_no_cache():
-    """A small olmo-1b ``decode_32k`` cell on a fake (2, 2) world: the
-    all-gathers are the parameters' (every leaf but the token table, which
-    the vocab-parallel lookup reads in place) and the slots' tables,
-    positions, active flags and new K/V lines over ``data`` (the pool's
-    replicas), nothing of the cache; the all-reduces are the embedding's
-    and, a layer, the combine's max (float32) and its two float64 sums."""
-    cfg = _cfg("olmo-1b").with_(numerics=tconfigs.get_config(
-        "olmo-1b").numerics)
-    cell = ShapeCell("decode_32k", 256, 4, "decode")
-    with D.fake_world((2, 2), ("data", "model")) as mesh:
-        rec = D.run_cell(cfg, cell, mesh)
-    assert rec["ok"]
-    scfg = cfg.with_(param_dtype="bfloat16")
+def _param_wire(scfg, sizes):
+    """Bytes on the wire of gathering every parameter a decode step of
+    ``scfg`` reads but the token table, which the vocab-parallel lookup
+    reads in place (the encoder's are not read: ``enc_out`` is given)."""
     params = init_params(0, scfg, device="meta")
-    sizes = {"data": 2, "model": 2}
     want = 0.0
 
     def leaves(tree, prefix=""):
@@ -397,7 +390,8 @@ def test_fake_world_decode_gathers_no_cache():
                 yield path, v
     specs = dict(leaves(param_specs(params)))
     for path, t in leaves(params):
-        if path == "emb/tok" and not scfg.tie_embeddings:
+        if path == "emb/tok" and not scfg.tie_embeddings or \
+                path.startswith(("enc_layers/", "frontend_proj")):
             continue
         axes = [a for e in specs[path] for a in reversed(_entry_axes(e))]
         n = 1
@@ -405,18 +399,54 @@ def test_fake_world_decode_gathers_no_cache():
             n *= sizes[a]
         want += _gather_wire(t.numel() * t.element_size() / n,
                              [sizes[a] for a in axes])
-    b, w = cell.global_batch, -(-cell.seq_len // 128)
-    lines = b * scfg.n_kv_heads * scfg.d_head * 2
-    want += sum(wire_bytes("all-gather", nb, 2) for nb in (
-        b * w * 4, b * 4, b * 4)) + scfg.layers * 2 * wire_bytes(
-            "all-gather", lines, 2)
-    coll = rec["collectives"]
-    print(f"\nall-gather {coll['all-gather']:.0f} B (parameters and "
-          f"inputs {want:.0f}), all-reduce {coll['all-reduce']:.0f} B")
-    assert coll["all-gather"] == want
-    bl, h, hd = b // 2, scfg.n_heads, scfg.d_head
-    combine = wire_bytes("all-reduce", bl * h * 4, 2) + wire_bytes(
+    return want
+
+
+def _combine_wire(bl, h, hd):
+    """One attention's combine over 2 ranks: its max (float32) and its
+    two float64 sums."""
+    return wire_bytes("all-reduce", bl * h * 4, 2) + wire_bytes(
         "all-reduce", bl * h * 8, 2) + wire_bytes("all-reduce",
                                                   bl * h * hd * 8, 2)
-    emb = wire_bytes("all-reduce", bl * scfg.d_model * 2, 2)
-    assert coll["all-reduce"] == emb + scfg.layers * combine
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m",
+                                  "seamless-m4t-medium"])
+def test_fake_world_decode_gathers_no_cache(arch):
+    """A small ``decode_32k`` cell on a fake (2, 2) world gathers no
+    cache leaf and no ``enc_out``.  The all-gathers are the parameters'
+    and, by family: olmo-1b's paged step the slots' tables, positions,
+    active flags and new K/V lines over ``data`` (the pool's replicas);
+    mamba2-370m's dense step, a layer, its conv outputs and its ``y``
+    over ``model``; seamless-m4t-medium's nothing more.  The all-reduces
+    are the embedding's and each self- and cross-attention's combine."""
+    cfg = _cfg(arch).with_(numerics=tconfigs.get_config(arch).numerics)
+    cell = ShapeCell("decode_32k", 256, 4, "decode")
+    with D.fake_world((2, 2), ("data", "model")) as mesh:
+        rec = D.run_cell(cfg, cell, mesh)
+    assert rec["ok"]
+    scfg = cfg.with_(param_dtype="bfloat16")
+    want = _param_wire(scfg, {"data": 2, "model": 2})
+    b, bl = cell.global_batch, cell.global_batch // 2
+    h, hd = scfg.n_heads, scfg.d_head
+    reduce = wire_bytes("all-reduce", bl * scfg.d_model * 2, 2)
+    if scfg.family == "dense":
+        w = -(-cell.seq_len // 128)
+        lines = b * scfg.n_kv_heads * scfg.d_head * 2
+        want += sum(wire_bytes("all-gather", nb, 2) for nb in (
+            b * w * 4, b * 4, b * 4)) + scfg.layers * 2 * wire_bytes(
+                "all-gather", lines, 2)
+        reduce += scfg.layers * _combine_wire(bl, h, hd)
+    elif scfg.family == "ssm":
+        s = scfg.ssm
+        d_in = s.expand * scfg.d_model
+        conv = d_in + 2 * s.n_groups * s.d_state
+        want += scfg.layers * sum(wire_bytes("all-gather", bl * c * 2, 2)
+                                  for c in (conv, d_in))
+    else:
+        reduce += scfg.encdec.n_dec_layers * 2 * _combine_wire(bl, h, hd)
+    coll = rec["collectives"]
+    print(f"\nall-gather {coll['all-gather']:.0f} B (expected {want:.0f}), "
+          f"all-reduce {coll['all-reduce']:.0f} B (expected {reduce:.0f})")
+    assert coll["all-gather"] == want
+    assert coll["all-reduce"] == reduce

@@ -7,8 +7,9 @@ port's one-device decode from the same parameters, ``fp32``
 Six ``decode_step`` steps teacher-forced through the same tokens (batch
 2, caches of 8 positions and, for the enc-dec family, 8 frames), and for
 olmo-1b ``decode_step_paged`` over a pool of 4-line blocks: the caches
-come and go in the ``cache_specs`` layout, and each layer's cache is
-gathered over ``model`` only around its own step.  Four of the cases run
+come and go in the ``cache_specs`` layout and no leaf is gathered over
+``model``: each rank steps its own block of every KV cache, Mamba2 cache
+and ``enc_out``.  Four of the cases run
 again with ``donate=True`` and equal the functional mesh run bit for
 bit.  Every step's logits
 and every final cache leaf, gathered whole, within 1e-5 × the largest
